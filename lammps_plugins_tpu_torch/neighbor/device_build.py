@@ -1,0 +1,537 @@
+"""On-device neighbor rebuild with fixed shapes (port of
+lammps_plugins_tpu/neighbor/device_build.py, default path).
+
+Wrap, two-stage ghost compaction, fine-grid candidate generation from a
+packed (x|y|z|type|id) cell table, per-tier K-nearest selection
+(ops/select_k.py, CUDA kernel D), the mirror-edge tables with their
+[K, Np] transposes, and the fractional coarse cell grid for the LJ tier
+with the `aslot` inverse table.  Every array has a shape fixed by the
+host-side RebuildPlan: compaction is a masked cumsum into a fixed
+capacity (no data-dependent `nonzero` shapes), and running past a
+capacity sets an overflow flag that the Engine checks, re-sizes and
+retries on.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..core.box import Box, matvec3
+from ..ops.select_k import select_k
+from .build import CellData, NeighborData
+from .neighbor import Ghosts, NeighborList
+
+BIG = float("inf")
+
+
+@dataclasses.dataclass(frozen=True)
+class RebuildPlan:
+    """Static geometry + capacities of one rebuild shape."""
+
+    shifts: Tuple[Tuple[int, int, int], ...]   # candidate image shifts
+    margins: Tuple[float, float, float]        # fractional ghost margins
+    grid_mn: Tuple[float, float, float]        # Cartesian grid origin
+    ghost_capacity: int
+    cand_dims: Tuple[int, int, int]            # fine grid ([N, K] tiers)
+    cand_size: float
+    cand_capacity: int                         # Cf
+    k_caps: Tuple[Tuple[str, int], ...]        # per-tier K
+    cell_dims: Tuple[int, int, int]            # coarse grid incl. halo ring
+    cell_size: float
+    cell_capacity: int                         # C
+    cell_tiers: Tuple[str, ...]
+    list_cut: float
+    skin: float
+    mirror_tiers: Tuple[str, ...] = ()
+    cell_mn: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    a_range: Tuple[Tuple[int, int], ...] = ((0, 0), (0, 0), (0, 0))
+    periodic: Tuple[bool, bool, bool] = (True, True, True)
+    lo_ref: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    bnd_capacity: int = 0                      # two-stage ghost compaction
+    cell_frac: bool = False                    # fractional coarse cells
+
+
+def make_plan(box: Box, requests: Dict[str, np.ndarray], skin: float,
+              ghost_count: int, max_cell_occupancy: int,
+              k_counts: Dict[str, int], slack: float = 1.3,
+              cell_tiers: Tuple[str, ...] = (),
+              cand_occupancy: int | None = None,
+              mirror_tiers: Tuple[str, ...] = (),
+              k_final: bool = False, frac_cells: bool = True,
+              bnd_count: int = 0) -> RebuildPlan:
+    """Static geometry + padded capacities from measured counts.
+
+    k_final=True takes k_counts as exact K capacities (rounded up to 4)."""
+    cuts = {k: np.asarray(v, np.float64) for k, v in requests.items()}
+    list_cut = max(float(v.max()) for v in cuts.values()) + skin
+    knames = [k for k in cuts if k not in cell_tiers]
+    cand_size = (max(float(cuts[k].max()) for k in knames) + skin
+                 if knames else list_cut)
+    cell_size = (max(float(cuts[k].max()) for k in cell_tiers) + skin
+                 if cell_tiers else list_cut)
+
+    widths = box.perpendicular_widths_np()
+    gmargin = list_cut + 1e-3
+    margins = tuple(float(gmargin / widths[d]) if box.periodic[d] else 0.0
+                    for d in range(3))
+    nrep = [int(np.ceil(gmargin / widths[d])) if box.periodic[d] else 0
+            for d in range(3)]
+    shifts = tuple((sx, sy, sz)
+                   for sx in range(-nrep[0], nrep[0] + 1)
+                   for sy in range(-nrep[1], nrep[1] + 1)
+                   for sz in range(-nrep[2], nrep[2] + 1)
+                   if (sx, sy, sz) != (0, 0, 0))
+
+    h = box.h_np()
+    lo = box.lo_np()
+    corners = np.array([lo + np.array([a, b, c]) @ h
+                        for a in (-margins[0], 1 + margins[0])
+                        for b in (-margins[1], 1 + margins[1])
+                        for c in (-margins[2], 1 + margins[2])])
+    mn = corners.min(axis=0) - 1e-6
+    mx = corners.max(axis=0) + 1e-6
+    cand_dims = tuple(int(np.ceil((mx[d] - mn[d]) / cand_size))
+                      for d in range(3))
+    cell_mn = tuple(float(mn[d] - cell_size) for d in range(3))
+    cell_dims = tuple(int(np.ceil((mx[d] - mn[d]) / cell_size)) + 2
+                      for d in range(3))
+    pcorners = np.array([lo + np.array([a, b, c]) @ h
+                         for a in (0.0, 1.0) for b in (0.0, 1.0)
+                         for c in (0.0, 1.0)])
+    eps = 1e-4 * cell_size + 1e-3
+    pmn = pcorners.min(axis=0) - eps
+    pmx = pcorners.max(axis=0) + eps
+    a_range = []
+    for d in range(3):
+        a0 = max(int(np.floor((pmn[d] - cell_mn[d]) / cell_size)), 1)
+        a1 = min(int(np.floor((pmx[d] - cell_mn[d]) / cell_size)) + 1,
+                 cell_dims[d] - 1)
+        if not (1 <= a0 < a1 <= cell_dims[d] - 1):
+            raise ValueError(f"A-range dim {d}: [{a0},{a1}) outside "
+                             f"halo-safe [1,{cell_dims[d] - 1})")
+        a_range.append((a0, a1))
+    a_range = tuple(a_range)
+
+    # fractional coarse cells: the interior grid tiles the prism exactly
+    cell_frac = False
+    if frac_cells and cell_tiers and all(box.periodic):
+        m_frac = [int(np.floor(widths[d] / gmargin)) for d in range(3)]
+        if all(m >= 1 for m in m_frac):
+            cell_frac = True
+            cell_dims = tuple(m + 2 for m in m_frac)
+            a_range = tuple((1, m + 1) for m in m_frac)
+
+    def pad8(v):
+        return max(8, int(-(-int(v * slack) // 8) * 8))
+
+    if cand_occupancy is None:
+        cand_occupancy = int(max_cell_occupancy
+                             * (cand_size / cell_size) ** 3) + 4
+    return RebuildPlan(
+        shifts=shifts, margins=margins, grid_mn=tuple(mn),
+        lo_ref=tuple(float(v) for v in lo),
+        ghost_capacity=pad8(max(ghost_count, 8)),
+        cand_dims=cand_dims, cand_size=cand_size,
+        cand_capacity=pad8(max(cand_occupancy, 2)),
+        k_caps=tuple(sorted(
+            (k, max(8, -(-int(v) // 4) * 4) if k_final else pad8(v))
+            for k, v in k_counts.items() if k not in cell_tiers)),
+        cell_dims=cell_dims, cell_size=cell_size,
+        cell_capacity=max(8, -(-int(max(max_cell_occupancy, 4) * 1.03 + 2)
+                               // 8) * 8),
+        cell_tiers=tuple(sorted(cell_tiers)),
+        list_cut=list_cut, skin=skin,
+        mirror_tiers=tuple(sorted(mirror_tiers)),
+        cell_mn=cell_mn, a_range=a_range, cell_frac=cell_frac,
+        periodic=tuple(bool(p) for p in box.periodic),
+        bnd_capacity=pad8(bnd_count) if bnd_count > 0 else 0)
+
+
+def make_plan_from_density(box: Box, requests: Dict[str, np.ndarray],
+                           skin: float, natoms: int, slack: float = 1.6,
+                           cell_tiers: Tuple[str, ...] = (),
+                           mirror_tiers: Tuple[str, ...] = ()
+                           ) -> RebuildPlan:
+    """Capacities from the mean density (no host neighbor build); the
+    rebuild's overflow flags catch underestimates."""
+    cuts = {k: np.asarray(v, np.float64) for k, v in requests.items()}
+    list_cut = max(float(v.max()) for v in cuts.values()) + skin
+    knames = [k for k in cuts if k not in cell_tiers]
+    cand_size = (max(float(cuts[k].max()) for k in knames) + skin
+                 if knames else list_cut)
+    cell_size = (max(float(cuts[k].max()) for k in cell_tiers) + skin
+                 if cell_tiers else list_cut)
+    vol = abs(np.linalg.det(box.h_np()))
+    rho = natoms / vol
+    widths = box.perpendicular_widths_np()
+    margins = [(list_cut + 1e-3) / widths[d] if box.periodic[d] else 0.0
+               for d in range(3)]
+    expanded = vol * np.prod([1 + 2 * m for m in margins])
+    ghost_count = int(rho * (expanded - vol)) + 64
+    cell_vol = cell_size ** 3
+    if cell_tiers and all(box.periodic):
+        m_frac = [int(np.floor(widths[d] / (list_cut + 1e-3)))
+                  for d in range(3)]
+        if all(m >= 1 for m in m_frac):
+            cell_vol = vol / float(np.prod(m_frac))
+    occupancy = int(rho * cell_vol * 1.2) + 8
+    cand_occ = int(rho * cand_size ** 3 * 1.2) + 4
+    bnd_frac = 1.0 - float(np.prod([max(1.0 - 2.0 * m, 0.0)
+                                    for m in margins]))
+    bnd_count = int(natoms * bnd_frac * 1.3) + 64
+    k_counts = {}
+    for name, c in cuts.items():
+        t = c.shape[0] - 1 if c.ndim == 2 else 0
+        if c.ndim == 2 and t >= 1:
+            per_type = [sum((rho / t) * 4.0 / 3.0 * np.pi
+                            * (float(c[i, j]) + skin) ** 3
+                            for j in range(1, t + 1) if c[i, j] > 0)
+                        for i in range(1, t + 1)]
+            k_counts[name] = int(max(per_type) * 1.1) + 8
+        else:
+            k_counts[name] = int(rho * 4.0 / 3.0 * np.pi
+                                 * (float(np.max(c)) + skin) ** 3 * 1.1) + 8
+    return make_plan(box, requests, skin, ghost_count, occupancy, k_counts,
+                     slack=slack, cell_tiers=cell_tiers,
+                     cand_occupancy=cand_occ, mirror_tiers=mirror_tiers,
+                     bnd_count=bnd_count)
+
+
+def _compact(mask: torch.Tensor, size: int) -> torch.Tensor:
+    """Positions of the True entries in order, padded with -1 to `size`:
+    a fixed-shape nonzero (masked cumsum + scatter into a dump slot)."""
+    m = mask.reshape(-1)
+    rank = torch.cumsum(m.to(torch.int64), 0) - 1
+    tgt = torch.where(m & (rank < size), rank,
+                      torch.full_like(rank, size))
+    out = torch.full((size + 1,), -1, dtype=torch.int64, device=m.device)
+    out.scatter_(0, tgt, torch.arange(m.numel(), device=m.device))
+    return out[:size]
+
+
+def _pad_t(a: torch.Tensor, np_: int, fill) -> torch.Tensor:
+    """[N, K] -> [K, Np] with the pad columns set to `fill`."""
+    out = torch.full((a.shape[1], np_), fill, dtype=a.dtype, device=a.device)
+    out[:, :a.shape[0]] = a.t()
+    return out
+
+
+def _bin_dense(x_all, valid_row, mn, size, dims, capacity, m_all,
+               interior_first: int = 0):
+    """Sorted dense cell table [ncells+2, capacity] (junk row + oob row).
+
+    interior_first > 0 clips the cell of the first that many rows (the
+    owned atoms) into [1, dims-2]: rounding at the hi face must never bin
+    an owned atom into the halo ring, outside the LJ kernel's A range.
+    Returns (dense, c3, occupancy, overflow)."""
+    dev = x_all.device
+    ncells = dims[0] * dims[1] * dims[2]
+    hi = torch.tensor(dims, device=dev) - 1
+    c3 = torch.floor((x_all - mn) / size).to(torch.int64)
+    c3 = torch.minimum(torch.clamp(c3, min=0), hi)
+    if interior_first:
+        own = (torch.arange(m_all, device=dev) < interior_first)[:, None]
+        c3 = torch.where(own, torch.minimum(torch.clamp(c3, min=1), hi - 1),
+                         c3)
+    cid = (c3[:, 0] * dims[1] + c3[:, 1]) * dims[2] + c3[:, 2]
+    cid = torch.where(valid_row, cid, torch.full_like(cid, ncells))
+    cid_sorted, order = torch.sort(cid, stable=True)
+    starts = torch.searchsorted(cid_sorted,
+                                torch.arange(ncells + 1, device=dev))
+    slot = torch.arange(m_all, device=dev) - starts[cid_sorted]
+    occ = torch.max(torch.where(cid_sorted < ncells, slot,
+                                torch.zeros_like(slot))) + 1
+    slot = torch.clamp(slot, max=capacity - 1)
+    dense = torch.full((ncells + 2, capacity), m_all, dtype=torch.int64,
+                       device=dev)
+    dense[cid_sorted, slot] = order
+    return dense, c3, occ, occ > capacity
+
+
+def _nbr_cell_ids(dims, offs) -> np.ndarray:
+    """[ncells, len(offs)] neighbor-cell ids (numpy; static geometry);
+    out-of-range neighbors map to the oob row (ncells + 1)."""
+    ncells = dims[0] * dims[1] * dims[2]
+    ids = np.arange(ncells)
+    c3s = np.stack([ids // (dims[1] * dims[2]),
+                    (ids // dims[2]) % dims[1], ids % dims[2]], axis=1)
+    nb = c3s[:, None, :] + offs[None, :, :]
+    ok = np.all((nb >= 0) & (nb < np.array(dims)), axis=-1)
+    nbid = (nb[..., 0] * dims[1] + nb[..., 1]) * dims[2] + nb[..., 2]
+    return np.where(ok, nbid, ncells + 1).astype(np.int64)
+
+
+def _inverse_shift_perm(shifts) -> np.ndarray:
+    """[S+1]: slot 0 = identity, slot s+1 = shifts[s]; entry = the slot of
+    the negated shift."""
+    lut = {(0, 0, 0): 0}
+    for i, s in enumerate(shifts):
+        lut[tuple(s)] = i + 1
+    inv = np.zeros(len(shifts) + 1, np.int64)
+    for i, s in enumerate(shifts):
+        inv[i + 1] = lut[(-s[0], -s[1], -s[2])]
+    return inv
+
+
+def _mirror_table(idx, mask, owner, ghost_valid, sidx_ghost, inv_sidx, n,
+                  K):
+    """[N, K] flat slot (row*K + col) of each edge's mirror edge, -1 if
+    none.  Edge (i, j): the mirror is the unique edge (owner(j), image of
+    i under the negated shift of j), found through the ghost inverse
+    table ginv[(owner, shift slot)] -> ghost id and a compare against the
+    mirror row's index list, one neighbor slot at a time."""
+    dev = idx.device
+    Mg = owner.shape[0]
+    inv_t = torch.as_tensor(inv_sidx, device=dev)
+    ar_n = torch.arange(n, device=dev)
+    o_all = torch.cat([ar_n, owner])
+    inv_all = torch.cat([torch.zeros_like(ar_n), inv_t[sidx_ghost]])
+    safe = torch.where(mask, idx, torch.zeros_like(idx))
+    o = o_all[safe]                                   # mirror rows
+    inv_sj = inv_all[safe]                            # inverse shift slot
+    ginv = torch.full((n + 1, inv_t.shape[0]), -1, dtype=torch.int64,
+                      device=dev)
+    ginv[ar_n, 0] = ar_n
+    gown = torch.where(ghost_valid, owner, torch.full_like(owner, n))
+    ginv[gown, sidx_ghost] = n + torch.arange(Mg, device=dev)
+    tgt = torch.gather(ginv[:n], 1, inv_sj)           # [N, K]
+    colp = torch.full_like(idx, K)
+    for kk in range(K - 1, -1, -1):                   # lowest matching slot
+        hit = (idx[:, kk][o] == tgt) & (tgt >= 0)
+        colp = torch.where(hit, torch.full_like(colp, kk), colp)
+    return torch.where(mask & (colp < K), o * K + colp,
+                       torch.full_like(idx, -1))
+
+
+def flags_to_host(flags: Dict[str, torch.Tensor]) -> Dict[str, int]:
+    """All rebuild flags and counts in one device-to-host copy."""
+    names = sorted(flags)
+    vals = torch.stack([flags[k].to(torch.int64).reshape(())
+                        for k in names]).cpu().tolist()
+    return dict(zip(names, vals))
+
+
+def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
+                   cut_mats: Dict[str, np.ndarray]):
+    """(x, image) -> (xw, image', NeighborData, flags) with fixed shapes.
+
+    cut_mats: per-tier [T+1, T+1] cutoff matrices (numpy)."""
+    dtype, dev = x.dtype, x.device
+    n = x.shape[0]
+    as_t = lambda v: torch.as_tensor(np.asarray(v), dtype=dtype,  # noqa
+                                     device=dev)
+
+    # -- wrap into the primary cell (Domain::pbc) --------------------------
+    f = matvec3(x - lo, h_inv)
+    shift = torch.floor(f)
+    if not all(plan.periodic):
+        shift = shift * as_t(np.array(plan.periodic, np.float64))[None, :]
+    fw = f - shift
+    xw = matvec3(fw, h) + lo
+    image = image + shift.to(torch.int32)
+
+    # -- ghost-image compaction, two-stage: boundary atoms, then images ---
+    shifts = as_t(np.array(plan.shifts, np.float64))        # [S, 3]
+    margins = as_t(np.array(plan.margins))
+    Mg, Nb = plan.ghost_capacity, plan.bnd_capacity
+    per = torch.tensor([m > 0 for m in plan.margins], device=dev)
+    near = (fw <= margins) | (fw >= 1.0 - margins)
+    bnd = torch.any(near & per[None, :], dim=1)
+    flags = {"count:bnd": bnd.sum()}
+    if 0 < Nb < n:
+        bsel = _compact(bnd, Nb)
+        flags["bnd_overflow"] = bnd.sum() > Nb
+        b_safe = torch.clamp(bsel, min=0)
+        fi = fw[b_safe][None, :, :] + shifts[:, None, :]    # [S, Nb, 3]
+        keep = torch.all((fi >= -margins) & (fi <= 1.0 + margins), dim=-1)
+        flat = (keep & (bsel >= 0)[None, :]).reshape(-1)
+        sel = _compact(flat, Mg)
+        ss = torch.clamp(sel, min=0)
+        owner, sslot = b_safe[ss % Nb], ss // Nb
+    else:
+        fi = fw[None, :, :] + shifts[:, None, :]            # [S, N, 3]
+        keep = torch.all((fi >= -margins) & (fi <= 1.0 + margins), dim=-1)
+        flat = keep.reshape(-1)
+        sel = _compact(flat, Mg)
+        ss = torch.clamp(sel, min=0)
+        owner, sslot = ss % n, ss // n
+    ghost_valid = sel >= 0
+    sidx_from_sel = sslot + 1                     # slot 0 = identity shift
+    # invalid ghosts are parked far away
+    gshift = torch.where(ghost_valid[:, None], shifts[sslot],
+                         torch.full_like(shifts[sslot], 1e5))
+    flags["ghost_overflow"] = flat.sum() > Mg
+    flags["count:ghost"] = flat.sum()
+
+    ghosts = Ghosts(owner=owner, shift=gshift)
+    x_all = ghosts.all_positions(xw, h)                     # [n+Mg, 3]
+    t_all = ghosts.all_types(types)
+    m_all = n + Mg
+    valid_row = torch.cat([torch.ones(n, dtype=torch.bool, device=dev),
+                           ghost_valid])
+    lo_off = lo - as_t(plan.lo_ref)
+    mn = as_t(plan.grid_mn) + lo_off
+    x_pad = torch.cat([x_all, x.new_full((1, 3), 1e7)], dim=0)
+    t_pad = torch.cat([t_all, t_all.new_zeros(1)])
+
+    # -- [N, K] tiers: fine-grid candidates -------------------------------
+    lists = {}
+    if plan.k_caps:
+        if dtype == torch.float32 and m_all >= 2 ** 24:
+            raise ValueError(f"{m_all} owned+ghost rows: atom ids ride the "
+                             "candidate rows and select_k as float32 "
+                             "payloads, exact only below 2^24")
+        Cf = plan.cand_capacity
+        dense_f, c3f, occf, ovf = _bin_dense(
+            x_all, valid_row, mn, plan.cand_size, plan.cand_dims, Cf, m_all)
+        flags["candcell_overflow"] = ovf
+        flags["count:candcell"] = occf
+        fdims = plan.cand_dims
+        ncf = fdims[0] * fdims[1] * fdims[2]
+        offs27 = torch.tensor([(a, b, c) for a in (-1, 0, 1)
+                               for b in (-1, 0, 1) for c in (-1, 0, 1)],
+                              device=dev)
+        nbr3 = c3f[:n][:, None, :] + offs27[None, :, :]
+        in_rng = torch.all((nbr3 >= 0)
+                           & (nbr3 < torch.tensor(fdims, device=dev)), -1)
+        ncid = (nbr3[..., 0] * fdims[1] + nbr3[..., 1]) * fdims[2] \
+            + nbr3[..., 2]
+        ncid = torch.where(in_rng, ncid, torch.full_like(ncid, ncf + 1))
+        W = 27 * Cf
+        Wp = -(-W // 128) * 128
+        # packed candidate table [ncf+2, 5*Cf]: (x | y | z | type | id)
+        # blocks, so each atom's candidates are ONE row gather; ids and
+        # types ride as floats (exact below 2^24, checked above)
+        xt_pad = torch.cat([x_pad, t_pad.to(dtype)[:, None]], dim=1)
+        tmp4 = xt_pad[dense_f]                              # [ncf+2, Cf, 4]
+        idf = torch.clamp(dense_f, max=m_all).to(dtype)
+        packed5 = torch.cat([tmp4[..., 0], tmp4[..., 1], tmp4[..., 2],
+                             tmp4[..., 3], idf], dim=1)
+        sidx_ghost = torch.where(ghost_valid, sidx_from_sel,
+                                 torch.zeros_like(sidx_from_sel))
+        inv_sidx = _inverse_shift_perm(plan.shifts)
+
+        # chunk over atom blocks: the [chunk, W] working set is ~6 arrays
+        CH = n if n <= 131072 else 65536
+        outs = {name: [] for name, _ in plan.k_caps}
+        for c0 in range(0, n, CH):
+            c1 = min(c0 + CH, n)
+            g = packed5[ncid[c0:c1]]                        # [ch, 27, 5Cf]
+            comp = [g[:, :, a * Cf:(a + 1) * Cf].reshape(c1 - c0, W)
+                    for a in range(5)]
+            cand, cand_t = comp[4], comp[3]
+            rsq = torch.zeros_like(cand)
+            for a in range(3):
+                da = comp[a] - xw[c0:c1, a][:, None]
+                rsq = rsq + da * da
+            rid = torch.arange(c0, c1, device=dev).to(dtype)
+            valid = (cand < m_all) & (cand != rid[:, None])
+            ti = types[c0:c1][:, None]
+            for name, K in plan.k_caps:
+                # per-type-pair cutoff as a select chain
+                cm = np.asarray(cut_mats[name], np.float64)
+                T = cm.shape[0] - 1
+                cut = torch.zeros_like(cand)
+                for a in range(1, T + 1):
+                    row = torch.zeros_like(cand)
+                    for b in range(1, T + 1):
+                        row = torch.where(cand_t == b, as_t(cm[a, b]), row)
+                    cut = torch.where(ti == a, row, cut)
+                cut = cut + plan.skin
+                m_tier = valid & (rsq < cut * cut)
+                key = torch.where(m_tier, rsq, torch.full_like(rsq, BIG))
+                padw = lambda a_, fill: torch.nn.functional.pad(  # noqa
+                    a_, (0, Wp - W), value=fill)
+                pos, idfk, jtfk = select_k(
+                    padw(key, BIG).contiguous(), K,
+                    payloads=(padw(cand, 0.0).contiguous(),
+                              padw(cand_t, 0.0).contiguous()))
+                mask = pos < W
+                zero = torch.zeros((), dtype=torch.int64, device=dev)
+                outs[name].append((
+                    torch.where(mask, idfk.to(torch.int64), zero),
+                    torch.where(mask, jtfk.to(torch.int64), zero), mask,
+                    m_tier.sum(dim=1).max()))
+
+        Np = -(-n // 128) * 128
+        for name, K in plan.k_caps:
+            parts = outs[name]
+            idx, jtype, mask = (torch.cat([p[i] for p in parts])
+                                for i in range(3))
+            kmax = torch.stack([p[3] for p in parts]).max()
+            kw = {}
+            if name in plan.mirror_tiers:
+                mirror = _mirror_table(idx, mask, owner, ghost_valid,
+                                       sidx_ghost, inv_sidx, n, K)
+                mir_ok = mask & (mirror >= 0)
+                mir_safe = torch.clamp(mirror, min=0)
+                mir_flat = torch.where(mir_ok, (mir_safe % K) * Np
+                                       + mir_safe // K,
+                                       torch.zeros_like(mir_safe))
+                kw = dict(mirror=mirror, idxT=_pad_t(idx, Np, 0),
+                          maskT=_pad_t(mask, Np, False),
+                          jtypeT=_pad_t(jtype, Np, 0),
+                          mirT=_pad_t(mir_flat, Np, 0).to(torch.int32),
+                          mirvT=_pad_t(mir_ok, Np, False))
+            lists[name] = NeighborList(idx=idx, mask=mask, jtype=jtype,
+                                       **kw)
+            flags[f"k_overflow:{name}"] = kmax > K
+            flags[f"count:k:{name}"] = kmax
+
+    # -- cell-form tiers: coarse dense table + half-offset neighbor map ----
+    cells = None
+    if plan.cell_tiers:
+        C = plan.cell_capacity
+        if plan.cell_frac:
+            # bin in wrapped fractional coordinates; owned rows clipped
+            # strictly below 1 (f - floor(f) can round to 1.0 in f32)
+            fb = torch.clamp(fw, 0.0, 1.0 - 2.0 ** -24)
+            f_all = torch.cat([fb, fw[owner] + gshift])
+            s_vec = 1.0 / (np.array(plan.cell_dims, np.float64) - 2.0)
+            dense_c, _, occc, ovc = _bin_dense(
+                f_all, valid_row, as_t(-s_vec), as_t(s_vec),
+                plan.cell_dims, C, m_all, interior_first=n)
+        else:
+            dense_c, _, occc, ovc = _bin_dense(
+                x_all, valid_row, as_t(plan.cell_mn) + lo_off,
+                plan.cell_size, plan.cell_dims, C, m_all)
+        flags["cell_overflow"] = ovc
+        flags["count:cell"] = occc
+        offs14 = np.array(
+            [(0, 0, 0)] + [(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+                           for c in (-1, 0, 1) if (a, b, c) > (0, 0, 0)],
+            np.int64)
+        nbid = torch.as_tensor(_nbr_cell_ids(plan.cell_dims, offs14),
+                               device=dev)
+        cell_jt = torch.where(dense_c < m_all, t_pad[dense_c],
+                              torch.zeros_like(dense_c))
+        # inverse table: owned atom -> flat slot of the a_range force grid
+        Dx, Dy, Dz = plan.cell_dims
+        (ax0, _), (ay0, ay1), (az0, az1) = plan.a_range
+        Ay, Az = ay1 - ay0, az1 - az0
+        ncell3 = Dx * Dy * Dz
+        io = torch.arange(ncell3 * C, device=dev)
+        cellid, slot = io // C, io % C
+        cx, rem = cellid // (Dy * Dz), cellid % (Dy * Dz)
+        cy, cz = rem // Dz, rem % Dz
+        aidx = (((cx - ax0) * Ay + (cy - ay0)) * Az + (cz - az0)) * C + slot
+        ids = dense_c[:ncell3].reshape(-1)
+        tgt = torch.where(ids < n, ids, torch.full_like(ids, n))
+        aslot = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        aslot.scatter_(0, tgt, aidx)
+        cells = CellData(table=dense_c, jtype=cell_jt, nbr_map=nbid,
+                         n_owned=n, dims=plan.cell_dims,
+                         a_range=plan.a_range, cell_mn=plan.cell_mn,
+                         cell_size=plan.cell_size, aslot=aslot[:n])
+    else:
+        flags["cell_overflow"] = torch.zeros((), dtype=torch.bool,
+                                             device=dev)
+        flags["count:cell"] = torch.zeros((), dtype=torch.int64, device=dev)
+
+    nbr = NeighborData(ghosts=ghosts, lists=lists, x_build=xw,
+                       skin=plan.skin, cells=cells)
+    return xw, image, nbr, flags

@@ -1,0 +1,138 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+All sources compile with nvcc into one shared library with a plain C
+interface, loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \
+         -Xcompiler -fPIC -o build/torch_kernels/liblpt_kernels.so csrc/*.cu
+
+The library is built at first use, from the checkout's sources alone, into
+build/torch_kernels/ at the repository root (listed in .gitignore), and
+rebuilt when any source is newer than it.  A failed build raises.  Nothing
+here runs at import time: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+LIB_PATH = os.path.join(BUILD_DIR, "liblpt_kernels.so")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+_lock = threading.Lock()
+_lib = None
+#: nvcc's output (with -Xptxas -v: registers, shared memory, spills) from
+#: the build this process ran, or "" when the library was up to date
+build_log = ""
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "lpt_rebo_cotangents": [_P] * 10 + [_I, _I, _P],
+    "lpt_mirror_combine": [_P] * 6 + [_I, _I, _P],
+    "lpt_lj_cell_forces": [_P] * 3 + [_I] * 10 + [_P],
+    "lpt_select_k": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+}
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin)")
+    return path
+
+
+def _stale() -> bool:
+    if not os.path.exists(LIB_PATH):
+        return True
+    built = os.path.getmtime(LIB_PATH)
+    return any(os.path.getmtime(s) > built for s in sources())
+
+
+def _build() -> str:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *ARCH_FLAGS, "-O3", "-std=c++17", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
+           *[s for s in sources() if s.endswith(".cu")]]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, LIB_PATH)
+    return res.stdout + res.stderr
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if missing or stale."""
+    global _lib, build_log
+    with _lock:
+        if _lib is None:
+            if _stale():
+                build_log = _build()
+            cdll = ctypes.CDLL(LIB_PATH)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(cdll, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = cdll
+        return _lib
+
+
+def use_kernel(t: torch.Tensor, name: str) -> bool:
+    """Dispatch rule: CPU -> twin (False), CUDA float32 -> kernel (True);
+    any other device or dtype raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: CUDA kernel takes float32, got {t.dtype}")
+    return True
+
+
+def check(t: torch.Tensor, name: str, shape, dtype, device) -> int:
+    """Validate a kernel argument and return its data pointer."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    return t.data_ptr()
+
+
+def stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=16)
+def device_constants(values: tuple, device: torch.device) -> torch.Tensor:
+    """A kernel's float32 constant vector on `device`, uploaded once.
+    An upload from host memory at every launch would synchronise the
+    stream; kernels only read the cached tensor."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def raise_on_error(status: int, name: str):
+    """Raise unless the C entry point returned 0 (cudaSuccess)."""
+    if status != 0:
+        raise RuntimeError(f"{name}: launch failed with status {status}")

@@ -1,0 +1,137 @@
+"""Switched-LJ cell sweep: CUDA kernel wrapper and plain-PyTorch twin.
+
+Counterpart of lammps_plugins_tpu/ops/lj_cells_pallas.py::lj_cell_forces.
+Input: packed cell planes P [Dx, Dy, Dz, 8, C] (rows x, y, z, element
+code, owned flag; pad slots parked at 1e7; one empty halo ring).  Output:
+[Ax, Ay, Az, 8, C] over the a_range cells: rows 0-2 the force on each A
+slot from all 27 neighbour cells, row 3 0.5 * owned * sum_b V when
+with_energy, other rows 0.
+"""
+
+from __future__ import annotations
+
+import itertools
+
+import numpy as np
+import torch
+
+from . import build
+
+#: kernel launches (one per call that reached the CUDA kernel)
+launches = 0
+
+LJ_NAMES = ("lj1", "lj2", "lj3", "lj4", "ljminsq", "ljmaxsq", "s95sq",
+            "ljmin", "k2", "k3", "c2", "c3")
+_MAX_C = 1024
+
+
+def derive_lj_constants(tables) -> dict:
+    """Per-element-pair LJ scalars as bilinear coefficients (numpy copy of
+    the JAX package's function): P = pa(ea) + pbc(ea) * eb with
+    pa = P00 + ea (P10 - P00), pbc = (P01 - P00) + ea (P11 - P10 - P01 + P00).
+
+    lj1..lj4 are the 12-6 force/energy prefactors, ljminsq/ljmaxsq/s95sq
+    the squared regime boundaries, ljmin the ramp origin, k2 = -2 c2 and
+    k3 = -3 c3 the ramp force, c2/c3 the ramp energy
+    (pair_rebomos.cpp:262-265, 532-543)."""
+    t = tables
+    vals = {name: np.zeros((2, 2)) for name in LJ_NAMES}
+    for ea in range(2):
+        for eb in range(2):
+            sig = float(t.sigma[ea, eb])
+            eps = float(t.epsilon[ea, eb])
+            ljmin = float(t.rcLJmin[ea, eb])
+            ljmax = float(t.rcLJmax[ea, eb])
+            drw = 0.95 * sig - ljmin
+            r6c = (1.0 / 0.95) ** 6
+            vdw = 4.0 * eps * r6c * (r6c - 1.0)
+            dvdw = (-4.0 * eps / (0.95 * sig)) * r6c * (12.0 * r6c - 6.0)
+            c2 = ((3.0 / drw) * vdw - dvdw) / drw
+            c3 = (vdw / (drw * drw) - c2) / drw
+            vals["lj1"][ea, eb] = float(t.lj1[ea, eb])
+            vals["lj2"][ea, eb] = float(t.lj2[ea, eb])
+            vals["lj3"][ea, eb] = float(t.lj3[ea, eb])
+            vals["lj4"][ea, eb] = float(t.lj4[ea, eb])
+            vals["ljminsq"][ea, eb] = ljmin * ljmin
+            vals["ljmaxsq"][ea, eb] = ljmax * ljmax
+            vals["s95sq"][ea, eb] = (0.95 * sig) ** 2
+            vals["ljmin"][ea, eb] = ljmin
+            vals["k2"][ea, eb] = -2.0 * c2
+            vals["k3"][ea, eb] = -3.0 * c3
+            vals["c2"][ea, eb] = c2
+            vals["c3"][ea, eb] = c3
+    return {name: (float(P[0, 0]), float(P[1, 0] - P[0, 0]),
+                   float(P[0, 1] - P[0, 0]),
+                   float(P[1, 1] - P[1, 0] - P[0, 1] + P[0, 0]))
+            for name, P in vals.items()}
+
+
+def lj_cell_forces_ref(P, consts, a_range, with_energy=False):
+    """Twin: the closed-form sweep over the 27 offsets, one [cells, C, C]
+    block per offset."""
+    (x0, x1), (y0, y1), (z0, z1) = a_range
+    A = P[x0:x1, y0:y1, z0:z1]                         # [Ax, Ay, Az, 8, C]
+    ax, ay, az, ael = (A[..., r, :, None] for r in range(4))
+
+    def cst(name, ebl):
+        a0, a1, b0, b1 = consts[name]
+        return (a0 + ael * a1) + (b0 + ael * b1) * ebl
+
+    f = [torch.zeros_like(A[..., 0, :]) for _ in range(3)]
+    en = torch.zeros_like(A[..., 0, :])
+    for ox, oy, oz in itertools.product((-1, 0, 1), repeat=3):
+        B = P[x0 + ox:x1 + ox, y0 + oy:y1 + oy, z0 + oz:z1 + oz]
+        d = [a - B[..., r, None, :] for r, a in enumerate((ax, ay, az))]
+        ebl = B[..., 3, None, :]
+        rsq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        inwin = (rsq >= cst("ljminsq", ebl)) & (rsq <= cst("ljmaxsq", ebl))
+        rs = torch.where(inwin, rsq, torch.ones_like(rsq))
+        rinv = torch.rsqrt(rs)
+        r = rs * rinv
+        r2inv = rinv * rinv
+        r6inv = r2inv * r2inv * r2inv
+        lj126 = rs >= cst("s95sq", ebl)
+        drp = r - cst("ljmin", ebl)
+        fp = torch.where(
+            lj126, (cst("lj1", ebl) * r6inv - cst("lj2", ebl)) * r6inv * r2inv,
+            drp * (cst("k3", ebl) * drp + cst("k2", ebl)) * rinv)
+        fp = torch.where(inwin, fp, torch.zeros_like(fp))
+        for a in range(3):
+            f[a] = f[a] + (fp * d[a]).sum(dim=-1)
+        if with_energy:
+            v = torch.where(
+                lj126, (cst("lj3", ebl) * r6inv - cst("lj4", ebl)) * r6inv,
+                drp * drp * (cst("c3", ebl) * drp + cst("c2", ebl)))
+            en = en + torch.where(inwin, v, torch.zeros_like(v)).sum(dim=-1)
+    erow = 0.5 * A[..., 4, :] * en if with_energy else torch.zeros_like(en)
+    zero = torch.zeros_like(en)
+    return torch.stack(f + [erow, zero, zero, zero, zero], dim=-2)
+
+
+def lj_cell_forces(P, consts, a_range, with_energy=False):
+    """[Ax, Ay, Az, 8, C] forces (and energy row) from the cell planes.
+    CPU tensors take the twin; CUDA float32 tensors the kernel."""
+    global launches
+    if not build.use_kernel(P, "lj_cell_forces"):
+        return lj_cell_forces_ref(P, consts, a_range, with_energy)
+    Dx, Dy, Dz, R, C = P.shape
+    (x0, x1), (y0, y1), (z0, z1) = a_range
+    if R != 8 or C > _MAX_C:
+        raise ValueError(f"lj_cell_forces: planes {tuple(P.shape)} need "
+                         f"8 rows and C <= {_MAX_C}")
+    if not (x0 >= 1 and y0 >= 1 and z0 >= 1 and x1 <= Dx - 1
+            and y1 <= Dy - 1 and z1 <= Dz - 1):
+        raise ValueError(f"lj_cell_forces: a_range {a_range} leaves no "
+                         f"halo ring in dims {(Dx, Dy, Dz)}")
+    dev, f32 = P.device, torch.float32
+    p_ptr = build.check(P, "P", P.shape, f32, dev)
+    cvec = build.device_constants(
+        tuple(v for n in LJ_NAMES for v in consts[n]), dev)
+    Ax, Ay, Az = x1 - x0, y1 - y0, z1 - z0
+    out = torch.empty((Ax, Ay, Az, 8, C), dtype=f32, device=dev)
+    status = build.lib().lpt_lj_cell_forces(
+        p_ptr, cvec.data_ptr(), out.data_ptr(), Dy, Dz, C, x0, y0, z0,
+        Ax, Ay, Az, int(with_energy), build.stream(dev))
+    build.raise_on_error(status, "lj_cell_forces")
+    launches += 1
+    return out

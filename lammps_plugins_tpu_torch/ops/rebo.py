@@ -1,0 +1,105 @@
+"""REBO per-edge cotangents: CUDA kernel wrapper and plain-PyTorch twin.
+
+Counterpart of lammps_plugins_tpu/ops/rebo_pallas.py.  Given the [K, Np]
+edge planes of the REBO list (atoms along the last axis), returns
+G_e = dE_REBO/dd_e as three [K, Np] planes.  The kernel
+(csrc/rebo.cu) derives the gradient by hand; the twin is autograd of the
+port's REBO energy (potentials/rebomos.py::rebo_energy_rows).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import build
+
+#: kernel launches (one per call that reached the CUDA kernel)
+launches = 0
+
+_PAIR_NAMES = ("rcmin", "inv_drc", "Q", "A", "alpha", "BIJc", "Beta")
+#: K values compiled into csrc/rebo.cu
+KERNEL_K = tuple(range(8, 65, 4))
+
+
+def derive_rebo_constants(tables) -> dict:
+    """Static scalars (numpy copy of the JAX package's function).
+
+    'pair:<name>': bilinear 4-tuples over (center el, neighbor el) — rcmin,
+    inv_drc = 1/(rcmax-rcmin), Q, A, alpha, BIJc, Beta.
+    'ctr:<name>': linear 2-tuples (c0, c1) over the center element — the g
+    spline rows b0..b6 / bg0..bg6 and coordination a0..a3.
+    """
+    t = tables
+    out = {}
+
+    def bil(P):
+        return (float(P[0, 0]), float(P[1, 0] - P[0, 0]),
+                float(P[0, 1] - P[0, 0]),
+                float(P[1, 1] - P[1, 0] - P[0, 1] + P[0, 0]))
+
+    drc = np.asarray(t.rcmax, np.float64) - np.asarray(t.rcmin, np.float64)
+    for name, P in (("rcmin", t.rcmin), ("inv_drc", 1.0 / drc),
+                    ("Q", t.Q), ("A", t.A), ("alpha", t.alpha),
+                    ("BIJc", t.BIJc), ("Beta", t.Beta)):
+        out["pair:" + name] = bil(np.asarray(P, np.float64))
+    b = np.asarray(t.b, np.float64)
+    bg = np.asarray(t.bg, np.float64)
+    a = np.asarray(t.a, np.float64)
+    for i in range(7):
+        out[f"ctr:b{i}"] = (float(b[0, i]), float(b[1, i] - b[0, i]))
+        out[f"ctr:bg{i}"] = (float(bg[0, i]), float(bg[1, i] - bg[0, i]))
+    for i in range(4):
+        out[f"ctr:a{i}"] = (float(a[0, i]), float(a[1, i] - a[0, i]))
+    return out
+
+
+def rebo_constant_vector(consts: dict) -> list:
+    """The 64 floats csrc/rebo.cu reads: 7 pair rows x 4, then the center
+    rows b0..b6, bg0..bg6, a0..a3 x 2."""
+    vec = [v for name in _PAIR_NAMES for v in consts["pair:" + name]]
+    for name in ([f"b{i}" for i in range(7)] + [f"bg{i}" for i in range(7)]
+                 + [f"a{i}" for i in range(4)]):
+        vec.extend(consts["ctr:" + name])
+    return vec
+
+
+def rebo_cotangents_ref(dxT, dyT, dzT, jelT, mskT, ei, consts):
+    """Twin: autograd of the REBO energy with respect to the displacement
+    planes ([K, Np] in, [K, Np] x 3 out; any device and float dtype)."""
+    from ..potentials.rebomos import rebo_energy_rows
+    with torch.enable_grad():
+        d = [t.detach().t().requires_grad_(True) for t in (dxT, dyT, dzT)]
+        e = rebo_energy_rows(d[0], d[1], d[2], mskT.t() > 0, ei,
+                             jelT.t(), consts)
+        g = torch.autograd.grad(e, d)
+    return tuple(gi.t().contiguous() for gi in g)
+
+
+def rebo_cotangents(dxT, dyT, dzT, jelT, mskT, ei, consts):
+    """G_e planes (gx, gy, gz), each [K, Np].
+
+    dxT/dyT/dzT: displacement planes; jelT: neighbor element code (0/1)
+    as float; mskT: slot mask as float 0/1; ei: [Np] center element code
+    as float; consts: derive_rebo_constants(tables).
+    CPU tensors take the twin; CUDA float32 tensors the kernel."""
+    global launches
+    if not build.use_kernel(dxT, "rebo_cotangents"):
+        return rebo_cotangents_ref(dxT, dyT, dzT, jelT, mskT, ei, consts)
+    K, Np = dxT.shape
+    if K not in KERNEL_K:
+        raise ValueError(f"rebo_cotangents: K={K} not compiled "
+                         f"(supported: {KERNEL_K})")
+    dev, f32 = dxT.device, torch.float32
+    ptrs = [build.check(t, n, (K, Np), f32, dev) for t, n in
+            ((dxT, "dxT"), (dyT, "dyT"), (dzT, "dzT"), (jelT, "jelT"),
+             (mskT, "mskT"))]
+    ptrs.append(build.check(ei, "ei", (Np,), f32, dev))
+    cvec = build.device_constants(tuple(rebo_constant_vector(consts)), dev)
+    out = [torch.empty((K, Np), dtype=f32, device=dev) for _ in range(3)]
+    status = build.lib().lpt_rebo_cotangents(
+        *ptrs, cvec.data_ptr(), *[o.data_ptr() for o in out], K, Np,
+        build.stream(dev))
+    build.raise_on_error(status, "rebo_cotangents")
+    launches += 1
+    return tuple(out)

@@ -1,0 +1,229 @@
+"""Neighbor construction of the port against the JAX package.
+
+The device rebuild runs with the same plan on the same positions in both
+packages (float64, CPU: the port's select-k twin, JAX's top_k): wrapped
+positions agree to rounding, image counters and ghost tables exactly,
+every row has the same neighbor set, the mirror tables pair the same
+edges (and mirror(mirror(e)) = e), and every coarse cell holds the same
+atoms.  Plans and the host build agree too.
+"""
+
+import dataclasses
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from lammps_plugins_tpu_torch import convert
+from lammps_plugins_tpu_torch.neighbor import device_build as pdb
+from lammps_plugins_tpu_torch.neighbor.build import build_neighbor_data
+from torch_parity import jax_engine
+
+
+@pytest.fixture(scope="module")
+def rebuilt():
+    from lammps_plugins_tpu.neighbor import device_build as jdb
+    jeng = jax_engine("bulk", "f64", jiggle=0.05)
+    js = jeng.state
+    h, h_inv, lo = jeng._box_dev
+    plan = jeng._plan
+    jxw, jimg, jnbr, jflags = jdb.device_rebuild(
+        plan, js.x, js.image, js.type, h, h_inv, lo, jeng._cut_mats_dev)
+    ps = convert.state_from_numpy(js)
+    as_t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    pxw, pimg, pnbr, pflags = pdb.device_rebuild(
+        convert.plan_from_fields(plan), ps.x, ps.image, ps.type,
+        as_t(h), as_t(h_inv), as_t(lo), jeng.pair.neighbor_requests())
+    return (jxw, jimg, jnbr, jflags), (pxw, pimg, pnbr,
+                                       pdb.flags_to_host(pflags))
+
+
+def test_wrap_and_ghosts_agree(rebuilt):
+    (jxw, jimg, jnbr, _), (pxw, pimg, pnbr, _) = rebuilt
+    # XLA may contract the wrap's multiply-adds into FMAs: ulp level
+    np.testing.assert_allclose(pxw.numpy(), np.asarray(jxw), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_array_equal(pimg.numpy(), np.asarray(jimg))
+    np.testing.assert_array_equal(pnbr.ghosts.owner.numpy(),
+                                  np.asarray(jnbr.ghosts.owner))
+    np.testing.assert_array_equal(pnbr.ghosts.shift.numpy(),
+                                  np.asarray(jnbr.ghosts.shift))
+
+
+def test_flags_and_counts_identical(rebuilt):
+    (_, _, _, jflags), (_, _, _, pflags) = rebuilt
+    jf = {k: int(v) for k, v in jflags.items()
+          if not k.startswith("count:mirwin")}
+    assert pflags == jf
+
+
+def test_same_neighbor_sets_per_row(rebuilt):
+    (_, _, jnbr, _), (_, _, pnbr, _) = rebuilt
+    jl, pl = jnbr.lists["rebo"], pnbr.lists["rebo"]
+    jidx, jm = np.asarray(jl.idx), np.asarray(jl.mask)
+    pidx, pm = pl.idx.numpy(), pl.mask.numpy()
+    assert pidx.shape == jidx.shape
+    for i in range(jidx.shape[0]):
+        assert sorted(pidx[i][pm[i]]) == sorted(jidx[i][jm[i]])
+    np.testing.assert_array_equal(pl.jtype.numpy()[pm],
+                                  np.asarray(jl.jtype)[jm])
+
+
+def test_mirror_tables_pair_the_same_edges(rebuilt):
+    """Slot orders may differ on exact rsq ties, so compare each edge's
+    mirror as (row, neighbor id) rather than as a flat slot."""
+    (_, _, jnbr, _), (_, _, pnbr, _) = rebuilt
+
+    def mirror_edges(idx, mask, mirror):
+        K = idx.shape[1]
+        rows, cols = np.nonzero(mask)
+        m = mirror[rows, cols]
+        assert (m >= 0).all()
+        return {(r, idx[r, c]): (mm // K, idx[mm // K, mm % K])
+                for r, c, mm in zip(rows, cols, m)}
+
+    jl, pl = jnbr.lists["rebo"], pnbr.lists["rebo"]
+    assert mirror_edges(pl.idx.numpy(), pl.mask.numpy(),
+                        pl.mirror.numpy()) == mirror_edges(
+        np.asarray(jl.idx), np.asarray(jl.mask), np.asarray(jl.mirror))
+    flat = pl.mirror.reshape(-1)
+    ok = pl.mask.reshape(-1)
+    np.testing.assert_array_equal(flat[flat[ok]].numpy(),
+                                  np.nonzero(ok.numpy())[0])
+
+
+def test_same_cell_occupancy(rebuilt):
+    (_, _, jnbr, _), (_, _, pnbr, _) = rebuilt
+    jt, pt = np.asarray(jnbr.cells.table), pnbr.cells.table.numpy()
+    ncells = pnbr.cells.nbr_map.shape[0]
+    assert pt.shape == jt.shape
+    for c in range(ncells):
+        assert sorted(pt[c]) == sorted(jt[c])
+    np.testing.assert_array_equal(pnbr.cells.nbr_map.numpy(),
+                                  np.asarray(jnbr.cells.nbr_map))
+    m_all = pt.max()
+    # each owned atom's aslot points at its own cell slot in both tables
+    Dx, Dy, Dz = pnbr.cells.dims
+    (x0, x1), (y0, y1), (z0, z1) = pnbr.cells.a_range
+    grid = pt[:Dx * Dy * Dz].reshape(Dx, Dy, Dz, -1)[x0:x1, y0:y1, z0:z1]
+    n = pnbr.cells.n_owned
+    np.testing.assert_array_equal(grid.reshape(-1)[
+        pnbr.cells.aslot.numpy()], np.arange(n))
+    assert m_all == n + pnbr.ghosts.count
+
+
+def test_plans_match_jax():
+    from lammps_plugins_tpu.api.scenes import rebomos_bulk as jbulk
+    from lammps_plugins_tpu.neighbor import device_build as jdb
+    from lammps_plugins_tpu_torch.api.scenes import rebomos_bulk
+    from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
+    from torch_parity import SYNTH_REBO
+    req = REBOMoS.from_file(SYNTH_REBO, ["M", "S"]).neighbor_requests()
+    jb, pb = jbulk().box, rebomos_bulk().box
+    kw = dict(cell_tiers=("master",), mirror_tiers=("rebo",))
+    jp = jdb.make_plan_from_density(jb, req, 0.8, 288, **kw)
+    pp = pdb.make_plan_from_density(pb, req, 0.8, 288, **kw)
+    assert pp == convert.plan_from_fields(jp)
+    jp = jdb.make_plan(jb, req, 1.0, 4000, 70, {"rebo": 22}, k_final=True,
+                       bnd_count=300, **kw)
+    pp = pdb.make_plan(pb, req, 1.0, 4000, 70, {"rebo": 22}, k_final=True,
+                       bnd_count=300, **kw)
+    assert pp == convert.plan_from_fields(jp)
+
+
+def test_host_build_matches_jax():
+    from lammps_plugins_tpu.api.scenes import rebomos_bulk as jbulk
+    from lammps_plugins_tpu.neighbor.build import build_neighbor_data as jb
+    from lammps_plugins_tpu_torch.api.scenes import rebomos_bulk
+    from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
+    from torch_parity import SYNTH_REBO
+    req = REBOMoS.from_file(SYNTH_REBO, ["M", "S"]).neighbor_requests()
+    js, ps = jbulk(), rebomos_bulk()
+    np.testing.assert_array_equal(ps.x.numpy(), np.asarray(js.x))
+    jn = jb(np.asarray(js.x), np.asarray(js.type), js.box, req, skin=1.0,
+            dtype=jnp.float64)
+    pn = build_neighbor_data(ps.x.numpy(), ps.type.numpy(), ps.box, req,
+                             skin=1.0)
+    for name in ("rebo", "master"):
+        np.testing.assert_array_equal(pn.lists[name].idx.numpy(),
+                                      np.asarray(jn.lists[name].idx))
+        np.testing.assert_array_equal(pn.lists[name].mask.numpy(),
+                                      np.asarray(jn.lists[name].mask))
+    np.testing.assert_array_equal(pn.ghosts.owner.numpy(),
+                                  np.asarray(jn.ghosts.owner))
+
+
+def test_box_geometry_matches_jax():
+    """Triclinic h_inv, volume, wrap/unmap (torch and numpy forms) and the
+    cell angles of the port's Box against the JAX Box, float64."""
+    from lammps_plugins_tpu.core.box import Box as JBox
+    from lammps_plugins_tpu_torch.core.box import Box
+    geo = dict(lx=12.8, ly=22.1, lz=14.0, xy=-6.4, xz=1.1, yz=-0.7,
+               lo=(0.3, -1.2, 0.5))
+    jb = JBox.triclinic(**geo, dtype=jnp.float64)
+    pb = Box.triclinic(**geo)
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-30.0, 40.0, (64, 3))
+    img = rng.integers(-2, 3, (64, 3)).astype(np.int32)
+    np.testing.assert_allclose(pb.h_inv.numpy(), np.asarray(jb.h_inv),
+                               rtol=1e-15, atol=1e-17)
+    assert abs(float(pb.volume) - float(jb.volume)) < 1e-12 * float(
+        jb.volume)
+    jxw, jimg = jb.wrap(jnp.asarray(x), jnp.asarray(img))
+    pxw, pimg = pb.wrap(torch.from_numpy(x), torch.from_numpy(img))
+    np.testing.assert_allclose(pxw.numpy(), np.asarray(jxw), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_array_equal(pimg.numpy(), np.asarray(jimg))
+    # unmap restores x shifted by the image counters it started with
+    np.testing.assert_allclose(pb.unmap(pxw, pimg).numpy(),
+                               x + img @ pb.h_np(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(pb.unmap(pxw, pimg).numpy(),
+                               np.asarray(jb.unmap(jxw, jimg)), rtol=0,
+                               atol=1e-12)
+    for a, b in zip(pb.wrap_np(x, img), jb.wrap_np(x, img)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(pb.cell_angles_deg_np(),
+                               jb.cell_angles_deg_np(), rtol=1e-15)
+
+
+def test_spatial_sort_matches_jax():
+    from lammps_plugins_tpu.api.scenes import spatial_sort as jsort
+    from lammps_plugins_tpu_torch.api.scenes import (
+        rebomos_bulk_commensurate, spatial_sort)
+    st = rebomos_bulk_commensurate(3, 4, 2, dtype=torch.float64)
+    pos, types = st.x.numpy(), st.type.numpy()
+    for a, b in zip(spatial_sort(pos, types), jsort(pos, types)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
+def test_compact_is_a_fixed_shape_nonzero():
+    mask = torch.tensor([0, 1, 1, 0, 1, 0, 1], dtype=torch.bool)
+    np.testing.assert_array_equal(pdb._compact(mask, 6).numpy(),
+                                  [1, 2, 4, 6, -1, -1])
+    np.testing.assert_array_equal(pdb._compact(mask, 2).numpy(), [1, 2])
+
+
+def test_overflow_recovery_resizes():
+    """Sabotaged capacities: the Engine re-sizes from the flags and the
+    energy is unchanged."""
+    from lammps_plugins_tpu.core import units
+    from lammps_plugins_tpu_torch.api.scenes import rebomos_bulk
+    from lammps_plugins_tpu_torch.fixes.nve import FixNVE
+    from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
+    from lammps_plugins_tpu_torch.run.simulation import Engine, _quantize_k
+    from torch_parity import SYNTH_REBO
+    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"])
+    ref = Engine(rebomos_bulk(), pair, [FixNVE()], units.METAL)
+    pe_ref, _ = ref.evaluate()
+    eng = Engine(rebomos_bulk(), pair, [FixNVE()], units.METAL)
+    eng._make_plan_fast()
+    eng._plan = dataclasses.replace(
+        eng._plan, ghost_capacity=8, cell_capacity=8, cand_capacity=2,
+        bnd_capacity=16, k_caps=tuple((k, 8) for k, _ in eng._plan.k_caps))
+    pe, _ = eng.evaluate()
+    assert abs(float(pe) - float(pe_ref)) < 1e-9 * abs(float(pe_ref))
+    # K comes back to the measured high-water mark + 2, not inflated
+    for name, k in eng._plan.k_caps:
+        assert k == _quantize_k(eng._k_hwm[name] + 2) == \
+            dict(ref._plan.k_caps)[name]

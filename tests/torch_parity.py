@@ -1,0 +1,88 @@
+"""Shared set-up of the PyTorch-port parity tests (tests/test_torch_*.py).
+
+Scenes are built by both packages from the same arguments; the JAX side
+runs on the CPU (its Pallas kernels in interpret mode), and data crosses
+between the packages as numpy arrays.  Whether a CUDA device exists is
+decided inside the `cuda` fixture, never at import time.
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+SYNTH_REBO = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "data", "MoS.REBO.synthetic")
+
+# The suite runs in several worker processes that share the machine's
+# cores; torch's default of one thread per core in every worker
+# oversubscribes them many times over and slows these tests ~10x.
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def jax_engine(scene="bulk", dtype="f64", jiggle=0.0, seed=4, **kw):
+    """A JAX-package Engine after one device rebuild.
+
+    scene 'bulk' is the 288-atom in.rebomos-bulk cell, 'small' the
+    72-atom rebomos_bulk_commensurate(3, 4, 1); jiggle displaces every
+    atom uniformly in [-jiggle, jiggle] (numpy seed) so that forces are
+    non-trivial."""
+    import jax.numpy as jnp
+    from lammps_plugins_tpu.api.scenes import (rebomos_bulk,
+                                               rebomos_bulk_commensurate)
+    from lammps_plugins_tpu.core import units
+    from lammps_plugins_tpu.fixes.nve import FixNVE
+    from lammps_plugins_tpu.potentials.rebomos import REBOMoS
+    from lammps_plugins_tpu.run.simulation import Engine
+
+    jdt = jnp.float32 if dtype == "f32" else jnp.float64
+    state = (rebomos_bulk(dtype=jdt) if scene == "bulk"
+             else rebomos_bulk_commensurate(nx=3, ny=4, nz=1, dtype=jdt))
+    if jiggle:
+        rng = np.random.default_rng(seed)
+        x = np.asarray(state.x) + rng.uniform(-jiggle, jiggle,
+                                              state.x.shape)
+        state = state.replace(x=jnp.asarray(x, jdt))
+    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=jdt)
+    eng = Engine(state, pair, [FixNVE()], units.METAL, device_rebuild=True,
+                 **kw)
+    eng.rebuild_neighbors()
+    return eng
+
+
+def port_of(jeng, dtype=torch.float64):
+    """(pair, state, nbr) of the port holding the JAX engine's data."""
+    from lammps_plugins_tpu_torch import convert
+    pair = convert.rebomos_from_tables(jeng.pair.tables,
+                                       jeng.pair.typemap_np, dtype=dtype)
+    return (pair, convert.state_from_numpy(jeng.state, dtype=dtype),
+            convert.neighbor_data_from_numpy(jeng.nbr, dtype=dtype))
+
+
+def sextic_tables():
+    """The synthetic tables with non-zero b2..b6 and bg2..bg6 (distinct per
+    element), so that every slot of the degree-6 g and gamma polynomials
+    and their derivatives is exercised; the file's own are linear."""
+    from lammps_plugins_tpu.potentials.tables import read_rebomos
+    t = read_rebomos(SYNTH_REBO)
+    b, bg = t.b.copy(), t.bg.copy()
+    b[:, 2:] = [[0.031, -0.022, 0.017, -0.012, 0.007],
+                [0.027, -0.019, 0.013, -0.009, 0.005]]
+    bg[:, 2:] = [[0.041, -0.033, 0.024, -0.016, 0.008],
+                 [0.036, -0.028, 0.021, -0.014, 0.006]]
+    return dataclasses.replace(t, b=b, bg=bg)
+
+
+def rel_err(a, b):
+    """max |a - b| / max |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))

@@ -1,0 +1,117 @@
+#!/usr/bin/env python3
+"""Where the time of a step goes: the PyTorch/CUDA port's bench scene on
+one NVIDIA GPU.
+
+    python3 tools/torch_step_profile.py [TREE] [--label NAME] [--trace PATH]
+
+TREE (default: this repository) holds chip_smoke.py and
+lammps_plugins_tpu_torch/; giving a second tree (for example a `git
+archive` of the parent commit) compares two versions on one card.  After
+100 warm-up steps of the 97,920-atom scene (chip_smoke.bench_engine) it
+measures
+
+  * atom-steps/s of 3 runs of 1,000 steps with their rebuild counts,
+  * host-clock ms per rebuild (5 reps),
+  * host-clock ms per step without a rebuild (3 reps of 10 segments of
+    check_every steps), then torch.profiler device time per step over 10
+    more such segments, and the idle share 1 - device / wall,
+  * torch.profiler over 200 steps of Engine.run: the kernels by device
+    time (printed table; Chrome trace to --trace when given),
+
+and prints one line `RESULT {json}` with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("tree", nargs="?", default=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--trace", default="")
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke as cs
+    if os.path.dirname(os.path.abspath(cs.__file__)) != tree:
+        raise SystemExit(f"chip_smoke.py was not imported from {tree}")
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_step_profile: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    eng = cs.bench_engine(dev)
+    natoms, seg = eng.state.natoms, eng.check_every
+    eng.run(100)
+    torch.cuda.synchronize()
+
+    def clock(fn, reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def segment():
+        eng._segment(eng.state, eng.nbr, seg)
+
+    runs = []
+    for _ in range(3):
+        rb0 = eng.rebuilds
+        ms = clock(lambda: eng.run(1000), 1)
+        runs.append((natoms * 1000 / (ms * 1e-3), eng.rebuilds - rb0))
+    rebuild_ms = [clock(eng.rebuild_neighbors, 1) for _ in range(5)]
+    # wall and device time of the same plan (K), back to back
+    segment()
+    step_ms = [clock(segment, 10) / seg for _ in range(3)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            segment()
+        torch.cuda.synchronize()
+    dev_ms = sum(e.self_device_time_total
+                 for e in prof.key_averages()) / (10 * seg) / 1e3
+    rb0 = eng.rebuilds
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.run(200)
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    print(ka.table(sort_by="self_cuda_time_total", row_limit=25,
+                   max_name_column_width=60))
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
+                    exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print("RESULT " + json.dumps(dict(
+        label=args.label, natoms=natoms, k_caps=dict(eng._plan.k_caps),
+        step_ms_no_rebuild=step_ms, rebuild_ms=rebuild_ms,
+        run1000_atom_steps_per_s=[r for r, _ in runs],
+        run1000_rebuilds=[n for _, n in runs],
+        run1000_median=statistics.median(r for r, _ in runs),
+        device_ms_per_step_no_rebuild=dev_ms,
+        idle_share_no_rebuild=[1 - dev_ms / s for s in step_ms],
+        profiled_200_steps=dict(rebuilds=eng.rebuilds - rb0,
+                                device_events=kernels,
+                                device_events_per_step=kernels / 200),
+        gpu=gpu)))
+
+
+if __name__ == "__main__":
+    main()
