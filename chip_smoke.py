@@ -9,7 +9,9 @@ Phases (any failure raises, so the script exits non-zero):
   0. toolchain report; TF32 off; nvcc build of csrc/*.cu for sm_90a
   1. each CUDA kernel against its plain-PyTorch twin at the bench scene's
      shapes (97,920 atoms, REBO K and the cell/candidate widths from the
-     rebuild plan): max error against the JAX suite's bars, median times
+     rebuild plan; the reaction combine on the route tables of the
+     spatially sorted scene): max error against the JAX suite's bars,
+     median times
   2. f32 forces of the 288-atom scene on the card (device rebuild +
      kernels) against the float64 CPU twin forces: max|dF| < 1e-2 RMS(F)
   3. the main path: Engine.run on the 97,920-atom scene (f32, skin 0.8,
@@ -17,7 +19,15 @@ Phases (any failure raises, so the script exits non-zero):
      counter reset first; asserts that each kernel launched, that the
      thermo is finite and the NVE drift < 1e-6 eV/step/atom; then three
      timed 1,000-step runs for atom-steps/s (median and range)
-  4. golden thermo rows of in.rebomos-bulk, only when --golden-rebo names
+  4. the other force configurations at the same width, each its own
+     Engine: lj="half" with combine="rows", combine="react" on the
+     spatially sorted scene (gate off), combine="pin", combine="pin2".
+     Each: step-0
+     forces within 3e-4 x scale of the default configuration's on the
+     same state, then with the counters reset 300 steps in which each of
+     its kernels launches and no kernel it replaces does, finite thermo,
+     NVE drift < 1e-6 eV/step/atom; then one timed 1,000-step run
+  5. golden thermo rows of in.rebomos-bulk, only when --golden-rebo names
      the published MoS.REBO.set5b (not in the repository)
 
 The parameters are the synthetic file tests/data/MoS.REBO.synthetic.
@@ -94,8 +104,40 @@ def phase0_environment():
     print(build.build_log, file=sys.stderr)
 
 
-def bench_engine(dev):
-    """The bench scene on the card with its velocities; no lists yet."""
+#: the force configurations of phase 4: name, REBOMoS arguments, scene
+#: sorted, and the kernels (launch-counter modules of ops/) it runs.  The
+#: react gate is off: on the sorted bench scene with the synthetic
+#: parameters the measured route depth KC reaches 13 during the run, past
+#: the gate's 12 (a threshold set for the TPU kernel), and the gate would
+#: refuse the configuration.
+CONFIGS = (
+    ("half_rows", dict(lj="half", combine="rows"), False,
+     ("rebo", "mirror_rows", "lj_half", "select_k")),
+    ("react", dict(combine="react", react_gate=False), True,
+     ("rebo", "react", "lj_cells", "select_k")),
+    ("pin", dict(combine="pin"), False, ("rebo", "pin", "lj_cells",
+                                         "select_k")),
+    ("pin2", dict(combine="pin2"), False, ("rebo", "pin", "lj_cells",
+                                           "select_k")),
+)
+MAIN_PATH = ("rebo", "mirror", "lj_cells", "select_k")
+#: launch-counter module of ops/ -> kernel name in the JSON line
+KERNEL_NAMES = {"rebo": "rebo_cotangents", "mirror": "mirror_combine",
+                "lj_cells": "lj_cell_forces", "select_k": "select_k",
+                "lj_half": "lj_cell_forces_half",
+                "mirror_rows": "mirror_combine_rows",
+                "react": "react_combine", "pin": "pin_copy"}
+
+
+def ops_modules():
+    import importlib
+    return {m: importlib.import_module(f"lammps_plugins_tpu_torch.ops.{m}")
+            for m in KERNEL_NAMES}
+
+
+def bench_engine(dev, sort=False, **config):
+    """The bench scene on the card with its velocities; no lists yet.
+    sort: spatially sorted atoms; config: REBOMoS force configuration."""
     from lammps_plugins_tpu_torch.core import units
     from lammps_plugins_tpu_torch.api.scenes import rebomos_bulk_commensurate
     from lammps_plugins_tpu_torch.fixes.nve import FixNVE
@@ -103,17 +145,20 @@ def bench_engine(dev):
     from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
     from lammps_plugins_tpu_torch.run.simulation import Engine
     state = rebomos_bulk_commensurate(BENCH["nx"], BENCH["ny"], BENCH["nz"],
-                                      dtype=torch.float32, device=dev)
+                                      dtype=torch.float32, device=dev,
+                                      sort=sort)
     state = velocity_create(state, units.METAL, BENCH["temp"], BENCH["seed"])
     pair = REBOMoS.from_file(REBO_FILE, ["M", "S"], dtype=torch.float32,
-                             device=dev)
+                             device=dev, **config)
     return Engine(state, pair, [FixNVE()], units.METAL,
                   check_every=BENCH["check_every"], skin=BENCH["skin"])
 
 
 def phase1_kernels(dev):
     """Each kernel vs its twin on the bench scene's own tensors."""
-    from lammps_plugins_tpu_torch.ops import lj_cells, mirror, rebo, select_k
+    from lammps_plugins_tpu_torch.ops import (lj_cells, lj_half, mirror,
+                                              mirror_rows, pin, react, rebo,
+                                              select_k)
     eng = bench_engine(dev)
     eng.rebuild_neighbors()
     pair, st, nbr = eng.pair, eng.state, eng.nbr
@@ -125,17 +170,18 @@ def phase1_kernels(dev):
           f"a_range={nbr.cells.a_range}")
     results = {}
 
-    def record(name, err, bar, k_ms, t_ms, source, replaces):
+    def record(name, err, bar, k_ms, t_ms, source, replaces, **extra):
         print(f"{name}: max_abs_err={err:.3e} (bar {bar:.3e}) "
-              f"kernel {k_ms:.4f} ms, twin {t_ms:.4f} ms")
+              f"kernel {k_ms:.4f} ms, twin {t_ms:.4f} ms"
+              + "".join(f", {k} {v}" for k, v in extra.items()))
         if not err <= bar:
             raise AssertionError(f"{name} disagrees with its twin: "
                                  f"{err} > {bar}")
         results[name] = dict(name=name, route="cuda", source=source,
-                             replaces=replaces, max_abs_err=err, ms=k_ms,
-                             plain_ms=t_ms)
+                             replaces=replaces, max_abs_err=err, bar=bar,
+                             ms=k_ms, plain_ms=t_ms, **extra)
 
-    # A: REBO cotangents, bar 5e-4 * scale
+    # A: REBO cotangents, bar 5e-4 * scale; its emit_rows form bit for bit
     planes = pair._rebo_planes(st.x, pair.el_of_type[st.type], nbr.ghosts,
                                rl, st.box.h)
     cst = pair._rebo_consts
@@ -143,11 +189,21 @@ def phase1_kernels(dev):
     gt = rebo.rebo_cotangents_ref(*planes, cst)
     scale = max(float(t.abs().max()) for t in gt)
     err = max(float((a - b).abs().max()) for a, b in zip(gk, gt))
+    *g3, g4 = rebo.rebo_cotangents(*planes, cst, emit_rows=True)
+    torch.cuda.synchronize()
+    rows_exact = (all(torch.equal(g4[..., a], g3[a]) for a in range(3))
+                  and not bool(g4[..., 3].any()))
+    if not rows_exact:
+        raise AssertionError("rebo_cotangents emit_rows differs from its "
+                             "planes")
     record("rebo_cotangents", err, 5e-4 * scale,
            timed_ms(lambda: rebo.rebo_cotangents(*planes, cst)),
            timed_ms(lambda: rebo.rebo_cotangents_ref(*planes, cst), reps=3),
            "lammps_plugins_tpu_torch/csrc/rebo.cu",
-           "lammps_plugins_tpu/ops/rebo_pallas.py:233")
+           "lammps_plugins_tpu/ops/rebo_pallas.py:250",
+           emit_rows_bit_identical=rows_exact,
+           emit_rows_ms=timed_ms(lambda: rebo.rebo_cotangents(
+               *planes, cst, emit_rows=True)))
 
     # B: mirror combine, bar 1e-5 * scale (f32 sums in another order)
     mv = rl.mirvT.float()
@@ -158,7 +214,45 @@ def phase1_kernels(dev):
            timed_ms(lambda: mirror.mirror_combine(*gk, rl.mirT, mv)),
            timed_ms(lambda: mirror.mirror_combine_ref(*gk, rl.mirT, mv)),
            "lammps_plugins_tpu_torch/csrc/mirror.cu",
-           "lammps_plugins_tpu/ops/mirror_pallas.py:75")
+           "lammps_plugins_tpu/ops/mirror_pallas.py:93")
+
+    # F: mirror combine from the gathered emit_rows table, 1e-5 * scale
+    gmir4 = g4.reshape(K * Np, 4)[rl.mirT.reshape(-1).long()] \
+        .reshape(K, Np, 4)
+    fk = mirror_rows.mirror_combine_rows(*g3, gmir4, mv)
+    ft = mirror_rows.mirror_combine_rows_ref(*g3, gmir4, mv)
+    record("mirror_combine_rows", float((fk - ft).abs().max()),
+           1e-5 * float(ft.abs().max()),
+           timed_ms(lambda: mirror_rows.mirror_combine_rows(*g3, gmir4, mv)),
+           timed_ms(lambda: mirror_rows.mirror_combine_rows_ref(*g3, gmir4,
+                                                                mv)),
+           "lammps_plugins_tpu_torch/csrc/mirror_rows.cu",
+           "lammps_plugins_tpu/ops/mirror_pallas.py:138")
+
+    # pin copy, exact, on the [R, 128], [K, 3 Np] and [Np, Wr] shapes
+    stacked = torch.stack(g3, dim=-1)
+    flat = stacked.reshape(-1)
+    R = -(-flat.shape[0] // 128)
+    Wr = 64 if 3 * K <= 64 else 128
+    pin_inputs = {
+        f"[{R},128]": torch.nn.functional.pad(
+            flat, (0, R * 128 - flat.shape[0])).reshape(R, 128),
+        f"[{K},{3 * Np}]": stacked.reshape(K, 3 * Np),
+        f"[{Np},{Wr}]": torch.nn.functional.pad(
+            torch.cat(g3).t(), (0, Wr - 3 * K)).contiguous()}
+    pin_err, pin_ms, pin_plain = 0.0, {}, {}
+    for shape, a in pin_inputs.items():
+        out = pin.pin_copy(a)
+        pin_err = max(pin_err, float((out - a).abs().max()))
+        if not torch.equal(out, a):
+            raise AssertionError(f"pin_copy {shape} is not exact")
+        pin_ms[shape] = timed_ms(lambda: pin.pin_copy(a))
+        pin_plain[shape] = timed_ms(lambda: a.clone())
+    main = f"[{K},{3 * Np}]"
+    record("pin_copy", pin_err, 0.0, pin_ms[main], pin_plain[main],
+           "lammps_plugins_tpu_torch/csrc/pin.cu",
+           "lammps_plugins_tpu/ops/pin_rows.py:85 (and :39, :51)",
+           ms_by_shape=pin_ms, plain_ms_by_shape=pin_plain)
 
     # C: LJ cell sweep, forces 2e-4 * scale, energy 2e-5 relative
     P = pair._cell_planes(st.x, nbr.ghosts, nbr.cells, st.box.h)
@@ -177,7 +271,29 @@ def phase1_kernels(dev):
            timed_ms(lambda: lj_cells.lj_cell_forces(P, lc, ar)),
            timed_ms(lambda: lj_cells.lj_cell_forces_ref(P, lc, ar), reps=3),
            "lammps_plugins_tpu_torch/csrc/lj_cells.cu",
-           "lammps_plugins_tpu/ops/lj_cells_pallas.py:389")
+           "lammps_plugins_tpu/ops/lj_cells_pallas.py:204")
+
+    # E: Newton-half LJ, 2e-4 * scale vs its twin, and within 3e-4 * scale
+    # of kernel C's atom forces after the aslot remap
+    hk = lj_half.lj_cell_forces_half(P, lc, ar)
+    ht = lj_half.lj_cell_forces_half_ref(P, lc, ar)
+    f_half = hk.reshape(-1, 3)[nbr.cells.aslot]
+    f_full = ok[..., 0:3, :].permute(0, 1, 2, 4, 3).reshape(-1, 3)[
+        nbr.cells.aslot]
+    sc = float(f_full.abs().max())
+    err_c = float((f_half - f_full).abs().max())
+    print(f"lj_cell_forces_half vs kernel C after the remap: "
+          f"{err_c:.3e} (bar {3e-4 * sc:.3e})")
+    if not err_c <= 3e-4 * sc:
+        raise AssertionError("lj_cell_forces_half disagrees with kernel C")
+    record("lj_cell_forces_half", float((hk - ht).abs().max()),
+           2e-4 * float(ht.abs().max()),
+           timed_ms(lambda: lj_half.lj_cell_forces_half(P, lc, ar)),
+           timed_ms(lambda: lj_half.lj_cell_forces_half_ref(P, lc, ar),
+                    reps=3),
+           "lammps_plugins_tpu_torch/csrc/lj_half.cu",
+           "lammps_plugins_tpu/ops/lj_cells_pallas.py:331",
+           max_abs_err_vs_kernel_c=err_c)
 
     # D: select_k on [N, W] candidate-like keys (seeded; quantized so that
     # ties occur; most slots invalid as in a cell window), exact
@@ -197,8 +313,38 @@ def phase1_kernels(dev):
            timed_ms(lambda: select_k.select_k(keys, K, (ids, typ))),
            timed_ms(lambda: select_k.select_k_ref(keys, K, (ids, typ))),
            "lammps_plugins_tpu_torch/csrc/select_k.cu",
-           "lammps_plugins_tpu/ops/select_k_pallas.py:69")
-    del eng, planes, gk, gt, P, ok, ot, keys, ids, typ
+           "lammps_plugins_tpu/ops/select_k_pallas.py:99")
+    del eng, planes, gk, gt, g3, g4, gmir4, stacked, flat, pin_inputs, P
+    del ok, ot, hk, ht, keys, ids, typ
+    torch.cuda.empty_cache()
+
+    # G: reaction combine on the route tables of the sorted scene's rebuild
+    eng = bench_engine(dev, sort=True, combine="react", react_gate=False)
+    eng.rebuild_neighbors()
+    pair, st, nbr = eng.pair, eng.state, eng.nbr
+    rl = nbr.lists["rebo"]
+    planes = pair._rebo_planes(st.x, pair.el_of_type[st.type], nbr.ghosts,
+                               rl, st.box.h)
+    g3 = rebo.rebo_cotangents(*planes, pair._rebo_consts)
+    rk = react.react_combine(*g3, rl.rblocks, rl.route)
+    rt = react.react_combine_ref(*g3, rl.rblocks, rl.route)
+    fm = mirror.mirror_combine(*g3, rl.mirT, rl.mirvT.float())
+    sc = float(rt.abs().max())
+    err_m = float((rk - fm).abs().max())
+    if not err_m <= 1e-5 * sc:
+        raise AssertionError(f"react_combine disagrees with the mirror "
+                             f"combine: {err_m}")
+    p = eng._plan
+    record("react_combine", float((rk - rt).abs().max()), 1e-5 * sc,
+           timed_ms(lambda: react.react_combine(*g3, rl.rblocks, rl.route)),
+           timed_ms(lambda: react.react_combine_ref(*g3, rl.rblocks,
+                                                    rl.route)),
+           "lammps_plugins_tpu_torch/csrc/react.cu",
+           "lammps_plugins_tpu/ops/react_pallas.py:202 and :226",
+           max_abs_err_vs_mirror_combine=err_m,
+           NW_KC_QR=[p.react_nw, p.react_kc, p.react_qr],
+           measured_NW_KC_QR=list(eng._react_hwm))
+    del eng, planes, g3, rk, rt, fm
     torch.cuda.empty_cache()
     return results
 
@@ -246,23 +392,11 @@ def phase3_main_path(dev, modules):
     launches = {name: m.launches for name, m in modules.items()}
     print(f"main run: {RUN_STEPS} steps in {wall:.2f} s (first rebuild, "
           f"plan sizing and two thermo rows included), launches {launches}")
+    check_launches("main path", launches, MAIN_PATH)
     for r in rows:
         print(f"  step {r['step']} T {r['temp']:.6f} pe {r['pe']:.6f} "
               f"etotal {r['etotal']:.6f} press {r['press']:.4f}")
-    missing = [n for n, c in launches.items() if c <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
-    for r in rows:
-        if not all(np.isfinite(v) for v in r.values()):
-            raise AssertionError(f"non-finite thermo row {r}")
-    if not torch.isfinite(eng.state.x).all() \
-            or not torch.isfinite(eng.state.f).all():
-        raise AssertionError("non-finite positions or forces")
-    drift = abs(rows[-1]["etotal"] - rows[0]["etotal"]) / (RUN_STEPS * natoms)
-    print(f"NVE drift {drift:.3e} eV/step/atom (bar 1e-6)")
-    if not drift < 1e-6:
-        raise AssertionError("NVE energy drift above 1e-6 eV/step/atom")
+    check_run(eng, rows)
 
     rates, rebuilds = [], []
     for _ in range(TIMED_REPS):
@@ -284,7 +418,88 @@ def phase3_main_path(dev, modules):
     return launches
 
 
-def phase4_golden(dev, path):
+def check_launches(label, launches, used):
+    """Every kernel of the path launched; none that it replaces did."""
+    missing = [m for m in used if launches[m] <= 0]
+    stray = [m for m, c in launches.items() if c > 0 and m not in used]
+    if missing or stray:
+        raise AssertionError(f"{label}: kernels not launched {missing}, "
+                             f"launched outside the path {stray}")
+
+
+def check_run(eng, rows):
+    """Finite thermo, positions and forces; NVE drift < 1e-6 eV/step/atom
+    between the first and the last row."""
+    for r in rows:
+        if not all(np.isfinite(v) for v in r.values()):
+            raise AssertionError(f"non-finite thermo row {r}")
+    if not torch.isfinite(eng.state.x).all() \
+            or not torch.isfinite(eng.state.f).all():
+        raise AssertionError("non-finite positions or forces")
+    steps = rows[-1]["step"] - rows[0]["step"]
+    drift = abs(rows[-1]["etotal"] - rows[0]["etotal"]) \
+        / (steps * eng.state.natoms)
+    print(f"NVE drift {drift:.3e} eV/step/atom (bar 1e-6)")
+    if not drift < 1e-6:
+        raise AssertionError("NVE energy drift above 1e-6 eV/step/atom")
+    return drift
+
+
+def phase4_configurations(dev, modules):
+    """The other force configurations, each its own Engine at the bench
+    width; returns {config name: launches of its run}."""
+    from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
+    out = {}
+    for name, config, sort, used in CONFIGS:
+        eng = bench_engine(dev, sort=sort, **config)
+        natoms = eng.state.natoms
+        eng.rebuild_neighbors()
+        st, nbr = eng.state, eng.nbr
+        default = REBOMoS.from_file(REBO_FILE, ["M", "S"],
+                                    dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            f_cfg = eng.pair.forces(st.x, st.type, nbr, st.box.h)
+            f_def = default.forces(st.x, st.type, nbr, st.box.h)
+        sc = float(f_def.abs().max())
+        err = float((f_cfg - f_def).abs().max())
+        print(f"config {name} {config} sort={sort}: step-0 forces vs the "
+              f"default configuration {err:.3e} (bar {3e-4 * sc:.3e})")
+        if not err <= 3e-4 * sc:
+            raise AssertionError(f"config {name}: step-0 forces off")
+        del f_cfg, f_def
+        for m in modules.values():
+            m.launches = 0
+        t0 = time.perf_counter()
+        rows = eng.run(RUN_STEPS, thermo_every=RUN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {m: mod.launches for m, mod in modules.items()}
+        print(f"  {RUN_STEPS} steps in {wall:.2f} s, launches {launches}")
+        check_launches(f"config {name}", launches, used)
+        check_run(eng, rows)
+        p = eng._plan
+        route = ""
+        if config.get("combine") == "react":
+            if not p.react_nw > 0:
+                raise AssertionError("config react: plan.react_nw is 0")
+            route = (f"; NW/KC/QR {p.react_nw}/{p.react_kc}/{p.react_qr} "
+                     f"(measured high-water {eng._react_hwm})")
+        rb0 = eng.rebuilds
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(TIMED_STEPS)
+        torch.cuda.synchronize()
+        rate = natoms * TIMED_STEPS / (time.perf_counter() - t0)
+        print(f"  timed run: {TIMED_STEPS} steps, {rate:.6g} atom-steps/s "
+              f"({natoms} atoms, f32), {eng.rebuilds - rb0} rebuilds, "
+              f"K={dict(p.k_caps)}{route}")
+        out[name] = launches
+        del eng, default
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase5_golden(dev, path):
     """in.rebomos-bulk thermo rows against the reference log."""
     if not path:
         print("golden log: skipped (needs the published MoS.REBO.set5b, "
@@ -316,16 +531,24 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
-    from lammps_plugins_tpu_torch.ops import lj_cells, mirror, rebo, select_k
     dev = torch.device("cuda:0")
-    modules = {"rebo_cotangents": rebo, "mirror_combine": mirror,
-               "lj_cell_forces": lj_cells, "select_k": select_k}
+    modules = ops_modules()
     phase0_environment()
     results = phase1_kernels(dev)
     phase2_f32_accuracy(dev)
     launches = phase3_main_path(dev, modules)
-    phase4_golden(dev, args.golden_rebo)
-    kernels = [dict(results[n], launches=launches[n]) for n in modules]
+    by_config = phase4_configurations(dev, modules)
+    phase5_golden(dev, args.golden_rebo)
+    # each kernel's count from the runs of the paths that use it
+    runs = [(MAIN_PATH, launches)] + [(used, by_config[name])
+                                      for name, _, _, used in CONFIGS]
+    kernels = []
+    for m, name in KERNEL_NAMES.items():
+        paths = [c for used, c in runs if m in used]
+        if m in MAIN_PATH:
+            paths = paths[:1]
+        kernels.append(dict(results[name],
+                            launches=sum(c[m] for c in paths)))
     print(json.dumps({"kernels": kernels}))
     print(sh("nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"))

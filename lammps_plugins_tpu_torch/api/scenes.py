@@ -36,7 +36,8 @@ def mos2_lattice(origin=(0.1, 0.1, 0.1)) -> Lattice:
 
 def spatial_sort(pos: np.ndarray, types: np.ndarray, cell: float = 4.8):
     """Order atoms by (z, y, x) spatial cells (stable) — the analogue of
-    LAMMPS `atom_modify sort`.  Not applied by the scene builders."""
+    LAMMPS `atom_modify sort`.  rebomos_bulk_commensurate(sort=True)
+    applies it (the JAX package's LPT_SORT_SCENE=1)."""
     mn = pos.min(axis=0)
     c3 = ((pos - mn) / cell).astype(np.int64)
     dims = c3.max(axis=0) + 1
@@ -46,10 +47,13 @@ def spatial_sort(pos: np.ndarray, types: np.ndarray, cell: float = 4.8):
 
 
 def rebomos_bulk_commensurate(nx: int = 34, ny: int = 48, nz: int = 10,
-                              dtype=torch.float32, device="cpu") -> State:
+                              dtype=torch.float32, device="cpu",
+                              sort: bool = False) -> State:
     """Defect-free MoS2 bulk whose box vectors are integer combinations of
     the lattice vectors (A = nx a1, B = ny/2 a1 + ny a2, C = nz a3).
-    Defaults give the 97,920-atom bench scene."""
+    Defaults give the 97,920-atom bench scene.  sort=True orders the atoms
+    spatially (spatial_sort), which the combine="react" route tables
+    need."""
     if ny % 2:
         raise ValueError("ny must be even (B = ny/2 a1 + ny a2)")
     a1, a2, a3 = (np.asarray(v) for v in (MOS2_A1, MOS2_A2, MOS2_A3))
@@ -68,6 +72,8 @@ def rebomos_bulk_commensurate(nx: int = 34, ny: int = 48, nz: int = 10,
     h = box.h_np()
     f = pos @ np.linalg.inv(h)
     pos = (f - np.floor(f)) @ h
+    if sort:
+        pos, types = spatial_sort(pos, types)
     mass = np.array([0.0, *MOS2_MASSES])
     return State.create(x=pos, type=types, box=box, mass=mass)
 

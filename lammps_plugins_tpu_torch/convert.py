@@ -42,13 +42,14 @@ _LIST_DTYPES = {"idx": torch.int64, "mask": torch.bool,
                 "jtype": torch.int64, "mirror": torch.int64,
                 "idxT": torch.int64, "maskT": torch.bool,
                 "jtypeT": torch.int64, "mirT": torch.int32,
-                "mirvT": torch.bool}
+                "mirvT": torch.bool, "rblocks": torch.int32,
+                "route": torch.int32}
 
 
 def neighbor_data_from_numpy(nbr, dtype=torch.float64,
                              device="cpu") -> NeighborData:
-    """Port NeighborData (ghosts, [N, K] lists with their mirror tables,
-    cell grid) from a JAX-package NeighborData."""
+    """Port NeighborData (ghosts, [N, K] lists with their mirror and route
+    tables, cell grid) from a JAX-package NeighborData."""
     ghosts = Ghosts(owner=_t(nbr.ghosts.owner, torch.int64, device),
                     shift=_t(nbr.ghosts.shift, dtype, device))
     lists = {}
@@ -74,8 +75,8 @@ def neighbor_data_from_numpy(nbr, dtype=torch.float64,
 
 
 def plan_from_fields(plan) -> RebuildPlan:
-    """Port RebuildPlan with the same geometry and capacities (fields the
-    port does not carry are ignored)."""
+    """Port RebuildPlan with the same geometry and capacities, the route
+    capacities included (fields the port does not carry are ignored)."""
     return RebuildPlan(**{f.name: getattr(plan, f.name)
                           for f in dataclasses.fields(RebuildPlan)})
 

@@ -19,6 +19,11 @@
 // derive_rebo_constants as bilinear (pair) and linear (center) rows.
 // Simple and right first; register blocking and shared-memory staging of
 // the edge data are left to later work.
+//
+// emit_rows (rebo_pallas.py:219-226, 245): when `rows` is not null the
+// same thread also stores G_e as one 16-byte float4 (gx, gy, gz, 0) of
+// the interleaved [K, Np, 4] table that the `rows` mirror combine
+// (csrc/mirror_rows.cu) gathers from.
 
 #include <cuda_runtime.h>
 
@@ -75,7 +80,8 @@ __global__ void rebo_cotangents_kernel(
     const float* __restrict__ dzT, const float* __restrict__ jelT,
     const float* __restrict__ mskT, const float* __restrict__ ei,
     const float* __restrict__ cst, float* __restrict__ gxT,
-    float* __restrict__ gyT, float* __restrict__ gzT, int Np) {
+    float* __restrict__ gyT, float* __restrict__ gzT,
+    float4* __restrict__ rows, int Np) {
   __shared__ float c[kNConst];
   for (int t = threadIdx.x; t < kNConst; t += blockDim.x) c[t] = cst[t];
   __syncthreads();
@@ -181,21 +187,25 @@ __global__ void rebo_cotangents_kernel(
     const float C1 = dEdr + dEdw * wp[j];
     const float coef = C1 * rinv[j] - S2 * rinv[j] * rinv[j];
     const size_t e = (size_t)j * Np + i;
-    gxT[e] = coef * dx[j] + cx;
-    gyT[e] = coef * dy[j] + cy;
-    gzT[e] = coef * dz[j] + cz;
+    const float gx = coef * dx[j] + cx;
+    const float gy = coef * dy[j] + cy;
+    const float gz = coef * dz[j] + cz;
+    gxT[e] = gx;
+    gyT[e] = gy;
+    gzT[e] = gz;
+    if (rows != nullptr) rows[e] = make_float4(gx, gy, gz, 0.f);
   }
 }
 
 template <int K>
 int launch(const float* dx, const float* dy, const float* dz,
            const float* jel, const float* msk, const float* ei,
-           const float* cst, float* gx, float* gy, float* gz, int Np,
-           cudaStream_t s) {
+           const float* cst, float* gx, float* gy, float* gz,
+           float4* rows, int Np, cudaStream_t s) {
   const int threads = 128;
   const int blocks = (Np + threads - 1) / threads;
   rebo_cotangents_kernel<K><<<blocks, threads, 0, s>>>(
-      dx, dy, dz, jel, msk, ei, cst, gx, gy, gz, Np);
+      dx, dy, dz, jel, msk, ei, cst, gx, gy, gz, rows, Np);
   return (int)cudaGetLastError();
 }
 
@@ -203,15 +213,18 @@ int launch(const float* dx, const float* dy, const float* dz,
 
 // K must be a multiple of 4 in [8, 64] (every value Engine._quantize_k and
 // the rebuild plans produce up to 64); returns -1 for any other K.
+// rows: null, or the [K, Np, 4] interleaved output (16-byte aligned).
 extern "C" int lpt_rebo_cotangents(const float* dx, const float* dy,
                                    const float* dz, const float* jel,
                                    const float* msk, const float* ei,
                                    const float* cst, float* gx, float* gy,
-                                   float* gz, int K, int Np, void* stream) {
+                                   float* gz, float* rows, int K, int Np,
+                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
 #define LPT_REBO_CASE(KK) \
   case KK:                \
-    return launch<KK>(dx, dy, dz, jel, msk, ei, cst, gx, gy, gz, Np, s);
+    return launch<KK>(dx, dy, dz, jel, msk, ei, cst, gx, gy, gz, \
+                      (float4*)rows, Np, s);
   switch (K) {
     LPT_REBO_CASE(8) LPT_REBO_CASE(12) LPT_REBO_CASE(16) LPT_REBO_CASE(20)
     LPT_REBO_CASE(24) LPT_REBO_CASE(28) LPT_REBO_CASE(32) LPT_REBO_CASE(36)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core.box import Box, matvec3
+from ..ops.react import build_route_tables
 from ..ops.select_k import select_k
 from .build import CellData, NeighborData
 from .neighbor import Ghosts, NeighborList
@@ -53,6 +54,11 @@ class RebuildPlan:
     lo_ref: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     bnd_capacity: int = 0                      # two-stage ghost compaction
     cell_frac: bool = False                    # fractional coarse cells
+    # reaction-combine route capacities (ops/react.py): source blocks per
+    # output chunk, route depth, routed rows per chunk; 0 = no tables
+    react_nw: int = 0
+    react_kc: int = 0
+    react_qr: int = 0
 
 
 def make_plan(box: Box, requests: Dict[str, np.ndarray], skin: float,
@@ -62,7 +68,8 @@ def make_plan(box: Box, requests: Dict[str, np.ndarray], skin: float,
               cand_occupancy: int | None = None,
               mirror_tiers: Tuple[str, ...] = (),
               k_final: bool = False, frac_cells: bool = True,
-              bnd_count: int = 0) -> RebuildPlan:
+              bnd_count: int = 0, react_nw: int = 0, react_kc: int = 0,
+              react_qr: int = 0) -> RebuildPlan:
     """Static geometry + padded capacities from measured counts.
 
     k_final=True takes k_counts as exact K capacities (rounded up to 4)."""
@@ -148,7 +155,9 @@ def make_plan(box: Box, requests: Dict[str, np.ndarray], skin: float,
         mirror_tiers=tuple(sorted(mirror_tiers)),
         cell_mn=cell_mn, a_range=a_range, cell_frac=cell_frac,
         periodic=tuple(bool(p) for p in box.periodic),
-        bnd_capacity=pad8(bnd_count) if bnd_count > 0 else 0)
+        bnd_capacity=pad8(bnd_count) if bnd_count > 0 else 0,
+        react_nw=int(react_nw), react_kc=int(react_kc),
+        react_qr=int(react_qr))
 
 
 def make_plan_from_density(box: Box, requests: Dict[str, np.ndarray],
@@ -316,10 +325,13 @@ def flags_to_host(flags: Dict[str, torch.Tensor]) -> Dict[str, int]:
 
 
 def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
-                   cut_mats: Dict[str, np.ndarray]):
+                   cut_mats: Dict[str, np.ndarray], react: bool = False):
     """(x, image) -> (xw, image', NeighborData, flags) with fixed shapes.
 
-    cut_mats: per-tier [T+1, T+1] cutoff matrices (numpy)."""
+    cut_mats: per-tier [T+1, T+1] cutoff matrices (numpy).  react: measure
+    the route geometry of the mirror tiers (count:rnw/rkc/rq) and, when
+    the plan carries route capacities, build the route tables
+    (react_overflow flags them too small)."""
     dtype, dev = x.dtype, x.device
     n = x.shape[0]
     as_t = lambda v: torch.as_tensor(np.asarray(v), dtype=dtype,  # noqa
@@ -477,6 +489,17 @@ def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
                           jtypeT=_pad_t(jtype, Np, 0),
                           mirT=_pad_t(mir_flat, Np, 0).to(torch.int32),
                           mirvT=_pad_t(mir_ok, Np, False))
+                if react:
+                    (rblocks, _, route, nw_n, kc_n, rq_n,
+                     r_ovf) = build_route_tables(
+                        idx, mask, mirror, owner, n, K, plan.react_nw,
+                        plan.react_kc, plan.react_qr)
+                    flags[f"count:rnw:{name}"] = nw_n
+                    flags[f"count:rkc:{name}"] = kc_n
+                    flags[f"count:rq:{name}"] = rq_n
+                    if plan.react_nw > 0:
+                        flags[f"react_overflow:{name}"] = r_ovf
+                        kw.update(rblocks=rblocks, route=route)
             lists[name] = NeighborList(idx=idx, mask=mask, jtype=jtype,
                                        **kw)
             flags[f"k_overflow:{name}"] = kmax > K

@@ -51,7 +51,10 @@ class NeighborList:
     edge (owner(j), image of i), -1 where absent.  The [K, Np] tables
     (Np = N padded to 128) are the same data transposed at rebuild time
     for the force path: mirT encodes the mirror edge as slot*Np + atom,
-    mirvT marks valid mirrors."""
+    mirvT marks valid mirrors.  rblocks [nch, NW] and route
+    [nch, NW, KC, 128] are the reaction-combine route tables
+    (ops/react.py::build_route_tables), present when the rebuild was asked
+    for them and the plan carries route capacities."""
 
     idx: torch.Tensor
     mask: torch.Tensor
@@ -62,6 +65,8 @@ class NeighborList:
     jtypeT: torch.Tensor | None = None
     mirT: torch.Tensor | None = None
     mirvT: torch.Tensor | None = None
+    rblocks: torch.Tensor | None = None
+    route: torch.Tensor | None = None
 
     @property
     def capacity(self) -> int:

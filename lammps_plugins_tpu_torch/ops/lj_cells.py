@@ -66,43 +66,56 @@ def derive_lj_constants(tables) -> dict:
             for name, P in vals.items()}
 
 
+def pair_terms(A, B, consts, with_energy=False):
+    """Switched-LJ pair blocks of cell planes A and B ([..., 8, C] each):
+    A slots on rows, B slots on columns.  Returns (d, fp, v): d the three
+    [..., C, C] components of x_a - x_b, fp the force factor
+    (F_a += fp * d) and v the pair energy (None unless with_energy), both
+    0 outside the LJ window."""
+    ax, ay, az, ael = (A[..., r, :, None] for r in range(4))
+    ebl = B[..., 3, None, :]
+
+    def cst(name):
+        a0, a1, b0, b1 = consts[name]
+        return (a0 + ael * a1) + (b0 + ael * b1) * ebl
+
+    d = [a - B[..., r, None, :] for r, a in enumerate((ax, ay, az))]
+    rsq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    inwin = (rsq >= cst("ljminsq")) & (rsq <= cst("ljmaxsq"))
+    rs = torch.where(inwin, rsq, torch.ones_like(rsq))
+    rinv = torch.rsqrt(rs)
+    r = rs * rinv
+    r2inv = rinv * rinv
+    r6inv = r2inv * r2inv * r2inv
+    lj126 = rs >= cst("s95sq")
+    drp = r - cst("ljmin")
+    fp = torch.where(
+        lj126, (cst("lj1") * r6inv - cst("lj2")) * r6inv * r2inv,
+        drp * (cst("k3") * drp + cst("k2")) * rinv)
+    fp = torch.where(inwin, fp, torch.zeros_like(fp))
+    v = None
+    if with_energy:
+        v = torch.where(
+            lj126, (cst("lj3") * r6inv - cst("lj4")) * r6inv,
+            drp * drp * (cst("c3") * drp + cst("c2")))
+        v = torch.where(inwin, v, torch.zeros_like(v))
+    return d, fp, v
+
+
 def lj_cell_forces_ref(P, consts, a_range, with_energy=False):
     """Twin: the closed-form sweep over the 27 offsets, one [cells, C, C]
     block per offset."""
     (x0, x1), (y0, y1), (z0, z1) = a_range
     A = P[x0:x1, y0:y1, z0:z1]                         # [Ax, Ay, Az, 8, C]
-    ax, ay, az, ael = (A[..., r, :, None] for r in range(4))
-
-    def cst(name, ebl):
-        a0, a1, b0, b1 = consts[name]
-        return (a0 + ael * a1) + (b0 + ael * b1) * ebl
-
     f = [torch.zeros_like(A[..., 0, :]) for _ in range(3)]
     en = torch.zeros_like(A[..., 0, :])
     for ox, oy, oz in itertools.product((-1, 0, 1), repeat=3):
         B = P[x0 + ox:x1 + ox, y0 + oy:y1 + oy, z0 + oz:z1 + oz]
-        d = [a - B[..., r, None, :] for r, a in enumerate((ax, ay, az))]
-        ebl = B[..., 3, None, :]
-        rsq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-        inwin = (rsq >= cst("ljminsq", ebl)) & (rsq <= cst("ljmaxsq", ebl))
-        rs = torch.where(inwin, rsq, torch.ones_like(rsq))
-        rinv = torch.rsqrt(rs)
-        r = rs * rinv
-        r2inv = rinv * rinv
-        r6inv = r2inv * r2inv * r2inv
-        lj126 = rs >= cst("s95sq", ebl)
-        drp = r - cst("ljmin", ebl)
-        fp = torch.where(
-            lj126, (cst("lj1", ebl) * r6inv - cst("lj2", ebl)) * r6inv * r2inv,
-            drp * (cst("k3", ebl) * drp + cst("k2", ebl)) * rinv)
-        fp = torch.where(inwin, fp, torch.zeros_like(fp))
+        d, fp, v = pair_terms(A, B, consts, with_energy)
         for a in range(3):
             f[a] = f[a] + (fp * d[a]).sum(dim=-1)
         if with_energy:
-            v = torch.where(
-                lj126, (cst("lj3", ebl) * r6inv - cst("lj4", ebl)) * r6inv,
-                drp * drp * (cst("c3", ebl) * drp + cst("c2", ebl)))
-            en = en + torch.where(inwin, v, torch.zeros_like(v)).sum(dim=-1)
+            en = en + v.sum(dim=-1)
     erow = 0.5 * A[..., 4, :] * en if with_energy else torch.zeros_like(en)
     zero = torch.zeros_like(en)
     return torch.stack(f + [erow, zero, zero, zero, zero], dim=-2)

@@ -4,7 +4,10 @@ Counterpart of lammps_plugins_tpu/ops/rebo_pallas.py.  Given the [K, Np]
 edge planes of the REBO list (atoms along the last axis), returns
 G_e = dE_REBO/dd_e as three [K, Np] planes.  The kernel
 (csrc/rebo.cu) derives the gradient by hand; the twin is autograd of the
-port's REBO energy (potentials/rebomos.py::rebo_energy_rows).
+port's REBO energy (potentials/rebomos.py::rebo_energy_rows).  With
+emit_rows the kernel also writes the interleaved [K, Np, 4] table
+(gx, gy, gz, 0) of the `rows` mirror combine, as the JAX kernel's
+emit_rows output does.
 """
 
 from __future__ import annotations
@@ -76,8 +79,10 @@ def rebo_cotangents_ref(dxT, dyT, dzT, jelT, mskT, ei, consts):
     return tuple(gi.t().contiguous() for gi in g)
 
 
-def rebo_cotangents(dxT, dyT, dzT, jelT, mskT, ei, consts):
-    """G_e planes (gx, gy, gz), each [K, Np].
+def rebo_cotangents(dxT, dyT, dzT, jelT, mskT, ei, consts,
+                    emit_rows=False):
+    """G_e planes (gx, gy, gz), each [K, Np], and with emit_rows a fourth
+    output, the [K, Np, 4] rows (gx, gy, gz, 0).
 
     dxT/dyT/dzT: displacement planes; jelT: neighbor element code (0/1)
     as float; mskT: slot mask as float 0/1; ei: [Np] center element code
@@ -85,7 +90,10 @@ def rebo_cotangents(dxT, dyT, dzT, jelT, mskT, ei, consts):
     CPU tensors take the twin; CUDA float32 tensors the kernel."""
     global launches
     if not build.use_kernel(dxT, "rebo_cotangents"):
-        return rebo_cotangents_ref(dxT, dyT, dzT, jelT, mskT, ei, consts)
+        g = rebo_cotangents_ref(dxT, dyT, dzT, jelT, mskT, ei, consts)
+        if emit_rows:
+            g = g + (torch.stack([*g, torch.zeros_like(g[0])], dim=-1),)
+        return g
     K, Np = dxT.shape
     if K not in KERNEL_K:
         raise ValueError(f"rebo_cotangents: K={K} not compiled "
@@ -97,9 +105,11 @@ def rebo_cotangents(dxT, dyT, dzT, jelT, mskT, ei, consts):
     ptrs.append(build.check(ei, "ei", (Np,), f32, dev))
     cvec = build.device_constants(tuple(rebo_constant_vector(consts)), dev)
     out = [torch.empty((K, Np), dtype=f32, device=dev) for _ in range(3)]
+    rows = (torch.empty((K, Np, 4), dtype=f32, device=dev) if emit_rows
+            else None)
     status = build.lib().lpt_rebo_cotangents(
-        *ptrs, cvec.data_ptr(), *[o.data_ptr() for o in out], K, Np,
-        build.stream(dev))
+        *ptrs, cvec.data_ptr(), *[o.data_ptr() for o in out],
+        None if rows is None else rows.data_ptr(), K, Np, build.stream(dev))
     build.raise_on_error(status, "rebo_cotangents")
     launches += 1
-    return tuple(out)
+    return tuple(out) + ((rows,) if emit_rows else ())

@@ -13,6 +13,20 @@ per-step path are analytic:
   * LJ: the 27-offset A-side cell sweep (ops/lj_cells.py, kernel C) and
     a gather through the rebuild-time `aslot` table.
 
+The JAX package's other force configurations (its LPT_LJ_HALF, LPT_MIR
+and LPT_REACT flags) are constructor arguments here:
+
+  * lj="half": the Newton-half cell sweep (ops/lj_half.py, kernel E);
+  * combine="rows": the REBO kernel also emits the [K, Np, 4] rows, which
+    are gathered at mirT and reduced by ops/mirror_rows.py (kernel F);
+  * combine="pin" / "pin2": the stacked cotangent table goes through the
+    layout-pin copy (ops/pin.py) as [R, 128] / [K, 3 Np], then a gather at
+    mirT and the K sums in torch;
+  * combine="react": the rebuild-time route tables and the block-sparse
+    reaction combine (ops/react.py, kernel G); the Engine builds the
+    tables, and a geometry its gate refuses raises (react_gate=False
+    builds them at any size).
+
 Energy and virial (thermo rows) are autograd of `energy`.
 """
 
@@ -30,7 +44,11 @@ from lammps_plugins_tpu.potentials.tables import REBOMoSTables, read_rebomos
 from ..neighbor.build import CellData, NeighborData
 from ..neighbor.neighbor import Ghosts, NeighborList, edge_components
 from ..ops.lj_cells import derive_lj_constants, lj_cell_forces
+from ..ops.lj_half import lj_cell_forces_half
 from ..ops.mirror import mirror_combine
+from ..ops.mirror_rows import mirror_combine_rows
+from ..ops.pin import pin_rows3, pin_rows3_v2
+from ..ops.react import react_combine
 from ..ops.rebo import derive_rebo_constants, rebo_cotangents
 from ..registry import register_pair_style
 from .base import PairStyle
@@ -136,10 +154,23 @@ class REBOMoS(PairStyle):
     cell_tiers = ("master",)
     mirror_tiers = ("rebo",)
 
+    LJ_MODES = ("full", "half")
+    COMBINE_MODES = ("mirror", "rows", "pin", "pin2", "react")
+
     def __init__(self, tables: REBOMoSTables, typemap,
-                 dtype=torch.float64, device="cpu"):
+                 dtype=torch.float64, device="cpu", lj="full",
+                 combine="mirror", react_gate=True):
         """typemap: 1-based atom type -> element index (0=Mo, 1=S,
-        -1=NULL), index 0 unused (`pair_coeff * * file Mo S`)."""
+        -1=NULL), index 0 unused (`pair_coeff * * file Mo S`).
+        lj, combine, react_gate: the force configuration (module
+        docstring); the defaults are the main path."""
+        if lj not in self.LJ_MODES or combine not in self.COMBINE_MODES:
+            raise ValueError(f"REBOMoS: lj={lj!r} (one of {self.LJ_MODES}),"
+                             f" combine={combine!r} (one of "
+                             f"{self.COMBINE_MODES})")
+        self.lj = lj
+        self.combine = combine
+        self.react_gate = bool(react_gate)
         self.tables = tables
         self.typemap_np = np.asarray(typemap, dtype=np.int64)
         self.dtype = dtype
@@ -162,8 +193,9 @@ class REBOMoS(PairStyle):
 
     @classmethod
     def from_file(cls, path: str, elements, ntypes=None,
-                  dtype=torch.float64, device="cpu"):
-        """elements: per atom type, 'Mo'/'M'/'S'/'NULL' (1-based order)."""
+                  dtype=torch.float64, device="cpu", **config):
+        """elements: per atom type, 'Mo'/'M'/'S'/'NULL' (1-based order);
+        config: lj, combine, react_gate."""
         ntypes = ntypes or len(elements)
         tmap = np.full(ntypes + 1, -1, dtype=np.int64)
         codes = {"Mo": 0, "M": 0, "S": 1, "NULL": -1}
@@ -171,7 +203,8 @@ class REBOMoS(PairStyle):
             if el not in codes:
                 raise ValueError(f"Unknown REBOMOS element {el!r}")
             tmap[i] = codes[el]
-        return cls(read_rebomos(path), tmap, dtype=dtype, device=device)
+        return cls(read_rebomos(path), tmap, dtype=dtype, device=device,
+                   **config)
 
     def neighbor_requests(self):
         t = self.tables
@@ -284,9 +317,10 @@ class REBOMoS(PairStyle):
 
     # -- analytic forces (the per-step path) -------------------------------
     def forces(self, x, types, nbr: NeighborData, h):
-        """REBO through the cotangent + mirror kernels, LJ through the
-        cell kernel.  Host-built neighbor data (no cells, no mirror
-        tables) falls back to autograd of the energy, on CPU tensors only."""
+        """REBO through the cotangent kernel and the configured combine,
+        LJ through the configured cell kernel.  Host-built neighbor data
+        (no cells, no mirror tables) falls back to autograd of the energy,
+        on CPU tensors only."""
         if nbr.cells is None or nbr.lists["rebo"].mirT is None:
             if x.is_cuda:
                 raise RuntimeError("REBOMoS.forces on a CUDA tensor needs "
@@ -314,12 +348,43 @@ class REBOMoS(PairStyle):
                 rebo.maskT.to(dtype), F.pad(el_own.to(dtype), (0, Np - N)))
 
     def _rebo_forces_mirror(self, x, el_own, ghosts, rebo, h):
-        """[K, Np]-layout REBO forces: cotangent kernel, mirror combine."""
-        gx, gy, gz = rebo_cotangents(
-            *self._rebo_planes(x, el_own, ghosts, rebo, h),
-            self._rebo_consts)
-        return mirror_combine(gx, gy, gz, rebo.mirT,
-                              rebo.mirvT.to(x.dtype))[:x.shape[0]]
+        """[K, Np]-layout REBO forces: cotangent kernel, then the combine
+        (JAX rebomos.py:569-717)."""
+        N = x.shape[0]
+        planes = self._rebo_planes(x, el_own, ghosts, rebo, h)
+        mirv = rebo.mirvT.to(x.dtype)
+        if self.combine == "rows":
+            gx, gy, gz, g4 = rebo_cotangents(*planes, self._rebo_consts,
+                                             emit_rows=True)
+            K, Np = gx.shape
+            rows = g4.reshape(K * Np, 4)
+            idx = rebo.mirT.reshape(-1).long()
+            if rows.dtype == torch.float32:
+                # each 16-byte row gathered as one complex128 element:
+                # torch's row gather of [K*Np, 4] took 1.0 ms at 98k atoms
+                # on an H100, this element gather 0.05 ms (PERF.md, PR 2)
+                gmir4 = rows.view(torch.complex128).reshape(-1)[idx] \
+                    .view(torch.float32)
+            else:
+                gmir4 = rows[idx]
+            return mirror_combine_rows(gx, gy, gz, gmir4.reshape(K, Np, 4),
+                                       mirv)[:N]
+        gx, gy, gz = rebo_cotangents(*planes, self._rebo_consts)
+        if self.combine == "react":
+            if rebo.route is None:
+                raise RuntimeError("combine='react' needs the rebuild's "
+                                   "route tables (Engine builds them)")
+            return react_combine(gx, gy, gz, rebo.rblocks, rebo.route)[:N]
+        if self.combine in ("pin", "pin2"):
+            K, Np = gx.shape
+            pin = pin_rows3 if self.combine == "pin" else pin_rows3_v2
+            grows = pin(torch.stack([gx, gy, gz], dim=-1))   # [K*Np, 3]
+            gmir = grows[rebo.mirT.reshape(-1).long()].reshape(K, Np, 3) \
+                * mirv[..., None]
+            f = torch.stack([gx.sum(dim=0), gy.sum(dim=0), gz.sum(dim=0)],
+                            dim=-1) - gmir.sum(dim=0)
+            return f[:N]
+        return mirror_combine(gx, gy, gz, rebo.mirT, mirv)[:N]
 
     def _cell_planes(self, x, ghosts, cells: CellData, h):
         """Packed [Dx, Dy, Dz, 8, C] planes for the LJ cell kernel: rows
@@ -340,6 +405,9 @@ class REBOMoS(PairStyle):
     def _lj_forces_cells(self, x, ghosts, cells: CellData, h):
         """Cell-kernel LJ forces remapped to atoms by the aslot gather."""
         P = self._cell_planes(x, ghosts, cells, h)
-        out = lj_cell_forces(P, self._lj_consts, cells.a_range)
-        F3 = out[..., 0:3, :].permute(0, 1, 2, 4, 3).reshape(-1, 3)
-        return F3[cells.aslot]
+        if self.lj == "half":
+            F3 = lj_cell_forces_half(P, self._lj_consts, cells.a_range)
+        else:
+            out = lj_cell_forces(P, self._lj_consts, cells.a_range)
+            F3 = out[..., 0:3, :].permute(0, 1, 2, 4, 3)
+        return F3.reshape(-1, 3)[cells.aslot]

@@ -9,7 +9,11 @@ safety is exact: a segment whose displacement passes half the skin is
 discarded and re-run from its start with fresh lists; a predictive rule
 rebuilds before the next segment would trip.  The on-device rebuild
 sizes its capacities from a plan, re-sizes on overflow flags, keeps a
-per-tier K high-water mark and quantizes K (`_quantize_k`).
+per-tier K high-water mark and quantizes K (`_quantize_k`).  A pair style
+whose `combine` is "react" gets the reaction-combine route tables: the
+first rebuild measures the route geometry, the plan then carries route
+capacities (high-water marked like K), and a geometry the gate refuses
+raises.
 
 The lists are rebuilt on the state's device (`device_rebuild`).  The
 host (numpy) build is kept for CPU parity tests, which clear
@@ -33,6 +37,7 @@ from ..core.units import UnitSystem
 from ..fixes.base import Fix, StepContext
 from ..neighbor import device_build
 from ..neighbor.build import NeighborData, build_neighbor_data
+from ..ops.react import choose_react
 from ..potentials.base import PairStyle
 from .thermo import thermo_row
 
@@ -65,6 +70,9 @@ class Engine:
         self._f_valid = False
         self._k_hwm = {}               # per-tier high-water mark of kmax
         self._bnd_hwm = 0
+        self._react = getattr(pair, "combine", None) == "react"
+        self._react_gate = getattr(pair, "react_gate", True)
+        self._react_hwm = [0, 0, 0]    # measured NW, KC, QR high-water
         self._plan = None
         self._plan_tightened = False
         self._seg_dprev = 0.0
@@ -114,7 +122,7 @@ class Engine:
         st = self.state
         xw, image, nbr, flags_t = device_build.device_rebuild(
             self._plan, st.x, st.image, st.type, h, h_inv, lo,
-            self.pair.neighbor_requests())
+            self.pair.neighbor_requests(), react=self._react)
         flags = device_build.flags_to_host(flags_t)
         if any(v for k, v in flags.items() if "overflow" in k):
             if _retry >= 6:
@@ -128,8 +136,10 @@ class Engine:
             # the density estimate over-pads K: re-size once to the counts
             self._plan_tightened = True
             caps = dict(self._plan.k_caps)
-            if any(caps[k.split(":", 2)[2]] > 1.6 * max(v, 8)
-                   for k, v in flags.items() if k.startswith("count:k:")):
+            loose = any(caps[k.split(":", 2)[2]] > 1.6 * max(v, 8)
+                        for k, v in flags.items() if k.startswith("count:k:"))
+            # the route tables need capacities from a measured rebuild
+            if loose or (self._react and not self._plan.react_nw):
                 self._resize_plan(flags, grow=1.3)
                 return self._rebuild_on_device(_retry)
         self._note_k_counts(flags)
@@ -141,6 +151,26 @@ class Engine:
             if k.startswith("count:k:"):
                 name = k.split(":", 2)[2]
                 self._k_hwm[name] = max(self._k_hwm.get(name, 0), int(v))
+
+    def _choose_react_from(self, flags):
+        """Route capacities (NW, KC, QR) from the high-water marks of the
+        measured route geometry.  A combine="react" the gate refuses
+        raises: the mirror gather never runs in its place."""
+        for i, pref in enumerate(("count:rnw:", "count:rkc:", "count:rq:")):
+            vals = [int(v) for k, v in flags.items() if k.startswith(pref)]
+            if vals:
+                self._react_hwm[i] = max(self._react_hwm[i], max(vals))
+        caps = choose_react(self.state.natoms, *self._react_hwm,
+                            gate=self._react_gate)
+        if not caps[0]:
+            nw, kc, rq = self._react_hwm
+            raise RuntimeError(
+                f"combine='react' refused for {self.state.natoms} atoms with "
+                f"measured NW {nw}, KC {kc}, QR {rq}: the gate needs "
+                f">= 16384 atoms, <= 2048 chunks of 128, and NW <= 48, "
+                f"KC <= 12, QR <= 112 after rounding up (a spatially sorted "
+                f"scene); react_gate=False builds the routes at any size")
+        return caps
 
     def _resize_plan(self, flags, grow: float):
         """New plan from measured counts (overflow recovery, tightening).
@@ -154,6 +184,8 @@ class Engine:
         self._bnd_hwm = max(self._bnd_hwm, int(flags.get("count:bnd", 0)))
         bnd_c = (int(self._bnd_hwm * (1.2 if grow <= 1.3 else grow)) + 64
                  if self._bnd_hwm else 0)
+        r_nw, r_kc, r_qr = (self._choose_react_from(flags) if self._react
+                            else (0, 0, 0))
         self._plan = device_build.make_plan(
             self.state.box, self.pair.neighbor_requests(), self.skin,
             int(flags["count:ghost"]), int(flags["count:cell"]), k_counts,
@@ -162,7 +194,7 @@ class Engine:
             mirror_tiers=getattr(self.pair, "mirror_tiers", ()),
             cand_occupancy=int(flags["count:candcell"])
             if "count:candcell" in flags else None,
-            bnd_count=bnd_c)
+            bnd_count=bnd_c, react_nw=r_nw, react_kc=r_kc, react_qr=r_qr)
 
     # -- stepping -----------------------------------------------------------
     def _one_step(self, state: State, nbr: NeighborData) -> State:

@@ -6,13 +6,19 @@ This file imports no JAX, so on a GPU machine without it run
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Inputs come from the port's own rebuild of the jiggled 72-atom scene
-(numpy seed), made on the CPU in float32 and moved to the card.  Bars are
-the JAX suite's: REBO 5e-4 x scale, mirror 1e-5 x scale, LJ 2e-4 x scale
-and energy 2e-5 relative, select-k exact.  The REBO kernel is checked with
-the synthetic parameters and with degree-6 g and gamma polynomials.  An
-Engine on the card, built with default arguments, launches all four
-kernels and refuses the host build and the autograd force fallback.
+Inputs come from the port's own rebuild of the jiggled 72-atom scene,
+and for the kernels of the other force configurations (Newton-half LJ,
+mirror rows, reaction combine) of a jiggled, spatially sorted 2,304-atom
+scene with route tables (numpy seeds), made on the CPU in float32 and
+moved to the card.  Bars are the JAX suite's: REBO 5e-4 x scale, mirror,
+mirror rows and reaction combine 1e-5 x scale, LJ 2e-4 x scale (and the
+Newton-half kernel within 3e-4 x scale of the full one) and energy 2e-5
+relative, select-k and the pin copy exact.  The REBO kernel is checked
+with the synthetic parameters and with degree-6 g and gamma polynomials,
+its emit_rows table bit for bit against its planes.  An Engine on the
+card, built with default arguments, launches the main path's four
+kernels and refuses the host build and the autograd force fallback; one
+per force configuration launches that configuration's kernels.
 """
 
 import numpy as np
@@ -24,7 +30,9 @@ from lammps_plugins_tpu_torch.api.scenes import (rebomos_bulk,
                                                  rebomos_bulk_commensurate)
 from lammps_plugins_tpu_torch.fixes.nve import FixNVE
 from lammps_plugins_tpu_torch.neighbor.build import build_neighbor_data
-from lammps_plugins_tpu_torch.ops import lj_cells, mirror, rebo, select_k
+from lammps_plugins_tpu_torch.ops import (lj_cells, lj_half, mirror,
+                                          mirror_rows, pin, react, rebo,
+                                          select_k)
 from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
 from lammps_plugins_tpu_torch.run.simulation import Engine
 from torch_parity import SYNTH_REBO, cuda, sextic_tables  # noqa: F401
@@ -73,6 +81,23 @@ def test_rebo_kernel_matches_twin_sextic(cuda, small):
     pair, st, nbr = small
     _rebo_kernel_vs_twin(_planes(pair, st, nbr, cuda),
                          rebo.derive_rebo_constants(sextic_tables()))
+
+
+@pytest.mark.parametrize("sextic", [False, True])
+def test_rebo_emit_rows_are_its_planes(cuda, small, sextic):
+    """The [K, Np, 4] rows hold the planes of the same launch bit for bit,
+    component 3 zero, and the planes equal a launch without rows."""
+    pair, st, nbr = small
+    consts = (rebo.derive_rebo_constants(sextic_tables()) if sextic
+              else pair._rebo_consts)
+    planes = _planes(pair, st, nbr, cuda)
+    gx, gy, gz, g4 = rebo.rebo_cotangents(*planes, consts, emit_rows=True)
+    torch.cuda.synchronize()
+    for a, g in enumerate((gx, gy, gz)):
+        assert torch.equal(g4[..., a], g)
+    assert not g4[..., 3].any()
+    for a, b in zip((gx, gy, gz), rebo.rebo_cotangents(*planes, consts)):
+        assert torch.equal(a, b)
 
 
 def test_rebo_kernel_rejects_float64(cuda, small):
@@ -133,6 +158,168 @@ def test_select_k_kernel_rejects_wide_rows(cuda):
     keys = torch.zeros((4, select_k.MAX_W + 128), device=cuda)
     with pytest.raises(ValueError):
         select_k.select_k(keys, 8)
+
+
+@pytest.fixture(scope="module")
+def sorted2k():
+    """(pair, state, nbr) of the jiggled, spatially sorted 2,304-atom scene
+    with route tables, f32, CPU."""
+    st = rebomos_bulk_commensurate(12, 16, 2, dtype=torch.float32,
+                                   sort=True)
+    rng = np.random.default_rng(6)
+    x = st.x.numpy() + rng.uniform(-0.08, 0.08, st.x.shape)
+    st = st.replace(x=torch.as_tensor(x, dtype=torch.float32))
+    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float32,
+                             combine="react", react_gate=False)
+    eng = Engine(st, pair, [FixNVE()], units.METAL)
+    eng.rebuild_neighbors()
+    assert eng.nbr.lists["rebo"].route is not None
+    return pair, eng.state, eng.nbr
+
+
+def _planes_2k(sorted2k, dev):
+    pair, st, nbr = sorted2k
+    g = rebo.rebo_cotangents_ref(*_planes(pair, st, nbr, dev),
+                                 pair._rebo_consts)
+    return [t.contiguous() for t in g]
+
+
+def test_mirror_rows_kernel_matches_twin(cuda, sorted2k):
+    _, _, nbr = sorted2k
+    rl = nbr.lists["rebo"]
+    gx, gy, gz = _planes_2k(sorted2k, cuda)
+    K, Np = gx.shape
+    g4 = torch.stack([gx, gy, gz, torch.zeros_like(gx)], dim=-1)
+    gmir4 = g4.reshape(K * Np, 4)[rl.mirT.to(cuda).reshape(-1).long()] \
+        .reshape(K, Np, 4).contiguous()
+    mv = rl.mirvT.float().to(cuda)
+    before = mirror_rows.launches
+    fk = mirror_rows.mirror_combine_rows(gx, gy, gz, gmir4, mv)
+    torch.cuda.synchronize()
+    assert mirror_rows.launches == before + 1
+    ft = mirror_rows.mirror_combine_rows_ref(gx, gy, gz, gmir4, mv)
+    assert float((fk - ft).abs().max()) <= 1e-5 * float(ft.abs().max())
+    assert torch.equal(fk, mirror_rows.mirror_combine_rows(gx, gy, gz,
+                                                           gmir4, mv))
+
+
+def test_react_kernel_matches_twin_and_is_deterministic(cuda, sorted2k):
+    _, _, nbr = sorted2k
+    rl = nbr.lists["rebo"]
+    g = _planes_2k(sorted2k, cuda)
+    rb, rt = rl.rblocks.to(cuda), rl.route.to(cuda)
+    before = react.launches
+    fk = react.react_combine(*g, rb, rt)
+    torch.cuda.synchronize()
+    assert react.launches == before + 1
+    ft = react.react_combine_ref(*g, rb, rt)
+    scale = float(ft.abs().max())
+    assert scale > 1e-3
+    assert float((fk - ft).abs().max()) <= 1e-5 * scale
+    assert torch.equal(fk, react.react_combine(*g, rb, rt))
+    # the same forces as the mirror gather
+    fm = mirror.mirror_combine(*g, rl.mirT.to(cuda), rl.mirvT.float().to(cuda))
+    assert float((fk - fm).abs().max()) <= 1e-5 * scale
+
+
+def test_lj_half_kernel_matches_twin_and_full_kernel(cuda, sorted2k):
+    pair, st, nbr = sorted2k
+    P = pair._cell_planes(st.x, nbr.ghosts, nbr.cells, st.box.h).to(cuda)
+    ar, lc = nbr.cells.a_range, pair._lj_consts
+    before = lj_half.launches
+    fk = lj_half.lj_cell_forces_half(P, lc, ar)
+    torch.cuda.synchronize()
+    assert lj_half.launches == before + 1
+    ft = lj_half.lj_cell_forces_half_ref(P, lc, ar)
+    scale = float(ft.abs().max())
+    assert scale > 1e-4
+    assert float((fk - ft).abs().max()) <= 2e-4 * scale
+    full = lj_cells.lj_cell_forces(P, lc, ar)[..., 0:3, :] \
+        .permute(0, 1, 2, 4, 3)
+    assert float((fk - full).abs().max()) <= 3e-4 * scale
+    assert torch.equal(fk, lj_half.lj_cell_forces_half(P, lc, ar))
+
+
+@pytest.mark.parametrize("shape", [(3 * 16 * 2304 // 128, 128),
+                                   (16, 3 * 2304), (2304, 64), (7, 13)])
+def test_pin_copy_is_exact(cuda, shape):
+    """The [R, 128], [K, 3 Np] and [Np, Wr] shapes, and one with a tail
+    that is not a multiple of 4."""
+    a = torch.randn(shape, generator=torch.Generator().manual_seed(2))
+    a = a.to(cuda)
+    before = pin.launches
+    out = pin.pin_copy(a)
+    torch.cuda.synchronize()
+    assert pin.launches == before + 1
+    assert out.data_ptr() != a.data_ptr() and torch.equal(out, a)
+
+
+def test_pin_rows_keep_the_jax_shapes(cuda, small):
+    pair, st, nbr = small
+    g = rebo.rebo_cotangents_ref(*_planes(pair, st, nbr, cuda),
+                                 pair._rebo_consts)
+    stacked = torch.stack(g, dim=-1)
+    K, Np, _ = stacked.shape
+    for fn in (pin.pin_rows3, pin.pin_rows3_v2):
+        out = fn(stacked)
+        assert out.shape == (K * Np, 3)
+        assert torch.equal(out, stacked.reshape(K * Np, 3))
+
+
+def test_new_wrappers_reject_float64(cuda, sorted2k):
+    pair, st, nbr = sorted2k
+    rl = nbr.lists["rebo"]
+    g = [t.double() for t in _planes_2k(sorted2k, cuda)]
+    K, Np = g[0].shape
+    mv = rl.mirvT.double().to(cuda)
+    P = pair._cell_planes(st.x, nbr.ghosts, nbr.cells,
+                          st.box.h).double().to(cuda)
+    calls = [
+        lambda: pin.pin_copy(g[0]),
+        lambda: mirror_rows.mirror_combine_rows(
+            *g, torch.zeros((K, Np, 4), dtype=torch.float64, device=cuda),
+            mv),
+        lambda: lj_half.lj_cell_forces_half(P, pair._lj_consts,
+                                            nbr.cells.a_range),
+        lambda: react.react_combine(*g, rl.rblocks.to(cuda),
+                                    rl.route.to(cuda)),
+        lambda: rebo.rebo_cotangents(
+            *[p.double() for p in _planes(pair, st, nbr, cuda)],
+            pair._rebo_consts, emit_rows=True)]
+    for call in calls:
+        with pytest.raises(TypeError):
+            call()
+
+
+@pytest.mark.parametrize("config,mods", [
+    (dict(lj="half", combine="rows"), ("lj_half", "mirror_rows")),
+    (dict(combine="react", react_gate=False), ("react",)),
+    (dict(combine="pin"), ("pin",)),
+    (dict(combine="pin2"), ("pin",))])
+def test_configuration_on_card_launches_its_kernels(cuda, config, mods):
+    """20 steps of the sorted 2,304-atom scene on the card: the
+    configuration's kernels launch and its step-0 forces are within
+    3e-4 x scale of the default configuration's."""
+    import lammps_plugins_tpu_torch.ops as ops_pkg
+    modules = [getattr(ops_pkg, m) for m in mods] + [rebo, select_k]
+    for m in modules:
+        m.launches = 0
+    st = rebomos_bulk_commensurate(12, 16, 2, dtype=torch.float32,
+                                   device=cuda, sort=True)
+    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float32,
+                             device=cuda, **config)
+    eng = Engine(st, pair, [FixNVE()], units.METAL)
+    eng.rebuild_neighbors()
+    s = eng.state
+    default = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float32,
+                                device=cuda)
+    f_cfg = pair.forces(s.x, s.type, eng.nbr, s.box.h)
+    f_def = default.forces(s.x, s.type, eng.nbr, s.box.h)
+    scale = float(f_def.abs().max())
+    assert float((f_cfg - f_def).abs().max()) <= 3e-4 * scale
+    rows = eng.run(20, thermo_every=10)
+    assert all(np.isfinite(r["etotal"]) for r in rows)
+    assert all(m.launches > 0 for m in modules)
 
 
 def test_engine_on_card_launches_every_kernel(cuda):

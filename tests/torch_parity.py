@@ -59,6 +59,58 @@ def jax_engine(scene="bulk", dtype="f64", jiggle=0.0, seed=4, **kw):
     return eng
 
 
+def port_engine(scene="small", dtype=torch.float64, jiggle=0.12, seed=4,
+                **config):
+    """A port Engine on the CPU: the scene of jax_engine, jiggled the same
+    way, with 300 K velocities (seed 12345) so that a run moves, and
+    REBOMoS built with the force configuration `config`."""
+    from lammps_plugins_tpu.core import units
+    from lammps_plugins_tpu_torch.api.scenes import (
+        rebomos_bulk, rebomos_bulk_commensurate)
+    from lammps_plugins_tpu_torch.fixes.nve import FixNVE
+    from lammps_plugins_tpu_torch.fixes.velocity import velocity_create
+    from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
+    from lammps_plugins_tpu_torch.run.simulation import Engine
+    st = (rebomos_bulk(dtype=dtype) if scene == "bulk"
+          else rebomos_bulk_commensurate(3, 4, 1, dtype=dtype))
+    if jiggle:
+        rng = np.random.default_rng(seed)
+        x = st.x.numpy() + rng.uniform(-jiggle, jiggle, st.x.shape)
+        st = st.replace(x=torch.as_tensor(x, dtype=dtype))
+    st = velocity_create(st, units.METAL, 300.0, 12345)
+    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=dtype, **config)
+    return Engine(st, pair, [FixNVE()], units.METAL)
+
+
+def config_forces_rel_err(config, scene="small", dtype=torch.float64):
+    """max |F_config - F_default| / max |F_default| of REBOMoS.forces on
+    the same state and lists."""
+    from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
+    eng = port_engine(scene, dtype=dtype, **config)
+    eng.rebuild_neighbors()
+    st = eng.state
+    default = REBOMoS(eng.pair.tables, eng.pair.typemap_np, dtype=dtype)
+    f_cfg = eng.pair.forces(st.x, st.type, eng.nbr, st.box.h)
+    f_def = default.forces(st.x, st.type, eng.nbr, st.box.h)
+    assert float(f_def.abs().max()) > 1e-3
+    return rel_err(f_cfg.numpy(), f_def.numpy())
+
+
+def run_20_steps(**config):
+    """(x, v) after 20 NVE steps of the jiggled 72-atom scene (float64)
+    under the force configuration `config` (no thermo rows: each costs
+    seconds of autograd on the CPU)."""
+    eng = port_engine("small", **config)
+    eng.run(20)
+    return eng.state.x.numpy(), eng.state.v.numpy()
+
+
+def assert_same_trajectory(run, ref, tol=1e-9):
+    """Two run_20_steps results agree to `tol` relative to their scale."""
+    assert rel_err(run[0], ref[0]) <= tol
+    assert rel_err(run[1], ref[1]) <= tol
+
+
 def port_of(jeng, dtype=torch.float64):
     """(pair, state, nbr) of the port holding the JAX engine's data."""
     from lammps_plugins_tpu_torch import convert

@@ -3,12 +3,17 @@
 one NVIDIA GPU.
 
     python3 tools/torch_step_profile.py [TREE] [--label NAME] [--trace PATH]
+        [--lj full|half] [--combine mirror|rows|pin|pin2|react] [--sort]
+        [--no-react-gate]
 
 TREE (default: this repository) holds chip_smoke.py and
 lammps_plugins_tpu_torch/; giving a second tree (for example a `git
-archive` of the parent commit) compares two versions on one card.  After
-100 warm-up steps of the 97,920-atom scene (chip_smoke.bench_engine) it
-measures
+archive` of the parent commit) compares two versions on one card.  The
+force configuration is REBOMoS's (lj=, combine=, react_gate=), the scene
+spatially sorted with --sort (combine=react needs it); the defaults are
+the main path, and a tree older than these options takes only the
+defaults.  After 100 warm-up steps of the 97,920-atom scene
+(chip_smoke.bench_engine) it measures
 
   * atom-steps/s of 3 runs of 1,000 steps with their rebuild counts,
   * host-clock ms per rebuild (5 reps),
@@ -38,6 +43,11 @@ def main():
         os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--trace", default="")
+    ap.add_argument("--lj", default="full", choices=("full", "half"))
+    ap.add_argument("--combine", default="mirror",
+                    choices=("mirror", "rows", "pin", "pin2", "react"))
+    ap.add_argument("--sort", action="store_true")
+    ap.add_argument("--no-react-gate", action="store_true")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -51,7 +61,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    eng = cs.bench_engine(dev)
+    config = {}
+    if args.lj != "full":
+        config["lj"] = args.lj
+    if args.combine != "mirror":
+        config["combine"] = args.combine
+    if args.no_react_gate:
+        config["react_gate"] = False
+    if args.sort:
+        config["sort"] = True
+    eng = cs.bench_engine(dev, **config)
     natoms, seg = eng.state.natoms, eng.check_every
     eng.run(100)
     torch.cuda.synchronize()
@@ -100,7 +119,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print("RESULT " + json.dumps(dict(
-        label=args.label, natoms=natoms, k_caps=dict(eng._plan.k_caps),
+        label=args.label, config=config, natoms=natoms,
+        k_caps=dict(eng._plan.k_caps),
         step_ms_no_rebuild=step_ms, rebuild_ms=rebuild_ms,
         run1000_atom_steps_per_s=[r for r, _ in runs],
         run1000_rebuilds=[n for _, n in runs],
