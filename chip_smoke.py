@@ -11,14 +11,20 @@ Phases (any failure raises, so the script exits non-zero):
      shapes (97,920 atoms, REBO K and the cell/candidate widths from the
      rebuild plan; the reaction combine on the route tables of the
      spatially sorted scene): max error against the JAX suite's bars,
-     median times
+     median times, the bound (the least time of the same work on the
+     card, `bound`) and, for select_k and the pin copy, the one PyTorch
+     call that computes the same function (torch.topk, clone()); the
+     histogram of live REBO edges per atom (n, the slots the REBO kernel
+     works on)
   2. f32 forces of the 288-atom scene on the card (device rebuild +
      kernels) against the float64 CPU twin forces: max|dF| < 1e-2 RMS(F)
   3. the main path: Engine.run on the 97,920-atom scene (f32, skin 0.8,
      check every 10 steps, 300 K from seed 12345) with every launch
      counter reset first; asserts that each kernel launched, that the
      thermo is finite and the NVE drift < 1e-6 eV/step/atom; then three
-     timed 1,000-step runs for atom-steps/s (median and range)
+     timed 1,000-step runs for atom-steps/s (median and range); then the
+     REBO kernel against its twin again on the run's own lists at the
+     run's re-sized K
   4. the other force configurations at the same width, each its own
      Engine: lj="half" with combine="rows", combine="react" on the
      spatially sorted scene (gate off), combine="pin", combine="pin2".
@@ -55,6 +61,7 @@ BENCH = dict(nx=34, ny=48, nz=10, skin=0.8, check_every=10, temp=300.0,
 RUN_STEPS = 300        # at 300 K the list is rebuilt about every 43 steps
 TIMED_STEPS = 1000     # a timed window spans ~20 rebuilds
 TIMED_REPS = 3
+PIN_REPS = 100         # pin copy and clone(), in turns
 GOLDEN = [(0, 0.0, -2061.6112), (10, 80.776057, -2064.6132),
           (20, 146.17503, -2067.0428)]     # log.rebomos-bulk.1:54-56
 
@@ -64,21 +71,112 @@ def sh(*cmd) -> str:
                           timeout=120).stdout.strip()
 
 
-def timed_ms(fn, reps=10, warmup=2) -> float:
-    """Median device time of fn() in ms (CUDA events, synchronised)."""
-    for _ in range(warmup):
-        fn()
+#: the H100 SXM rates of the bounds (NVIDIA's data sheet, at 700 W): HBM
+#: bytes/s, FP32 flop/s outside the tensor cores, and the special-function
+#: units (132 SMs x 16 a clock at the 1.98 GHz boost clock)
+HBM_BPS = 3.35e12
+FP32_FLOPS = 67e12
+SFU_OPS = 132 * 16 * 1.98e9
+
+
+def bound(nbytes, flops, sfu=0.0):
+    """(bound_ms, bound_by): the least time the card could take for the
+    work, the larger of bytes / HBM rate and operations / peak rate."""
+    t_b = nbytes / HBM_BPS
+    t_o = max(flops / FP32_FLOPS, sfu / SFU_OPS)
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def rebo_live_counts(planes, consts):
+    """n per atom: the slots with w != 0 or w' != 0 (masked in and short
+    of rcmax), the edges the REBO kernel works on."""
+    dxT, dyT, dzT, jelT, mskT, ei = planes
+
+    def pairc(name):
+        a0, a1, b0, b1 = consts["pair:" + name]
+        return (a0 + a1 * ei) + (b0 + b1 * ei) * jelT
+
+    r = torch.sqrt(dxT * dxT + dyT * dyT + dzT * dzT)
+    t = (r - pairc("rcmin")) * pairc("inv_drc")
+    return ((mskT > 0) & (t < 1.0)).sum(dim=0)
+
+
+def rebo_work(planes, consts):
+    """(bytes, flops, sfu ops, histogram of n) of the REBO cotangents:
+    five [K, Np] planes and the centre row in, three planes out; ~40 flops
+    and 5 special-function ops per live edge, ~100 flops per unordered
+    pair of live edges of one atom (cos, g, g' and the two passes'
+    sums)."""
+    K, Np = planes[0].shape
+    n = rebo_live_counts(planes, consts)
+    nd = n.double()
+    edges, pairs = float(nd.sum()), float((nd * (nd - 1) / 2).sum())
+    nbytes = 4 * (5 * K * Np + Np + 64) + 4 * 3 * K * Np
+    hist = torch.bincount(n, minlength=K + 1).tolist()
+    return nbytes, 40 * edges + 100 * pairs, 5 * edges, hist
+
+
+def lj_window_pairs(P, consts, a_range):
+    """Ordered pairs (owned A atom, any B atom) inside the LJ window: the
+    pairs whose forces the LJ sweep must compute."""
+    import itertools
+    (x0, x1), (y0, y1), (z0, z1) = a_range
+    A = P[x0:x1, y0:y1, z0:z1]
+    ael = A[..., 3, :, None]
+    own = A[..., 4, :, None] > 0
+    total = 0
+    for ox, oy, oz in itertools.product((-1, 0, 1), repeat=3):
+        B = P[x0 + ox:x1 + ox, y0 + oy:y1 + oy, z0 + oz:z1 + oz]
+        ebl = B[..., 3, None, :]
+
+        def cst(name):
+            a0, a1, b0, b1 = consts[name]
+            return (a0 + ael * a1) + (b0 + ael * b1) * ebl
+
+        rsq = sum((A[..., r, :, None] - B[..., r, None, :]) ** 2
+                  for r in range(3))
+        total += int(((rsq >= cst("ljminsq")) & (rsq <= cst("ljmaxsq"))
+                      & own).sum())
+    return total
+
+
+#: spin-kernel cycles queued ahead of each timed call (~0.5 ms at 1.98
+#: GHz): the call's launches are enqueued while the card still spins, so
+#: the events around them read device time, not the host's time to launch
+SPIN_CYCLES = 1_000_000
+
+
+def device_ms(fn) -> float:
+    """Device time of one fn() in ms: CUDA events around it, queued behind
+    a spin kernel, then synchronised."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    a.record()
+    fn()
+    b.record()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return a.elapsed_time(b)
+
+
+def interleaved_ms(fns, reps):
+    """Median device ms of each callable in `fns` (name -> fn): one call
+    each per turn, the order reversed every other turn."""
+    names = list(fns)
+    for name in names:
+        fns[name]()
+        fns[name]()
+    torch.cuda.synchronize()
+    times = {name: [] for name in names}
+    for rep in range(reps):
+        for name in (names if rep % 2 == 0 else names[::-1]):
+            times[name].append(device_ms(fns[name]))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def timed_ms(fn, reps=10) -> float:
+    """Median device time of fn() in ms."""
+    return interleaved_ms({"fn": fn}, reps)["fn"]
 
 
 def phase0_environment():
@@ -170,21 +268,33 @@ def phase1_kernels(dev):
           f"a_range={nbr.cells.a_range}")
     results = {}
 
-    def record(name, err, bar, k_ms, t_ms, source, replaces, **extra):
+    def record(name, err, bar, k_ms, t_ms, source, replaces, work,
+               library_ms=None, **extra):
+        """work: (bytes, flops[, sfu ops]) of the kernel's call."""
+        b_ms, b_by = bound(*work)
         print(f"{name}: max_abs_err={err:.3e} (bar {bar:.3e}) "
-              f"kernel {k_ms:.4f} ms, twin {t_ms:.4f} ms"
+              f"kernel {k_ms:.4f} ms, twin {t_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by} ({work[0] / 1e6:.2f} MB, "
+              f"{work[1] / 1e9:.4f} GFLOP), share {b_ms / k_ms:.3f}, "
+              f"library {library_ms}"
               + "".join(f", {k} {v}" for k, v in extra.items()))
         if not err <= bar:
             raise AssertionError(f"{name} disagrees with its twin: "
                                  f"{err} > {bar}")
         results[name] = dict(name=name, route="cuda", source=source,
                              replaces=replaces, max_abs_err=err, bar=bar,
-                             ms=k_ms, plain_ms=t_ms, **extra)
+                             ms=k_ms, plain_ms=t_ms, bound_ms=b_ms,
+                             bound_by=b_by, bound_share=b_ms / k_ms,
+                             library_ms=library_ms, bytes=work[0],
+                             flops=work[1], **extra)
 
     # A: REBO cotangents, bar 5e-4 * scale; its emit_rows form bit for bit
     planes = pair._rebo_planes(st.x, pair.el_of_type[st.type], nbr.ghosts,
                                rl, st.box.h)
     cst = pair._rebo_consts
+    work = rebo_work(planes, cst)
+    print(f"REBO live edges per atom at K={K} (n: atoms): "
+          f"{ {n: c for n, c in enumerate(work[3]) if c} }")
     gk = rebo.rebo_cotangents(*planes, cst)
     gt = rebo.rebo_cotangents_ref(*planes, cst)
     scale = max(float(t.abs().max()) for t in gt)
@@ -196,14 +306,19 @@ def phase1_kernels(dev):
     if not rows_exact:
         raise AssertionError("rebo_cotangents emit_rows differs from its "
                              "planes")
+    again = rebo.rebo_cotangents(*planes, cst)
+    if not all(torch.equal(a, b) for a, b in zip(gk, again)):
+        raise AssertionError("rebo_cotangents reruns differ")
+    del again
     record("rebo_cotangents", err, 5e-4 * scale,
-           timed_ms(lambda: rebo.rebo_cotangents(*planes, cst)),
+           timed_ms(lambda: rebo.rebo_cotangents(*planes, cst), reps=20),
            timed_ms(lambda: rebo.rebo_cotangents_ref(*planes, cst), reps=3),
            "lammps_plugins_tpu_torch/csrc/rebo.cu",
-           "lammps_plugins_tpu/ops/rebo_pallas.py:250",
-           emit_rows_bit_identical=rows_exact,
+           "lammps_plugins_tpu/ops/rebo_pallas.py:250", work[:3],
+           K=K, live_edges_hist=work[3],
+           emit_rows_bit_identical=rows_exact, reruns_bit_identical=True,
            emit_rows_ms=timed_ms(lambda: rebo.rebo_cotangents(
-               *planes, cst, emit_rows=True)))
+               *planes, cst, emit_rows=True), reps=20))
 
     # B: mirror combine, bar 1e-5 * scale (f32 sums in another order)
     mv = rl.mirvT.float()
@@ -214,7 +329,8 @@ def phase1_kernels(dev):
            timed_ms(lambda: mirror.mirror_combine(*gk, rl.mirT, mv)),
            timed_ms(lambda: mirror.mirror_combine_ref(*gk, rl.mirT, mv)),
            "lammps_plugins_tpu_torch/csrc/mirror.cu",
-           "lammps_plugins_tpu/ops/mirror_pallas.py:93")
+           "lammps_plugins_tpu/ops/mirror_pallas.py:93",
+           (4 * 5 * K * Np + 4 * fk.numel(), 6 * K * Np))
 
     # F: mirror combine from the gathered emit_rows table, 1e-5 * scale
     gmir4 = g4.reshape(K * Np, 4)[rl.mirT.reshape(-1).long()] \
@@ -227,7 +343,8 @@ def phase1_kernels(dev):
            timed_ms(lambda: mirror_rows.mirror_combine_rows_ref(*g3, gmir4,
                                                                 mv)),
            "lammps_plugins_tpu_torch/csrc/mirror_rows.cu",
-           "lammps_plugins_tpu/ops/mirror_pallas.py:138")
+           "lammps_plugins_tpu/ops/mirror_pallas.py:138",
+           (4 * 8 * K * Np + 4 * fk.numel(), 6 * K * Np))
 
     # pin copy, exact, on the [R, 128], [K, 3 Np] and [Np, Wr] shapes
     stacked = torch.stack(g3, dim=-1)
@@ -240,19 +357,29 @@ def phase1_kernels(dev):
         f"[{K},{3 * Np}]": stacked.reshape(K, 3 * Np),
         f"[{Np},{Wr}]": torch.nn.functional.pad(
             torch.cat(g3).t(), (0, Wr - 3 * K)).contiguous()}
-    pin_err, pin_ms, pin_plain = 0.0, {}, {}
+    # kernel and clone() in turns, medians of PIN_REPS each; the twin is
+    # clone(), so it is also the one PyTorch call of the same function
+    pin_err, pin_ms, pin_plain, pin_bound = 0.0, {}, {}, {}
     for shape, a in pin_inputs.items():
         out = pin.pin_copy(a)
         pin_err = max(pin_err, float((out - a).abs().max()))
         if not torch.equal(out, a):
             raise AssertionError(f"pin_copy {shape} is not exact")
-        pin_ms[shape] = timed_ms(lambda: pin.pin_copy(a))
-        pin_plain[shape] = timed_ms(lambda: a.clone())
+        t = interleaved_ms({"kernel": lambda: pin.pin_copy(a),
+                            "clone": lambda: a.clone()}, PIN_REPS)
+        pin_ms[shape], pin_plain[shape] = t["kernel"], t["clone"]
+        pin_bound[shape] = bound(8 * a.numel(), 0)[0]
+        print(f"pin_copy {shape}: kernel {t['kernel']:.4f} ms, clone() "
+              f"{t['clone']:.4f} ms, bound {pin_bound[shape]:.4f} ms "
+              f"(medians of {PIN_REPS} in turns)")
     main = f"[{K},{3 * Np}]"
     record("pin_copy", pin_err, 0.0, pin_ms[main], pin_plain[main],
            "lammps_plugins_tpu_torch/csrc/pin.cu",
            "lammps_plugins_tpu/ops/pin_rows.py:85 (and :39, :51)",
-           ms_by_shape=pin_ms, plain_ms_by_shape=pin_plain)
+           (8 * pin_inputs[main].numel(), 0), library_ms=pin_plain[main],
+           ms_by_shape=pin_ms, plain_ms_by_shape=pin_plain,
+           library_ms_by_shape=pin_plain, bound_ms_by_shape=pin_bound,
+           reps=PIN_REPS)
 
     # C: LJ cell sweep, forces 2e-4 * scale, energy 2e-5 relative
     P = pair._cell_planes(st.x, nbr.ghosts, nbr.cells, st.box.h)
@@ -260,6 +387,10 @@ def phase1_kernels(dev):
     ok = lj_cells.lj_cell_forces(P, lc, ar, with_energy=True)
     ot = lj_cells.lj_cell_forces_ref(P, lc, ar, with_energy=True)
     errf = float((ok[..., :3, :] - ot[..., :3, :]).abs().max())
+    npairs = lj_window_pairs(P, lc, ar)
+    ncand = 27 * P.shape[-1] ** 2 * int(np.prod([b - a for a, b in ar]))
+    print(f"LJ window pairs (owned A atom, ordered): {npairs}; candidate "
+          f"slot pairs of the 27-cell sweep: {ncand}")
     ek, et = float(ok[..., 3, :].double().sum()), \
         float(ot[..., 3, :].double().sum())
     print(f"lj energy: kernel {ek:.8e} twin {et:.8e} "
@@ -271,7 +402,9 @@ def phase1_kernels(dev):
            timed_ms(lambda: lj_cells.lj_cell_forces(P, lc, ar)),
            timed_ms(lambda: lj_cells.lj_cell_forces_ref(P, lc, ar), reps=3),
            "lammps_plugins_tpu_torch/csrc/lj_cells.cu",
-           "lammps_plugins_tpu/ops/lj_cells_pallas.py:204")
+           "lammps_plugins_tpu/ops/lj_cells_pallas.py:204",
+           (4 * (P.numel() + ok.numel()), 30 * npairs),
+           window_pairs=npairs, candidate_pairs=ncand)
 
     # E: Newton-half LJ, 2e-4 * scale vs its twin, and within 3e-4 * scale
     # of kernel C's atom forces after the aslot remap
@@ -293,6 +426,7 @@ def phase1_kernels(dev):
                     reps=3),
            "lammps_plugins_tpu_torch/csrc/lj_half.cu",
            "lammps_plugins_tpu/ops/lj_cells_pallas.py:331",
+           (4 * (P.numel() + hk.numel()), 33 * npairs / 2),
            max_abs_err_vs_kernel_c=err_c)
 
     # D: select_k on [N, W] candidate-like keys (seeded; quantized so that
@@ -309,11 +443,17 @@ def phase1_kernels(dev):
     stw = select_k.select_k_ref(keys, K, payloads=(ids, typ))
     err = max(float((a.double() - b.double()).abs().max())
               for a, b in zip(sk, stw))
-    record("select_k", err, 0.0,
-           timed_ms(lambda: select_k.select_k(keys, K, (ids, typ))),
+    # yardstick, not a twin: topk's tie order differs from the stable rule
+    t = interleaved_ms({
+        "kernel": lambda: select_k.select_k(keys, K, (ids, typ)),
+        "topk": lambda: torch.topk(keys, K, dim=1, largest=False,
+                                   sorted=True)}, 20)
+    record("select_k", err, 0.0, t["kernel"],
            timed_ms(lambda: select_k.select_k_ref(keys, K, (ids, typ))),
            "lammps_plugins_tpu_torch/csrc/select_k.cu",
-           "lammps_plugins_tpu/ops/select_k_pallas.py:99")
+           "lammps_plugins_tpu/ops/select_k_pallas.py:99",
+           (4 * N * Wp + 8 * N * K + 12 * N * K, N * Wp),
+           library_ms=t["topk"], W=Wp)
     del eng, planes, gk, gt, g3, g4, gmir4, stacked, flat, pin_inputs, P
     del ok, ot, hk, ht, keys, ids, typ
     torch.cuda.empty_cache()
@@ -335,12 +475,15 @@ def phase1_kernels(dev):
         raise AssertionError(f"react_combine disagrees with the mirror "
                              f"combine: {err_m}")
     p = eng._plan
+    Kr, Npr = g3[0].shape
     record("react_combine", float((rk - rt).abs().max()), 1e-5 * sc,
            timed_ms(lambda: react.react_combine(*g3, rl.rblocks, rl.route)),
            timed_ms(lambda: react.react_combine_ref(*g3, rl.rblocks,
                                                     rl.route)),
            "lammps_plugins_tpu_torch/csrc/react.cu",
            "lammps_plugins_tpu/ops/react_pallas.py:202 and :226",
+           (4 * (3 * Kr * Npr + rl.rblocks.numel() + rl.route.numel()
+                 + rk.numel()), 3 * Kr * Npr),
            max_abs_err_vs_mirror_combine=err_m,
            NW_KC_QR=[p.react_nw, p.react_kc, p.react_qr],
            measured_NW_KC_QR=list(eng._react_hwm))
@@ -415,7 +558,40 @@ def phase3_main_path(dev, modules):
           f"{max(rates):.6g}; {natoms} atoms, f32) on {gpu}; rebuilds "
           f"{rebuilds} in the timed runs; K={dict(eng._plan.k_caps)}; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    return launches
+    return launches, rebo_at_run_k(eng)
+
+
+def rebo_at_run_k(eng):
+    """The REBO kernel against its twin on the run's own lists, at the K
+    the run's re-sizes left (bar 5e-4 x scale); its time and bound."""
+    from lammps_plugins_tpu_torch.ops import rebo
+    pair, st, nbr = eng.pair, eng.state, eng.nbr
+    planes = pair._rebo_planes(st.x, pair.el_of_type[st.type], nbr.ghosts,
+                               nbr.lists["rebo"], st.box.h)
+    cst = pair._rebo_consts
+    K = planes[0].shape[0]
+    gk = rebo.rebo_cotangents(*planes, cst)
+    gt = rebo.rebo_cotangents_ref(*planes, cst)
+    scale = max(float(t.abs().max()) for t in gt)
+    err = max(float((a - b).abs().max()) for a, b in zip(gk, gt))
+    work = rebo_work(planes, cst)
+    b_ms, b_by = bound(*work[:3])
+    out = dict(K=K, max_abs_err=err, bar=5e-4 * scale,
+               ms=timed_ms(lambda: rebo.rebo_cotangents(*planes, cst),
+                           reps=20),
+               plain_ms=timed_ms(lambda: rebo.rebo_cotangents_ref(*planes,
+                                                                  cst),
+                                 reps=3),
+               bound_ms=b_ms, bound_by=b_by, live_edges_hist=work[3])
+    print(f"rebo_cotangents at the run's K={K}: max_abs_err={err:.3e} "
+          f"(bar {out['bar']:.3e}) kernel {out['ms']:.4f} ms, twin "
+          f"{out['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
+          f"share {b_ms / out['ms']:.3f}; live edges per atom "
+          f"{ {n: c for n, c in enumerate(work[3]) if c} }")
+    if not err <= out["bar"]:
+        raise AssertionError("rebo_cotangents disagrees with its twin at "
+                             "the run's K")
+    return out
 
 
 def check_launches(label, launches, used):
@@ -536,7 +712,8 @@ def main():
     phase0_environment()
     results = phase1_kernels(dev)
     phase2_f32_accuracy(dev)
-    launches = phase3_main_path(dev, modules)
+    launches, at_run_k = phase3_main_path(dev, modules)
+    results["rebo_cotangents"]["at_run_k"] = at_run_k
     by_config = phase4_configurations(dev, modules)
     phase5_golden(dev, args.golden_rebo)
     # each kernel's count from the runs of the paths that use it

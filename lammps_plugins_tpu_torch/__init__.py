@@ -3,20 +3,27 @@
 The JAX package beside it (``lammps_plugins_tpu``) is the reference; this
 package mirrors its module paths so each counterpart is easy to find:
 
-  core/        State, triclinic Box, lattice fills
+  core/        State, triclinic Box, lattice fills, units, the device rule
   api/         scene builders
   neighbor/    ghosts, padded [N, K] lists, host build, on-device rebuild
-  potentials/  PairStyle base (autograd forces / strain virial), REBOMoS
+  potentials/  PairStyle base (autograd forces / strain virial), REBOMoS,
+               the REBOMOS parameter-file reader
   ops/         hand-written CUDA kernels (sources in csrc/) with their
-               plain-PyTorch twins, plus the nvcc build and ctypes loader
+               plain-PyTorch twins, the nvcc build and ctypes loader, and
+               the g++-built native pair search of the host build
   fixes/       nve, velocity create
-  run/         Engine (host loop, half-skin rebuild rule), thermo
+  run/         Engine (host loop, half-skin rebuild rule), thermo, timers
   convert.py   numpy bridge from the JAX package's objects
 
-The port imports torch and never jax.  The framework-free modules of the
-JAX package (core/units.py, potentials/tables.py, run/timers.py,
-ops/native.py) are imported from there, not copied; core/units.py is
-re-exported as lammps_plugins_tpu_torch.core.units.
+The port imports torch, never jax, and nothing of the JAX package: it
+keeps its own copies of the framework-free modules it needs
+(core/units.py, potentials/tables.py, run/timers.py, ops/native.py with
+csrc/neighbor_native.cpp).  What it builds goes into build/ at the
+repository root.
+
+The entry points (scene functions, Box constructors, REBOMoS, the host
+neighbor build) run on the card unless the caller passes device="cpu"
+(core/device.py); without a CUDA device they raise.
 
 Dispatch rule shared by every kernel wrapper: a CPU tensor takes the plain
 PyTorch twin, a CUDA float32 tensor launches the kernel, and a CUDA tensor

@@ -1,7 +1,8 @@
 """REBOMOS scenes (port of lammps_plugins_tpu/api/scenes.py).
 
 Same constructions as the JAX package, so both packages build identical
-atom orders and positions from the same arguments.
+atom orders and positions from the same arguments.  The scenes are built
+on the card (float32) unless the caller passes device="cpu".
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ def spatial_sort(pos: np.ndarray, types: np.ndarray, cell: float = 4.8):
 
 
 def rebomos_bulk_commensurate(nx: int = 34, ny: int = 48, nz: int = 10,
-                              dtype=torch.float32, device="cpu",
+                              dtype=torch.float32, device="cuda",
                               sort: bool = False) -> State:
     """Defect-free MoS2 bulk whose box vectors are integer combinations of
     the lattice vectors (A = nx a1, B = ny/2 a1 + ny a2, C = nz a3).
@@ -79,8 +80,8 @@ def rebomos_bulk_commensurate(nx: int = 34, ny: int = 48, nz: int = 10,
 
 
 def rebomos_bulk(nx: int = 4, ny: int = 8, nz: int = 1,
-                 tilt_xy: float = -2.0, dtype=torch.float64,
-                 device="cpu") -> State:
+                 tilt_xy: float = -2.0, dtype=torch.float32,
+                 device="cuda") -> State:
     """The in.rebomos-bulk scene; defaults give the golden 288-atom cell."""
     lat = mos2_lattice()
     sx, sy, sz = lat.spacings()

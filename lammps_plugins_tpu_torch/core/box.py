@@ -14,6 +14,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .device import resolve
+
 
 def matvec3(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """Row vectors [..., 3] times a 3x3 matrix, written component-wise.
@@ -45,7 +47,8 @@ class Box:
     # -- constructors ------------------------------------------------------
     @classmethod
     def from_numpy(cls, h, lo=(0.0, 0.0, 0.0), periodic=(True,) * 3,
-                   dtype=torch.float64, device="cpu") -> "Box":
+                   dtype=torch.float32, device="cuda") -> "Box":
+        device = resolve(device)
         h64 = np.asarray(h, np.float64)
         lo64 = np.asarray(lo, np.float64)
         return cls(h=torch.as_tensor(h64, dtype=dtype, device=device),
@@ -56,7 +59,7 @@ class Box:
     @classmethod
     def triclinic(cls, lx, ly, lz, xy=0.0, xz=0.0, yz=0.0,
                   lo=(0.0, 0.0, 0.0), periodic=(True,) * 3,
-                  dtype=torch.float64, device="cpu") -> "Box":
+                  dtype=torch.float32, device="cuda") -> "Box":
         """LAMMPS-style box from edge lengths and tilt factors."""
         h64 = np.array([[lx, 0.0, 0.0], [xy, ly, 0.0], [xz, yz, lz]],
                        np.float64)

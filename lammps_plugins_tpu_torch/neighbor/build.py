@@ -1,9 +1,9 @@
 """Neighbor data containers and the host (numpy) build.
 
-Port of lammps_plugins_tpu/neighbor/build.py.  The host build reuses the
-JAX package's framework-free native pair search (ops/native.py with
-ops/neighbor_native.cpp); the Engine uses it only on CPU states, for the
-parity tests (the path is the on-device rebuild).
+Port of lammps_plugins_tpu/neighbor/build.py.  The host build runs the
+port's native pair search (ops/native.py, csrc/neighbor_native.cpp); the
+Engine uses it only on CPU states, for the parity tests (the path is the
+on-device rebuild).
 """
 
 from __future__ import annotations
@@ -14,9 +14,9 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from lammps_plugins_tpu.ops import native
-
 from ..core.box import Box
+from ..core.device import resolve
+from ..ops import native
 from .neighbor import Ghosts, NeighborList
 
 
@@ -104,10 +104,12 @@ def _pairs_to_padded(pi, pj, n, pad_multiple=8):
 def build_neighbor_data(x, types, box: Box,
                         requests: Mapping[str, np.ndarray],
                         skin: float = 2.0, pad_multiple: int = 8,
-                        dtype=torch.float64, device="cpu") -> NeighborData:
-    """Ghosts + every requested [N, K] list, built on the host.
+                        dtype=torch.float32, device="cuda") -> NeighborData:
+    """Ghosts + every requested [N, K] list, built on the host and placed
+    on `device`.
 
     requests: name -> cutoff, scalar or [T+1, T+1] per type pair."""
+    device = resolve(device)
     x_np = np.asarray(x, dtype=np.float64)
     t_np = np.asarray(types)
     cut_mats = {name: np.asarray(c, np.float64)
@@ -117,11 +119,7 @@ def build_neighbor_data(x, types, box: Box,
     h = box.h_np()
     x_all = np.concatenate([x_np, x_np[owner] + shift @ h], axis=0)
     t_all = np.concatenate([t_np, t_np[owner]])
-    found = native.find_pairs(x_np, x_all, list_cut)
-    if found is None:
-        raise RuntimeError("native pair search unavailable (g++ build of "
-                           "lammps_plugins_tpu/ops/neighbor_native.cpp)")
-    pi, pj, rsq = found
+    pi, pj, rsq = native.find_pairs(x_np, x_all, list_cut)
     as_t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)  # noqa
     lists = {}
     for name, cut in cut_mats.items():

@@ -1,10 +1,13 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-All sources compile with nvcc into one shared library with a plain C
+Every csrc/*.cu compiles with its own nvcc process, all started together,
+and one more nvcc links the objects into a shared library with a plain C
 interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \
-         -Xcompiler -fPIC -o build/torch_kernels/liblpt_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 \
+         -Xcompiler -fPIC -Xptxas -v -c csrc/X.cu -o build/torch_kernels/X.o
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/torch_kernels/liblpt_kernels.so build/torch_kernels/*.o
 
 The library is built at first use, from the checkout's sources alone, into
 build/torch_kernels/ at the repository root (listed in .gitignore), and
@@ -71,15 +74,33 @@ def _stale() -> bool:
 
 def _build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-O3", "-std=c++17", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-           *[s for s in sources() if s.endswith(".cu")]]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    nvcc, tag = _nvcc(), os.getpid()
+    cus = [s for s in sources() if s.endswith(".cu")]
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)[:-3]}.{tag}.o")
+            for s in cus]
+    procs = [subprocess.Popen(
+        [nvcc, *ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
+         "-Xptxas", "-v", "-c", src, "-o", obj],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(cus, objs)]
+    log, failed = [], []
+    for src, p in zip(cus, procs):
+        out, _ = p.communicate(timeout=900)
+        log.append(out)
+        if p.returncode != 0:
+            failed.append(f"{os.path.basename(src)} ({p.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = f"{LIB_PATH}.{tag}.tmp"
+    res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs],
+                         capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
     os.replace(tmp, LIB_PATH)
-    return res.stdout + res.stderr
+    for obj in objs:
+        os.remove(obj)
+    return "".join(log) + res.stdout + res.stderr
 
 
 def lib() -> ctypes.CDLL:

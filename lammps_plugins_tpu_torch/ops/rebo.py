@@ -3,8 +3,9 @@
 Counterpart of lammps_plugins_tpu/ops/rebo_pallas.py.  Given the [K, Np]
 edge planes of the REBO list (atoms along the last axis), returns
 G_e = dE_REBO/dd_e as three [K, Np] planes.  The kernel
-(csrc/rebo.cu) derives the gradient by hand; the twin is autograd of the
-port's REBO energy (potentials/rebomos.py::rebo_energy_rows).  With
+(csrc/rebo.cu, one warp per atom over the atom's live edges) derives the
+gradient by hand; the twin is autograd of the port's REBO energy
+(potentials/rebomos.py::rebo_energy_rows).  With
 emit_rows the kernel also writes the interleaved [K, Np, 4] table
 (gx, gy, gz, 0) of the `rows` mirror combine, as the JAX kernel's
 emit_rows output does.
@@ -21,8 +22,8 @@ from . import build
 launches = 0
 
 _PAIR_NAMES = ("rcmin", "inv_drc", "Q", "A", "alpha", "BIJc", "Beta")
-#: K values compiled into csrc/rebo.cu
-KERNEL_K = tuple(range(8, 65, 4))
+#: largest K csrc/rebo.cu takes (K is a run-time argument in [1, MAX_K])
+MAX_K = 64
 
 
 def derive_rebo_constants(tables) -> dict:
@@ -95,9 +96,8 @@ def rebo_cotangents(dxT, dyT, dzT, jelT, mskT, ei, consts,
             g = g + (torch.stack([*g, torch.zeros_like(g[0])], dim=-1),)
         return g
     K, Np = dxT.shape
-    if K not in KERNEL_K:
-        raise ValueError(f"rebo_cotangents: K={K} not compiled "
-                         f"(supported: {KERNEL_K})")
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"rebo_cotangents: K={K} outside [1, {MAX_K}]")
     dev, f32 = dxT.device, torch.float32
     ptrs = [build.check(t, n, (K, Np), f32, dev) for t, n in
             ((dxT, "dxT"), (dyT, "dyT"), (dzT, "dzT"), (jelT, "jelT"),

@@ -39,8 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from lammps_plugins_tpu.potentials.tables import REBOMoSTables, read_rebomos
-
+from ..core.device import resolve
 from ..neighbor.build import CellData, NeighborData
 from ..neighbor.neighbor import Ghosts, NeighborList, edge_components
 from ..ops.lj_cells import derive_lj_constants, lj_cell_forces
@@ -52,6 +51,7 @@ from ..ops.react import react_combine
 from ..ops.rebo import derive_rebo_constants, rebo_cotangents
 from ..registry import register_pair_style
 from .base import PairStyle
+from .tables import REBOMoSTables, read_rebomos
 
 TOL = 1.0e-9      # pair_rebomos.cpp:52
 
@@ -158,7 +158,7 @@ class REBOMoS(PairStyle):
     COMBINE_MODES = ("mirror", "rows", "pin", "pin2", "react")
 
     def __init__(self, tables: REBOMoSTables, typemap,
-                 dtype=torch.float64, device="cpu", lj="full",
+                 dtype=torch.float32, device="cuda", lj="full",
                  combine="mirror", react_gate=True):
         """typemap: 1-based atom type -> element index (0=Mo, 1=S,
         -1=NULL), index 0 unused (`pair_coeff * * file Mo S`).
@@ -174,7 +174,7 @@ class REBOMoS(PairStyle):
         self.tables = tables
         self.typemap_np = np.asarray(typemap, dtype=np.int64)
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve(device)
         t = tables
         as_t = lambda v: torch.as_tensor(  # noqa: E731
             np.asarray(v, np.float64), dtype=dtype, device=self.device)
@@ -193,7 +193,7 @@ class REBOMoS(PairStyle):
 
     @classmethod
     def from_file(cls, path: str, elements, ntypes=None,
-                  dtype=torch.float64, device="cpu", **config):
+                  dtype=torch.float32, device="cuda", **config):
         """elements: per atom type, 'Mo'/'M'/'S'/'NULL' (1-based order);
         config: lj, combine, react_gate."""
         ntypes = ntypes or len(elements)

@@ -30,8 +30,6 @@ from typing import Callable, List, Sequence
 import numpy as np
 import torch
 
-from lammps_plugins_tpu.run.timers import Timers
-
 from ..core.state import State
 from ..core.units import UnitSystem
 from ..fixes.base import Fix, StepContext
@@ -40,6 +38,7 @@ from ..neighbor.build import NeighborData, build_neighbor_data
 from ..ops.react import choose_react
 from ..potentials.base import PairStyle
 from .thermo import thermo_row
+from .timers import Timers
 
 
 def _quantize_k(target: int) -> int:

@@ -57,3 +57,33 @@ def test_library_is_stale_until_newer_than_every_source(tmp_path,
     assert not build._stale()
     os.utime(lib, (newest - 10, newest - 10))
     assert build._stale()                               # a source is newer
+
+
+def test_build_runs_one_nvcc_per_source_then_links(tmp_path, monkeypatch):
+    """_build starts one compile per csrc/*.cu (all at once), links their
+    objects into the library, removes the objects and returns the log."""
+    calls = tmp_path / "calls.txt"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> {calls}\n'
+        'while [ $# -gt 0 ]; do\n'
+        '  if [ "$1" = "-o" ]; then shift; echo built > "$1"; fi\n'
+        '  shift\n'
+        'done\n'
+        'echo "ptxas info : fake"\n')
+    fake.chmod(0o755)
+    lib = tmp_path / "out" / "liblpt_kernels.so"
+    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", str(lib.parent))
+    monkeypatch.setattr(build, "LIB_PATH", str(lib))
+    log = build._build()
+    lines = calls.read_text().splitlines()
+    cus = [s for s in build.sources() if s.endswith(".cu")]
+    compiles = [ln for ln in lines if " -c " in f" {ln} "]
+    links = [ln for ln in lines if "-shared" in ln.split()]
+    assert len(compiles) == len(cus) and len(links) == 1
+    assert all("sm_90a" in ln for ln in lines)
+    assert lib.read_text().strip() == "built"
+    assert sorted(os.listdir(lib.parent)) == ["liblpt_kernels.so"]
+    assert log.count("ptxas info") == len(cus) + 1

@@ -15,19 +15,24 @@ mirror rows and reaction combine 1e-5 x scale, LJ 2e-4 x scale (and the
 Newton-half kernel within 3e-4 x scale of the full one) and energy 2e-5
 relative, select-k and the pin copy exact.  The REBO kernel is checked
 with the synthetic parameters and with degree-6 g and gamma polynomials,
-its emit_rows table bit for bit against its planes.  An Engine on the
-card, built with default arguments, launches the main path's four
-kernels and refuses the host build and the autograd force fallback; one
-per force configuration launches that configuration's kernels.
+its emit_rows table bit for bit against its planes, and on synthetic
+planes at K = 8, 16, 20, 36 and 64 that hold atoms with no live edge,
+masked-in slots past rcmax and (K > 32) atoms with more than 32 live
+edges: dead slots exactly 0, reruns bit-identical.  The pin copy is exact
+on odd element counts and on views that start off a 16-byte boundary.
+An Engine on the card, built with default arguments, launches the main
+path's four kernels and refuses the host build and the autograd force
+fallback; one per force configuration launches that configuration's
+kernels.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from lammps_plugins_tpu.core import units
 from lammps_plugins_tpu_torch.api.scenes import (rebomos_bulk,
                                                  rebomos_bulk_commensurate)
+from lammps_plugins_tpu_torch.core import units
 from lammps_plugins_tpu_torch.fixes.nve import FixNVE
 from lammps_plugins_tpu_torch.neighbor.build import build_neighbor_data
 from lammps_plugins_tpu_torch.ops import (lj_cells, lj_half, mirror,
@@ -35,19 +40,28 @@ from lammps_plugins_tpu_torch.ops import (lj_cells, lj_half, mirror,
                                           select_k)
 from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
 from lammps_plugins_tpu_torch.run.simulation import Engine
-from torch_parity import SYNTH_REBO, cuda, sextic_tables  # noqa: F401
+from torch_parity import (SYNTH_REBO, cuda, sextic_tables,  # noqa: F401
+                          synthetic_rebo_planes)
 
 pytestmark = pytest.mark.cuda
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
 
 
 @pytest.fixture(scope="module")
 def small():
     """(pair, state, nbr) of the jiggled 72-atom scene, f32, CPU."""
-    st = rebomos_bulk_commensurate(3, 4, 1, dtype=torch.float32)
+    _need_cuda()
+    st = rebomos_bulk_commensurate(3, 4, 1, dtype=torch.float32,
+                                   device="cpu")
     rng = np.random.default_rng(4)
     x = st.x.numpy() + rng.uniform(-0.12, 0.12, st.x.shape)
     st = st.replace(x=torch.as_tensor(x, dtype=torch.float32))
-    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float32)
+    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float32,
+                             device="cpu")
     eng = Engine(st, pair, [FixNVE()], units.METAL)
     eng.rebuild_neighbors()
     return pair, eng.state, eng.nbr
@@ -98,6 +112,59 @@ def test_rebo_emit_rows_are_its_planes(cuda, small, sextic):
     assert not g4[..., 3].any()
     for a, b in zip((gx, gy, gz), rebo.rebo_cotangents(*planes, consts)):
         assert torch.equal(a, b)
+
+
+KS = [8, 16, 20, 36, 64]
+
+
+@pytest.mark.parametrize("K", KS)
+def test_rebo_kernel_matches_twin_at_k(cuda, K):
+    """Synthetic planes at K: the kernel within 5e-4 x scale of its twin,
+    exactly 0 on every masked or past-rcmax slot, and (K > 32) atoms with
+    more than 32 live edges take the kernel's recompute branch."""
+    planes, dead = synthetic_rebo_planes(K, 8 * 37 + 3, seed=K)
+    planes = [p.to(cuda) for p in planes]
+    consts = rebo.derive_rebo_constants(sextic_tables())
+    before = rebo.launches
+    gk = rebo.rebo_cotangents(*planes, consts)
+    torch.cuda.synchronize()
+    assert rebo.launches == before + 1
+    gt = rebo.rebo_cotangents_ref(*planes, consts)
+    scale = max(float(g.abs().max()) for g in gt)
+    assert scale > 1e-3
+    for a, b in zip(gk, gt):
+        assert float((a - b).abs().max()) <= 5e-4 * scale
+    dead = dead.to(cuda)
+    for a in gk:
+        assert not bool(a[dead].any())
+    live = (~dead).sum(dim=0)
+    assert int((live == 0).sum()) > 0
+    if K > 32:
+        assert int((live > 32).sum()) >= 8
+
+
+@pytest.mark.parametrize("K", KS)
+def test_rebo_kernel_reruns_and_rows_are_bit_identical_at_k(cuda, K):
+    planes, _ = synthetic_rebo_planes(K, 8 * 37 + 3, seed=K + 1)
+    planes = [p.to(cuda) for p in planes]
+    consts = rebo.derive_rebo_constants(sextic_tables())
+    first = rebo.rebo_cotangents(*planes, consts)
+    *g3, g4 = rebo.rebo_cotangents(*planes, consts, emit_rows=True)
+    again = rebo.rebo_cotangents(*planes, consts)
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, g3, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    for a in range(3):
+        assert torch.equal(g4[..., a], g3[a])
+    assert not g4[..., 3].any()
+
+
+def test_rebo_kernel_rejects_k_outside_its_range(cuda):
+    planes, _ = synthetic_rebo_planes(8, 16)
+    wide = [torch.cat([p] * 9) for p in planes[:5]] + [planes[5]]
+    with pytest.raises(ValueError):
+        rebo.rebo_cotangents(*[p.to(cuda) for p in wide],
+                             rebo.derive_rebo_constants(sextic_tables()))
 
 
 def test_rebo_kernel_rejects_float64(cuda, small):
@@ -164,13 +231,15 @@ def test_select_k_kernel_rejects_wide_rows(cuda):
 def sorted2k():
     """(pair, state, nbr) of the jiggled, spatially sorted 2,304-atom scene
     with route tables, f32, CPU."""
+    _need_cuda()
     st = rebomos_bulk_commensurate(12, 16, 2, dtype=torch.float32,
-                                   sort=True)
+                                   device="cpu", sort=True)
     rng = np.random.default_rng(6)
     x = st.x.numpy() + rng.uniform(-0.08, 0.08, st.x.shape)
     st = st.replace(x=torch.as_tensor(x, dtype=torch.float32))
     pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float32,
-                             combine="react", react_gate=False)
+                             device="cpu", combine="react",
+                             react_gate=False)
     eng = Engine(st, pair, [FixNVE()], units.METAL)
     eng.rebuild_neighbors()
     assert eng.nbr.lists["rebo"].route is not None
@@ -252,6 +321,23 @@ def test_pin_copy_is_exact(cuda, shape):
     torch.cuda.synchronize()
     assert pin.launches == before + 1
     assert out.data_ptr() != a.data_ptr() and torch.equal(out, a)
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((1, 1), 0), ((3, 5), 0), ((1000, 37), 0), ((7, 13), 1), ((7, 13), 2),
+    ((7, 13), 3), ((16, 3 * 2304), 1), ((2304, 64), 3)])
+def test_pin_copy_is_exact_on_odd_counts_and_offset_views(cuda, shape,
+                                                          offset):
+    """An offset view starts `offset` floats past a 16-byte boundary."""
+    n = shape[0] * shape[1]
+    base = torch.randn(n + 8, generator=torch.Generator().manual_seed(5))
+    a = base.to(cuda)[offset:offset + n].view(shape)
+    assert a.is_contiguous() and (a.data_ptr() % 16 == 4 * offset)
+    before = pin.launches
+    out = pin.pin_copy(a)
+    torch.cuda.synchronize()
+    assert pin.launches == before + 1
+    assert torch.equal(out, a)
 
 
 def test_pin_rows_keep_the_jax_shapes(cuda, small):
@@ -336,7 +422,9 @@ def test_engine_on_card_launches_every_kernel(cuda):
     rows = eng.run(20, thermo_every=10)
     assert all(m.launches > 0 for m in mods)
     assert all(np.isfinite(r["etotal"]) for r in rows)
-    ref = Engine(rebomos_bulk(), REBOMoS.from_file(SYNTH_REBO, ["M", "S"]),
+    f64 = dict(dtype=torch.float64, device="cpu")
+    ref = Engine(rebomos_bulk(**f64),
+                 REBOMoS.from_file(SYNTH_REBO, ["M", "S"], **f64),
                  [FixNVE()], units.METAL)
     ref.run(20)
     f64 = ref.state.f.numpy()

@@ -59,17 +59,20 @@ def _engines(scene, **kw):
     from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
     from lammps_plugins_tpu_torch.run.simulation import Engine
     if scene == "bulk":
-        js, ps = jscenes.rebomos_bulk(), scenes.rebomos_bulk()
+        js = jscenes.rebomos_bulk()
+        ps = scenes.rebomos_bulk(dtype=torch.float64, device="cpu")
     else:
         js = jscenes.rebomos_bulk_commensurate(6, 8, 2, dtype=jnp.float64)
-        ps = scenes.rebomos_bulk_commensurate(6, 8, 2, dtype=torch.float64)
+        ps = scenes.rebomos_bulk_commensurate(6, 8, 2, dtype=torch.float64,
+                                              device="cpu")
         js = jvc(js, units.METAL, 300.0, seed=12345)
         ps = velocity_create(ps, units.METAL, 300.0, seed=12345)
         np.testing.assert_array_equal(ps.v.numpy(), np.asarray(js.v))
     je = JEngine(js, JREBO.from_file(SYNTH_REBO, ["M", "S"]), [JNVE()],
                  units.METAL, device_rebuild=True, **kw)
-    pe = Engine(ps, REBOMoS.from_file(SYNTH_REBO, ["M", "S"]), [FixNVE()],
-                units.METAL, **kw)
+    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float64,
+                             device="cpu")
+    pe = Engine(ps, pair, [FixNVE()], units.METAL, **kw)
     return je, pe
 
 

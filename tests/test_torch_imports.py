@@ -1,35 +1,49 @@
-"""The port loads no JAX: every module of lammps_plugins_tpu_torch is
-imported, and one Engine.evaluate runs, in a fresh interpreter that must
-end with no `jax` in sys.modules."""
+"""The port loads neither JAX nor the JAX package: every module of
+lammps_plugins_tpu_torch and chip_smoke.py's imports are loaded, and one
+Engine.evaluate runs on the CPU, in a fresh interpreter that must end with
+no `jax` and no `lammps_plugins_tpu` module in sys.modules.  The entry
+points default to the card and raise without one."""
 
 import os
 import subprocess
 import sys
 
+import pytest
+import torch
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import lammps_plugins_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-from lammps_plugins_tpu.core import units
+import chip_smoke
+chip_smoke.ops_modules()
 from lammps_plugins_tpu_torch.api.scenes import rebomos_bulk
+from lammps_plugins_tpu_torch.core import units
 from lammps_plugins_tpu_torch.fixes.nve import FixNVE
+from lammps_plugins_tpu_torch.ops import native
 from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
 from lammps_plugins_tpu_torch.run.simulation import Engine
-eng = Engine(rebomos_bulk(), REBOMoS.from_file(sys.argv[1], ["M", "S"]),
+f64 = dict(dtype=__import__("torch").float64, device="cpu")
+eng = Engine(rebomos_bulk(**f64),
+             REBOMoS.from_file(sys.argv[1], ["M", "S"], **f64),
              [FixNVE()], units.METAL)
+eng.device_rebuild = False           # the host build: the native pair search
 pe, _ = eng.evaluate()
 assert abs(float(pe) / 288 + 3.5787) < 1e-3, float(pe)
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-print("MODULES", len(names), "JAX", bad)
+build = os.path.join(os.path.dirname(os.path.dirname(pkg.__file__)), "build")
+assert native.LIB_PATH.startswith(build + os.sep), native.LIB_PATH
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "lammps_plugins_tpu"))
+print("MODULES", len(names), "FORBIDDEN", bad)
 assert not bad, bad
 """
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax_and_no_jax_package():
     # two threads: the suite's other workers share the cores
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     res = subprocess.run(
@@ -37,4 +51,56 @@ def test_port_imports_no_jax():
          os.path.join(REPO, "tests", "data", "MoS.REBO.synthetic")],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert "JAX []" in res.stdout
+    assert "FORBIDDEN []" in res.stdout
+
+
+def _entry_points():
+    from lammps_plugins_tpu_torch.api import scenes
+    from lammps_plugins_tpu_torch.core.box import Box
+    from lammps_plugins_tpu_torch.neighbor.build import build_neighbor_data
+    from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
+    from lammps_plugins_tpu_torch.potentials.tables import read_rebomos
+    from torch_parity import SYNTH_REBO
+    import numpy as np
+    x = np.array([[0.0, 0.0, 0.0], [2.4, 0.0, 0.0]])
+    box64 = Box.triclinic(10.0, 10.0, 10.0, dtype=torch.float64,
+                          device="cpu")
+    return {
+        "rebomos_bulk": lambda: scenes.rebomos_bulk(),
+        "rebomos_bulk_commensurate":
+            lambda: scenes.rebomos_bulk_commensurate(2, 2, 1),
+        "Box.triclinic": lambda: Box.triclinic(10.0, 10.0, 10.0),
+        "Box.from_numpy": lambda: Box.from_numpy(np.eye(3) * 10.0),
+        "REBOMoS": lambda: REBOMoS(read_rebomos(SYNTH_REBO), [-1, 0, 1]),
+        "REBOMoS.from_file":
+            lambda: REBOMoS.from_file(SYNTH_REBO, ["M", "S"]),
+        "build_neighbor_data": lambda: build_neighbor_data(
+            x, np.array([1, 2]), box64, {"rebo": 3.0}),
+    }
+
+
+@pytest.mark.parametrize("name", ["rebomos_bulk", "rebomos_bulk_commensurate",
+                                  "Box.triclinic", "Box.from_numpy",
+                                  "REBOMoS", "REBOMoS.from_file",
+                                  "build_neighbor_data"])
+def test_entry_point_without_device_raises_without_cuda(monkeypatch, name):
+    """Called without `device`, an entry point asks for the card; with no
+    CUDA device it raises a clear error instead of running on the CPU."""
+    call = _entry_points()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+
+
+def test_entry_point_defaults_are_the_card_in_float32():
+    import inspect
+    from lammps_plugins_tpu_torch.api import scenes
+    from lammps_plugins_tpu_torch.core.box import Box
+    from lammps_plugins_tpu_torch.neighbor.build import build_neighbor_data
+    from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
+    for fn in (scenes.rebomos_bulk, scenes.rebomos_bulk_commensurate,
+               Box.triclinic, Box.from_numpy, REBOMoS.__init__,
+               REBOMoS.from_file, build_neighbor_data):
+        params = inspect.signature(fn).parameters
+        assert params["device"].default == "cuda", fn
+        assert params["dtype"].default is torch.float32, fn

@@ -119,8 +119,10 @@ def test_plans_match_jax():
     from lammps_plugins_tpu_torch.api.scenes import rebomos_bulk
     from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
     from torch_parity import SYNTH_REBO
-    req = REBOMoS.from_file(SYNTH_REBO, ["M", "S"]).neighbor_requests()
-    jb, pb = jbulk().box, rebomos_bulk().box
+    req = REBOMoS.from_file(SYNTH_REBO, ["M", "S"],
+                            device="cpu").neighbor_requests()
+    jb = jbulk().box
+    pb = rebomos_bulk(dtype=torch.float64, device="cpu").box
     kw = dict(cell_tiers=("master",), mirror_tiers=("rebo",))
     jp = jdb.make_plan_from_density(jb, req, 0.8, 288, **kw)
     pp = pdb.make_plan_from_density(pb, req, 0.8, 288, **kw)
@@ -138,13 +140,14 @@ def test_host_build_matches_jax():
     from lammps_plugins_tpu_torch.api.scenes import rebomos_bulk
     from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
     from torch_parity import SYNTH_REBO
-    req = REBOMoS.from_file(SYNTH_REBO, ["M", "S"]).neighbor_requests()
-    js, ps = jbulk(), rebomos_bulk()
+    req = REBOMoS.from_file(SYNTH_REBO, ["M", "S"],
+                            device="cpu").neighbor_requests()
+    js, ps = jbulk(), rebomos_bulk(dtype=torch.float64, device="cpu")
     np.testing.assert_array_equal(ps.x.numpy(), np.asarray(js.x))
     jn = jb(np.asarray(js.x), np.asarray(js.type), js.box, req, skin=1.0,
             dtype=jnp.float64)
     pn = build_neighbor_data(ps.x.numpy(), ps.type.numpy(), ps.box, req,
-                             skin=1.0)
+                             skin=1.0, dtype=torch.float64, device="cpu")
     for name in ("rebo", "master"):
         np.testing.assert_array_equal(pn.lists[name].idx.numpy(),
                                       np.asarray(jn.lists[name].idx))
@@ -162,7 +165,7 @@ def test_box_geometry_matches_jax():
     geo = dict(lx=12.8, ly=22.1, lz=14.0, xy=-6.4, xz=1.1, yz=-0.7,
                lo=(0.3, -1.2, 0.5))
     jb = JBox.triclinic(**geo, dtype=jnp.float64)
-    pb = Box.triclinic(**geo)
+    pb = Box.triclinic(**geo, dtype=torch.float64, device="cpu")
     rng = np.random.default_rng(7)
     x = rng.uniform(-30.0, 40.0, (64, 3))
     img = rng.integers(-2, 3, (64, 3)).astype(np.int32)
@@ -191,7 +194,8 @@ def test_spatial_sort_matches_jax():
     from lammps_plugins_tpu.api.scenes import spatial_sort as jsort
     from lammps_plugins_tpu_torch.api.scenes import (
         rebomos_bulk_commensurate, spatial_sort)
-    st = rebomos_bulk_commensurate(3, 4, 2, dtype=torch.float64)
+    st = rebomos_bulk_commensurate(3, 4, 2, dtype=torch.float64,
+                                   device="cpu")
     pos, types = st.x.numpy(), st.type.numpy()
     for a, b in zip(spatial_sort(pos, types), jsort(pos, types)):
         np.testing.assert_array_equal(a, np.asarray(b))
@@ -207,16 +211,18 @@ def test_compact_is_a_fixed_shape_nonzero():
 def test_overflow_recovery_resizes():
     """Sabotaged capacities: the Engine re-sizes from the flags and the
     energy is unchanged."""
-    from lammps_plugins_tpu.core import units
     from lammps_plugins_tpu_torch.api.scenes import rebomos_bulk
+    from lammps_plugins_tpu_torch.core import units
     from lammps_plugins_tpu_torch.fixes.nve import FixNVE
     from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
     from lammps_plugins_tpu_torch.run.simulation import Engine, _quantize_k
     from torch_parity import SYNTH_REBO
-    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"])
-    ref = Engine(rebomos_bulk(), pair, [FixNVE()], units.METAL)
+    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float64,
+                             device="cpu")
+    scene = dict(dtype=torch.float64, device="cpu")
+    ref = Engine(rebomos_bulk(**scene), pair, [FixNVE()], units.METAL)
     pe_ref, _ = ref.evaluate()
-    eng = Engine(rebomos_bulk(), pair, [FixNVE()], units.METAL)
+    eng = Engine(rebomos_bulk(**scene), pair, [FixNVE()], units.METAL)
     eng._make_plan_fast()
     eng._plan = dataclasses.replace(
         eng._plan, ghost_capacity=8, cell_capacity=8, cand_capacity=2,

@@ -165,8 +165,10 @@ def test_sorted_scene_matches_jax(monkeypatch):
     from lammps_plugins_tpu_torch.api.scenes import rebomos_bulk_commensurate
     monkeypatch.setenv("LPT_SORT_SCENE", "1")
     js = jscene(4, 6, 2, dtype=jnp.float64)
-    ps = rebomos_bulk_commensurate(4, 6, 2, dtype=torch.float64, sort=True)
+    ps = rebomos_bulk_commensurate(4, 6, 2, dtype=torch.float64,
+                                   device="cpu", sort=True)
     np.testing.assert_array_equal(ps.x.numpy(), np.asarray(js.x))
     np.testing.assert_array_equal(ps.type.numpy(), np.asarray(js.type))
-    unsorted = rebomos_bulk_commensurate(4, 6, 2, dtype=torch.float64)
+    unsorted = rebomos_bulk_commensurate(4, 6, 2, dtype=torch.float64,
+                                         device="cpu")
     assert not np.array_equal(ps.x.numpy(), unsorted.x.numpy())

@@ -117,3 +117,77 @@ def test_constant_vector_layout(f32_setup):
     assert tuple(vec[0:4]) == pair._rebo_consts["pair:rcmin"]
     assert tuple(vec[28:30]) == pair._rebo_consts["ctr:b0"]
     assert tuple(vec[-2:]) == pair._rebo_consts["ctr:a3"]
+
+
+@pytest.mark.parametrize("sextic", [False, True])
+def test_dead_slots_add_nothing_f64(sextic):
+    """The premise of the CUDA kernel's compaction, in float64: the
+    288-atom scene's REBO planes, K 16 -> 24 with four masked slots and
+    four unmasked slots past rcmax added to every atom.  The G of the
+    original slots is unchanged, every added slot's G is exactly 0 in the
+    port, and the port's G matches the JAX package's autodiff G."""
+    from lammps_plugins_tpu_torch import convert
+    jeng = jax_engine("bulk", "f64", jiggle=0.05)
+    jp = jeng.pair
+    pair, st, pn = port_of(jeng)
+    if sextic:
+        t = sextic_tables()
+        jp = type(jp)(t, jp.typemap_np, dtype=jnp.float64)
+        pair = convert.rebomos_from_tables(t, jp.typemap_np)
+    planes = _planes(pair, st, pn)
+    K, Np = planes[0].shape
+    n = st.natoms
+    rng = np.random.default_rng(11)
+    ej = rng.integers(0, 2, (8, Np)).astype(np.float64)
+    ei = planes[5].numpy()
+    u = rng.normal(size=(3, 8, Np))
+    u /= np.linalg.norm(u, axis=0)
+    rcmax = pair.tables.rcmax[ei.astype(int)[None, :], ej.astype(int)]
+    r = rcmax + rng.uniform(0.01, 1.0, (8, Np))
+    d = u * r
+    d[:, :4] = rng.uniform(-3.0, 3.0, (3, 4, Np))     # masked: any value
+    msk = np.ones((8, Np))
+    msk[:4] = 0.0
+    extra = [torch.as_tensor(a) for a in (d[0], d[1], d[2], ej, msk)]
+    padded = [torch.cat([p, e]) for p, e in zip(planes[:5], extra)]
+    padded.append(planes[5])
+    assert padded[0].shape == (K + 8, Np)
+
+    g0 = ops_rebo.rebo_cotangents(*planes, pair._rebo_consts)
+    g1 = ops_rebo.rebo_cotangents(*padded, pair._rebo_consts)
+    for a, b in zip(g0, g1):
+        assert rel_err(b[:K].numpy(), a.numpy()) <= 1e-12
+        assert not bool(b[K:].any())
+
+    def e_of_d(dx, dy, dz):
+        mask = jnp.asarray(padded[4][:, :n].T.numpy() > 0)
+        rsq = jnp.where(mask, dx * dx + dy * dy + dz * dz, 1.0)
+        eI = jnp.broadcast_to(jnp.asarray(ei[:n].astype(np.int32))[:, None],
+                              mask.shape)
+        eJ = jnp.asarray(padded[3][:, :n].T.numpy().astype(np.int32))
+        return jp._rebo_energy_rows(dx, dy, dz, rsq, mask, eI, eJ)
+
+    dd = [jnp.asarray(p[:, :n].T.numpy()) for p in padded[:3]]
+    _, vjp = jax.vjp(e_of_d, *dd)
+    g_jax = vjp(jnp.ones((), jnp.float64))
+    for gp, gj in zip(g1, g_jax):
+        assert rel_err(gp[:, :n].t().numpy(), np.asarray(gj)) <= 1e-9
+
+
+@pytest.mark.parametrize("K", [8, 36, 64])
+def test_twin_is_zero_on_dead_slots_of_synthetic_planes(K):
+    """The planes the card tests feed the kernel: atoms without a live
+    edge, masked-in slots past rcmax and (K > 32) atoms with more than 32
+    live edges; the twin's G is finite and exactly 0 on every dead slot."""
+    from torch_parity import synthetic_rebo_planes
+    planes, dead = synthetic_rebo_planes(K, 8 * 37 + 3, seed=K)
+    consts = ops_rebo.derive_rebo_constants(sextic_tables())
+    g = ops_rebo.rebo_cotangents(*[p.double() for p in planes], consts)
+    live = (~dead).sum(dim=0)
+    assert int((live == 0).sum()) > 0
+    if K > 32:
+        assert int((live > 32).sum()) >= 8
+    for a in g:
+        assert bool(torch.isfinite(a).all())
+        assert not bool(a[dead].any())
+    assert max(float(a.abs().max()) for a in g) > 1e-3

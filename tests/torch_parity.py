@@ -64,21 +64,23 @@ def port_engine(scene="small", dtype=torch.float64, jiggle=0.12, seed=4,
     """A port Engine on the CPU: the scene of jax_engine, jiggled the same
     way, with 300 K velocities (seed 12345) so that a run moves, and
     REBOMoS built with the force configuration `config`."""
-    from lammps_plugins_tpu.core import units
     from lammps_plugins_tpu_torch.api.scenes import (
         rebomos_bulk, rebomos_bulk_commensurate)
+    from lammps_plugins_tpu_torch.core import units
     from lammps_plugins_tpu_torch.fixes.nve import FixNVE
     from lammps_plugins_tpu_torch.fixes.velocity import velocity_create
     from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
     from lammps_plugins_tpu_torch.run.simulation import Engine
-    st = (rebomos_bulk(dtype=dtype) if scene == "bulk"
-          else rebomos_bulk_commensurate(3, 4, 1, dtype=dtype))
+    st = (rebomos_bulk(dtype=dtype, device="cpu") if scene == "bulk"
+          else rebomos_bulk_commensurate(3, 4, 1, dtype=dtype,
+                                         device="cpu"))
     if jiggle:
         rng = np.random.default_rng(seed)
         x = st.x.numpy() + rng.uniform(-jiggle, jiggle, st.x.shape)
         st = st.replace(x=torch.as_tensor(x, dtype=dtype))
     st = velocity_create(st, units.METAL, 300.0, 12345)
-    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=dtype, **config)
+    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=dtype,
+                             device="cpu", **config)
     return Engine(st, pair, [FixNVE()], units.METAL)
 
 
@@ -89,7 +91,8 @@ def config_forces_rel_err(config, scene="small", dtype=torch.float64):
     eng = port_engine(scene, dtype=dtype, **config)
     eng.rebuild_neighbors()
     st = eng.state
-    default = REBOMoS(eng.pair.tables, eng.pair.typemap_np, dtype=dtype)
+    default = REBOMoS(eng.pair.tables, eng.pair.typemap_np, dtype=dtype,
+                      device="cpu")
     f_cfg = eng.pair.forces(st.x, st.type, eng.nbr, st.box.h)
     f_def = default.forces(st.x, st.type, eng.nbr, st.box.h)
     assert float(f_def.abs().max()) > 1e-3
@@ -124,7 +127,7 @@ def sextic_tables():
     """The synthetic tables with non-zero b2..b6 and bg2..bg6 (distinct per
     element), so that every slot of the degree-6 g and gamma polynomials
     and their derivatives is exercised; the file's own are linear."""
-    from lammps_plugins_tpu.potentials.tables import read_rebomos
+    from lammps_plugins_tpu_torch.potentials.tables import read_rebomos
     t = read_rebomos(SYNTH_REBO)
     b, bg = t.b.copy(), t.bg.copy()
     b[:, 2:] = [[0.031, -0.022, 0.017, -0.012, 0.007],
@@ -138,3 +141,45 @@ def rel_err(a, b):
     """max |a - b| / max |b|."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def synthetic_rebo_planes(K, Np, seed=0, dense=8):
+    """[K, Np] REBO kernel inputs (dxT, dyT, dzT, jelT, mskT, ei; float32,
+    CPU) that cover every kind of atom the kernel meets, and the [K, Np]
+    bool of slots whose G must be exactly 0 (masked, or past rcmax).
+
+    Atoms cycle through: no masked-in slot; 1..K masked-in slots at random
+    positions with r in [2.0, 4.3] A (inside rcmin, in the switch, past
+    rcmax of the synthetic parameters); masked-in slots all past rcmax; and
+    (`dense` atoms, when K > 32) all K slots inside rcmin, so n = K > 32.
+    Masked-out slots hold random displacements that must be ignored."""
+    from lammps_plugins_tpu_torch.potentials.tables import read_rebomos
+    t = read_rebomos(SYNTH_REBO)
+    rng = np.random.default_rng(seed)
+    ei = rng.integers(0, 2, Np)
+    ej = rng.integers(0, 2, (K, Np))
+    u = rng.normal(size=(3, K, Np))
+    u /= np.linalg.norm(u, axis=0)
+    r = rng.uniform(2.0, 4.3, (K, Np))
+    msk = np.zeros((K, Np), bool)
+    for i in range(Np):
+        kind = i % 4
+        if kind == 1:
+            m = rng.integers(1, K + 1)
+            msk[rng.choice(K, m, replace=False), i] = True
+        elif kind == 2:
+            msk[:, i] = True
+            r[:, i] = rng.uniform(3.9, 4.5, K)
+    if K > 32:
+        for i in range(3, 4 * dense, 4):
+            msk[:, i] = True
+            r[:, i] = rng.uniform(2.0, 2.25, K)
+    d = u * r
+    d[:, ~msk] = rng.uniform(-5.0, 5.0, (3, int((~msk).sum())))
+    rcmax = t.rcmax[ei[None, :], ej]
+    dead = ~msk | (r >= rcmax + 1e-3)
+    as32 = lambda a: torch.as_tensor(np.ascontiguousarray(a),  # noqa: E731
+                                     dtype=torch.float32)
+    planes = [as32(d[0]), as32(d[1]), as32(d[2]), as32(ej), as32(msk),
+              as32(ei)]
+    return planes, torch.as_tensor(dead)

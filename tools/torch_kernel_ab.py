@@ -1,0 +1,166 @@
+#!/usr/bin/env python3
+"""Two or more builds of the REBO cotangent kernel (A) and the pin copy (H)
+on one card, on the same inputs, timed in turns.
+
+    python3 tools/torch_kernel_ab.py --tree LABEL=PATH [--tree ...]
+        [--reps 60] [--k 16,20]
+
+This repository is the first build ("this"); each PATH is another tree
+that holds lammps_plugins_tpu_torch/ (a `git archive` of the parent
+commit, or a scratch copy with another design of a kernel).  Each tree's
+own ops/build.py builds its csrc/*.cu into PATH/build/torch_kernels/, and
+each library's lpt_rebo_cotangents and lpt_pin_copy are called through
+ctypes with the same arguments (their C signatures are unchanged since
+the first port).
+
+Inputs come from this tree: the 97,920-atom bench scene
+(chip_smoke.bench_engine) after one rebuild.  A runs on the rebuild's
+[K, Np] planes and on the same planes padded with empty slots to each
+larger K of --k (what the Engine's K re-size gives); H on chip_smoke's
+three phase-1 shapes.  Every launch of every build is timed with CUDA
+events, one launch each per turn, the order reversed every other turn,
+and clone() takes its turn beside the pin copies; the medians of --reps
+turns are printed with each build's max error against this tree's twin
+(A) or exactness (H), and one line `RESULT {json}` with the card's name
+and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load_build(label, tree):
+    """The tree's ops/build.py as a module of its own (it builds into the
+    tree's build/ directory)."""
+    path = os.path.join(tree, "lammps_plugins_tpu_torch", "ops", "build.py")
+    spec = importlib.util.spec_from_file_location(f"_ab_build_{label}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tree", action="append", default=[],
+                    help="LABEL=PATH of another build")
+    ap.add_argument("--reps", type=int, default=60)
+    ap.add_argument("--k", default="16,20")
+    args = ap.parse_args()
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from lammps_plugins_tpu_torch.ops import build, rebo
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_kernel_ab: no CUDA device")
+    dev = torch.device("cuda:0")
+    trees = {"this": REPO}
+    for spec in args.tree:
+        label, path = spec.split("=", 1)
+        trees[label] = os.path.abspath(path)
+    libs = {}
+    for label, tree in trees.items():
+        b = build if label == "this" else load_build(label, tree)
+        libs[label] = b.lib()
+        print(f"built {label} from {tree}")
+        if b.build_log:
+            print(b.build_log, file=sys.stderr)
+
+    eng = cs.bench_engine(dev)
+    eng.rebuild_neighbors()
+    pair, st, nbr = eng.pair, eng.state, eng.nbr
+    planes0 = pair._rebo_planes(st.x, pair.el_of_type[st.type], nbr.ghosts,
+                                nbr.lists["rebo"], st.box.h)
+    cst = pair._rebo_consts
+    cvec = build.device_constants(tuple(rebo.rebo_constant_vector(cst)), dev)
+    stream = build.stream(dev)
+    K0, Np = planes0[0].shape
+    out = {"rebo": {}, "pin": {}}
+    for K in sorted({K0, *(int(k) for k in args.k.split(",") if k)}):
+        if K < K0:
+            continue
+        planes = [F.pad(p, (0, 0, 0, K - K0)).contiguous()
+                  for p in planes0[:5]] + [planes0[5]]
+        gt = rebo.rebo_cotangents_ref(*planes, cst)
+        scale = max(float(t.abs().max()) for t in gt)
+        outs = {lab: [torch.empty((K, Np), device=dev) for _ in range(3)]
+                for lab in libs}
+
+        def launcher(lab):
+            ptrs = [p.data_ptr() for p in planes]
+            o = [t.data_ptr() for t in outs[lab]]
+
+            def fn():
+                status = libs[lab].lpt_rebo_cotangents(
+                    *ptrs, cvec.data_ptr(), *o, None, K, Np, stream)
+                build.raise_on_error(status, f"rebo {lab}")
+            return fn
+
+        fns = {lab: launcher(lab) for lab in libs}
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+        errs = {lab: max(float((a - b).abs().max())
+                         for a, b in zip(outs[lab], gt)) for lab in libs}
+        ms = cs.interleaved_ms(fns, args.reps)
+        work = cs.rebo_work(planes, cst)
+        b_ms, b_by = cs.bound(*work[:3])
+        out["rebo"][K] = dict(ms=ms, max_abs_err=errs, bar=5e-4 * scale,
+                              bound_ms=b_ms, bound_by=b_by,
+                              live_edges_hist=work[3])
+        print(f"rebo K={K}: " + ", ".join(
+            f"{lab} {ms[lab]:.4f} ms (err {errs[lab]:.3e})" for lab in libs)
+            + f"; bar {5e-4 * scale:.3e}; bound {b_ms:.4f} ms by {b_by}")
+        del planes, gt, outs
+    g = rebo.rebo_cotangents_ref(*planes0, cst)
+    stacked = torch.stack(g, dim=-1)
+    flat = stacked.reshape(-1)
+    R = -(-flat.shape[0] // 128)
+    Wr = 64 if 3 * K0 <= 64 else 128
+    shapes = {
+        f"[{R},128]": F.pad(flat, (0, R * 128 - flat.shape[0])).reshape(
+            R, 128),
+        f"[{K0},{3 * Np}]": stacked.reshape(K0, 3 * Np),
+        f"[{Np},{Wr}]": F.pad(torch.cat(g).t(), (0, Wr - 3 * K0))
+        .contiguous()}
+    for shape, a in shapes.items():
+        R_, L_ = a.shape
+        dst = {lab: torch.empty_like(a) for lab in libs}
+
+        def copier(lab):
+            def fn():
+                status = libs[lab].lpt_pin_copy(a.data_ptr(),
+                                                dst[lab].data_ptr(), R_, L_,
+                                                stream)
+                build.raise_on_error(status, f"pin {lab}")
+            return fn
+
+        fns = {lab: copier(lab) for lab in libs}
+        fns["clone"] = lambda: a.clone()
+        for lab in libs:
+            fns[lab]()
+        torch.cuda.synchronize()
+        exact = {lab: bool(torch.equal(dst[lab], a)) for lab in libs}
+        ms = cs.interleaved_ms(fns, args.reps)
+        b_ms = cs.bound(8 * a.numel(), 0)[0]
+        out["pin"][shape] = dict(ms=ms, exact=exact, bound_ms=b_ms)
+        print(f"pin {shape}: " + ", ".join(
+            f"{lab} {t:.4f} ms" for lab, t in ms.items())
+            + f"; exact {exact}; bound {b_ms:.4f} ms")
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print("RESULT " + json.dumps(dict(trees=trees, reps=args.reps, gpu=gpu,
+                                      **out)))
+
+
+if __name__ == "__main__":
+    main()
