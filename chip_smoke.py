@@ -4,6 +4,7 @@
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--golden-rebo PATH_TO_MoS.REBO.set5b]
+                          [--prev-tree PATH]
 
 Phases (any failure raises, so the script exits non-zero):
   0. toolchain report; TF32 off; nvcc build of csrc/*.cu for sm_90a
@@ -15,7 +16,12 @@ Phases (any failure raises, so the script exits non-zero):
      card, `bound`) and, for select_k and the pin copy, the one PyTorch
      call that computes the same function (torch.topk, clone()); the
      histogram of live REBO edges per atom (n, the slots the REBO kernel
-     works on)
+     works on); for the LJ sweeps the slot pairs they test after culling,
+     reckoned with their own rule, beside the pairs inside the LJ window
+     and the first design's count; with --prev-tree (a tree holding an
+     earlier lammps_plugins_tpu_torch/, e.g. a `git archive` of the parent
+     commit) the LJ sweeps of that tree's build are timed in turns with
+     this one's (prev_design_ms)
   2. f32 forces of the 288-atom scene on the card (device rebuild +
      kernels) against the float64 CPU twin forces: max|dF| < 1e-2 RMS(F)
   3. the main path: Engine.run on the 97,920-atom scene (f32, skin 0.8,
@@ -233,6 +239,57 @@ def ops_modules():
             for m in KERNEL_NAMES}
 
 
+def load_build(label, tree):
+    """The ops/build.py of another tree as a module of its own (it builds
+    that tree's csrc/*.cu into the tree's build/ directory)."""
+    import importlib.util
+    path = os.path.join(tree, "lammps_plugins_tpu_torch", "ops", "build.py")
+    spec = importlib.util.spec_from_file_location(f"_build_{label}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def lj_launchers(b, P, consts, a_range):
+    """{name: fn} launching the LJ sweeps of the build `b` (this tree's
+    ops/build.py or another tree's, load_build) on planes P through its
+    C entry points, each fn returning its output: "lj_cell_forces",
+    "lj_cell_forces+energy" (C) and "lj_cell_forces_half" (E).  The
+    arguments follow the build's C signatures: the tile-culling designs
+    take a packing scratch and Dx as two trailing arguments, the first
+    designs do not."""
+    from lammps_plugins_tpu_torch.ops import lj_cells
+    lib = b.lib()
+    Dx, Dy, Dz, _, C = P.shape
+    (x0, x1), (y0, y1), (z0, z1) = a_range
+    Ax, Ay, Az = x1 - x0, y1 - y0, z1 - z0
+    dev = P.device
+    cvec = b.device_constants(
+        tuple(v for n in lj_cells.LJ_NAMES for v in consts[n]), dev)
+    out_c = torch.empty((Ax, Ay, Az, 8, C), device=dev)
+    out_e = torch.empty((Ax, Ay, Az, C, 3), device=dev)
+    part = torch.empty((27, Ax * Ay * Az, 3, C), device=dev)
+    scratch = torch.empty(lj_cells.scratch_floats(P.shape), device=dev)
+    extra = ((scratch.data_ptr(), Dx)
+             if len(b._SIGNATURES["lpt_lj_cell_forces"]) > 14 else ())
+    stream = b.stream(dev)
+
+    def c(energy):
+        b.raise_on_error(lib.lpt_lj_cell_forces(
+            P.data_ptr(), cvec.data_ptr(), out_c.data_ptr(), Dy, Dz, C, x0,
+            y0, z0, Ax, Ay, Az, int(energy), stream, *extra), "lj C")
+        return out_c
+
+    def e():
+        b.raise_on_error(lib.lpt_lj_cell_forces_half(
+            P.data_ptr(), cvec.data_ptr(), part.data_ptr(), out_e.data_ptr(),
+            Dy, Dz, C, x0, y0, z0, Ax, Ay, Az, stream, *extra), "lj E")
+        return out_e
+    return {"lj_cell_forces": lambda: c(False),
+            "lj_cell_forces+energy": lambda: c(True),
+            "lj_cell_forces_half": e}
+
+
 def bench_engine(dev, sort=False, **config):
     """The bench scene on the card with its velocities; no lists yet.
     sort: spatially sorted atoms; config: REBOMoS force configuration."""
@@ -252,8 +309,9 @@ def bench_engine(dev, sort=False, **config):
                   check_every=BENCH["check_every"], skin=BENCH["skin"])
 
 
-def phase1_kernels(dev):
-    """Each kernel vs its twin on the bench scene's own tensors."""
+def phase1_kernels(dev, prev_tree=""):
+    """Each kernel vs its twin on the bench scene's own tensors; with
+    prev_tree, the LJ sweeps of that tree's build timed in turns."""
     from lammps_plugins_tpu_torch.ops import (lj_cells, lj_half, mirror,
                                               mirror_rows, pin, react, rebo,
                                               select_k)
@@ -387,10 +445,35 @@ def phase1_kernels(dev):
     ok = lj_cells.lj_cell_forces(P, lc, ar, with_energy=True)
     ot = lj_cells.lj_cell_forces_ref(P, lc, ar, with_energy=True)
     errf = float((ok[..., :3, :] - ot[..., :3, :]).abs().max())
+    again = lj_cells.lj_cell_forces(P, lc, ar, with_energy=True)
+    if not torch.equal(ok, again):
+        raise AssertionError("lj_cell_forces reruns differ")
     npairs = lj_window_pairs(P, lc, ar)
-    ncand = 27 * P.shape[-1] ** 2 * int(np.prod([b - a for a, b in ar]))
-    print(f"LJ window pairs (owned A atom, ordered): {npairs}; candidate "
-          f"slot pairs of the 27-cell sweep: {ncand}")
+    C = P.shape[-1]
+    ncand_prev = 27 * C ** 2 * int(np.prod([b - a for a, b in ar]))
+    tested, live = lj_cells.candidate_pairs(P, lc, ar)
+    per_group = lj_cells.TILE * lj_cells.GROUP
+    print(f"LJ window pairs (owned A atom, ordered): {npairs}; slot pairs "
+          f"tested: {tested * per_group} ({tested} of {live} (A tile, B "
+          f"group) pairs with live slots survive culling); the first "
+          f"design's 27-cell sweep: {ncand_prev}")
+    prev = None
+    if prev_tree:
+        prev = lj_launchers(load_build("prev", prev_tree), P, lc, ar)
+        pc = prev["lj_cell_forces"]()
+        torch.cuda.synchronize()
+        print(f"previous design ({prev_tree}) C: max_abs_err "
+              f"{float((pc[..., :3, :] - ot[..., :3, :]).abs().max()):.3e}")
+
+    def turns(kernel, prev_fn):
+        """(kernel ms, previous design's ms or None), in turns."""
+        if prev_fn is None:
+            return timed_ms(kernel), None
+        t = interleaved_ms({"kernel": kernel, "prev": prev_fn}, 20)
+        return t["kernel"], t["prev"]
+
+    c_ms, c_prev = turns(lambda: lj_cells.lj_cell_forces(P, lc, ar),
+                         prev and prev["lj_cell_forces"])
     ek, et = float(ok[..., 3, :].double().sum()), \
         float(ot[..., 3, :].double().sum())
     print(f"lj energy: kernel {ek:.8e} twin {et:.8e} "
@@ -398,13 +481,17 @@ def phase1_kernels(dev):
     if not abs(ek - et) <= 2e-5 * abs(et):
         raise AssertionError("lj_cell_forces energy row disagrees")
     record("lj_cell_forces", errf,
-           2e-4 * float(ot[..., :3, :].abs().max()),
-           timed_ms(lambda: lj_cells.lj_cell_forces(P, lc, ar)),
+           2e-4 * float(ot[..., :3, :].abs().max()), c_ms,
            timed_ms(lambda: lj_cells.lj_cell_forces_ref(P, lc, ar), reps=3),
            "lammps_plugins_tpu_torch/csrc/lj_cells.cu",
            "lammps_plugins_tpu/ops/lj_cells_pallas.py:204",
            (4 * (P.numel() + ok.numel()), 30 * npairs),
-           window_pairs=npairs, candidate_pairs=ncand)
+           window_pairs=npairs, candidate_pairs=tested * per_group,
+           candidate_pairs_prev_design=ncand_prev, tested_groups=tested,
+           live_groups=live, reruns_bit_identical=True,
+           energy_ms=timed_ms(lambda: lj_cells.lj_cell_forces(
+               P, lc, ar, with_energy=True)),
+           **({"prev_design_ms": c_prev} if prev else {}))
 
     # E: Newton-half LJ, 2e-4 * scale vs its twin, and within 3e-4 * scale
     # of kernel C's atom forces after the aslot remap
@@ -419,15 +506,27 @@ def phase1_kernels(dev):
           f"{err_c:.3e} (bar {3e-4 * sc:.3e})")
     if not err_c <= 3e-4 * sc:
         raise AssertionError("lj_cell_forces_half disagrees with kernel C")
+    if not torch.equal(hk, lj_half.lj_cell_forces_half(P, lc, ar)):
+        raise AssertionError("lj_cell_forces_half reruns differ")
+    tested_h, live_h, blocks_h = lj_half.candidate_pairs_half(P, lc, ar)
+    print(f"LJ half sweep: slot pairs tested {tested_h * per_group} "
+          f"({tested_h} of {live_h} (A tile, B group) pairs with live slots "
+          f"survive culling); the first design's: {blocks_h * C ** 2}")
+    e_ms, e_prev = turns(lambda: lj_half.lj_cell_forces_half(P, lc, ar),
+                         prev and prev["lj_cell_forces_half"])
     record("lj_cell_forces_half", float((hk - ht).abs().max()),
-           2e-4 * float(ht.abs().max()),
-           timed_ms(lambda: lj_half.lj_cell_forces_half(P, lc, ar)),
+           2e-4 * float(ht.abs().max()), e_ms,
            timed_ms(lambda: lj_half.lj_cell_forces_half_ref(P, lc, ar),
                     reps=3),
            "lammps_plugins_tpu_torch/csrc/lj_half.cu",
            "lammps_plugins_tpu/ops/lj_cells_pallas.py:331",
            (4 * (P.numel() + hk.numel()), 33 * npairs / 2),
-           max_abs_err_vs_kernel_c=err_c)
+           max_abs_err_vs_kernel_c=err_c, window_pairs=npairs / 2,
+           candidate_pairs=tested_h * per_group,
+           candidate_pairs_prev_design=blocks_h * C ** 2,
+           tested_groups=tested_h, live_groups=live_h,
+           reruns_bit_identical=True,
+           **({"prev_design_ms": e_prev} if prev else {}))
 
     # D: select_k on [N, W] candidate-like keys (seeded; quantized so that
     # ties occur; most slots invalid as in a cell window), exact
@@ -455,7 +554,7 @@ def phase1_kernels(dev):
            (4 * N * Wp + 8 * N * K + 12 * N * K, N * Wp),
            library_ms=t["topk"], W=Wp)
     del eng, planes, gk, gt, g3, g4, gmir4, stacked, flat, pin_inputs, P
-    del ok, ot, hk, ht, keys, ids, typ
+    del ok, ot, hk, ht, keys, ids, typ, again, prev
     torch.cuda.empty_cache()
 
     # G: reaction combine on the route tables of the sorted scene's rebuild
@@ -704,13 +803,16 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--golden-rebo", default="",
                     help="path of the published MoS.REBO.set5b")
+    ap.add_argument("--prev-tree", default="",
+                    help="tree of an earlier lammps_plugins_tpu_torch/ whose "
+                         "LJ sweeps are timed in turns with this one's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     dev = torch.device("cuda:0")
     modules = ops_modules()
     phase0_environment()
-    results = phase1_kernels(dev)
+    results = phase1_kernels(dev, args.prev_tree)
     phase2_f32_accuracy(dev)
     launches, at_run_k = phase3_main_path(dev, modules)
     results["rebo_cotangents"]["at_run_k"] = at_run_k

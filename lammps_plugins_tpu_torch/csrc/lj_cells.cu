@@ -5,126 +5,138 @@
 // Physics: the three-regime switched LJ of pair_rebomos.cpp:518-543 — zero
 // outside [rcLJmin, rcLJmax], 12-6 above 0.95 sigma, cubic ramp below.
 //
-// What bounds it on the H100: FP32 arithmetic, 27 x C^2 pair evaluations
-// per A cell (C ~ 104 at 98k atoms: ~2.8e8 pairs a step).
+// What bounds it on the H100: instruction issue and latency, not flops or
+// bytes.  At the 97,920-atom bench shapes (C = 104, 1,188 A cells) one
+// slot pair in ~28 of the 27-cell sweep lies inside the LJ window.  A
+// sweep that tests every slot pair and, under divergence, runs the whole
+// pair body for every B slot that any lane of the warp hits spends ~60 %
+// of its issue on lanes with nothing to do.  Here the issue goes to the
+// window test, ~12 instructions per tested slot pair, over the (A tile,
+// B group) pairs that survive culling (69 % of those with live slots at
+// the bench shapes), and to the pair body, run max-over-lanes(hits) times
+// per group of tests, ~4x the mean.  All 1,188 blocks are resident at
+// once (9 per SM, 56 registers), so the time is the busiest SM's.
 //
-// Design: one block per A cell of a_range, blockDim = C rounded up to 32,
-// one thread per A slot.  For each of the 27 neighbour cells the block
-// stages the B cell's x, y, z and element code in shared memory, then each
-// thread sums its A slot's force (and energy when asked) in registers.
-// Every ordered pair is evaluated from its A side, so an owned atom's force
-// is complete from its own cell row: no scatter, no atomics.  The grid has
-// a one-cell empty halo ring, so neighbour indexing needs no boundary
-// logic.  Pair constants are bilinear in the element codes
-// (derive_lj_constants).  A self pair has rsq = 0 and pad slots sit at
-// 1e7 (pad-pad pairs also give rsq = 0): the window test selects before
-// any rsqrt, so no inf ever meets a multiply.
+// Design (pieces shared with lj_half.cu in lj_common.cuh):
+//   * a packing pass makes one float4 (x, y, z, element) per slot and the
+//     box of every 16-slot group from this call's positions;
+//   * one block of 4 warps per A cell of a_range; warp w holds A tile w
+//     (tiles w + 4, w + 8, ... in further rounds when C > 128), one lane
+//     per A slot; a tile without live slots idles;
+//   * the 27 B cells stream through a double buffer in shared memory with
+//     cp.async (the next B cell's slots and group boxes load while the
+//     current one is swept), one __syncthreads per B cell;
+//   * per B tile: each lane tests its A slot against the boxes of the
+//     tile's two 16-slot groups and the warp skips a group that no lane
+//     reaches; for the others each lane builds the bits of the B slots
+//     inside its pair window (one float4 broadcast from shared memory per
+//     slot), then runs the pair body only over its set bits, in ascending
+//     slot order, two pairs per step.
+// Each A slot's force is summed in its own lane in (B cell, B slot) order:
+// no atomics, and reruns are bit-identical.  The grid has a one-cell empty
+// halo ring, so neighbour indexing needs no boundary logic.
 // Output layout is the JAX one, [Ax, Ay, Az, 8, C]: rows 0-2 force, row 3
 // 0.5 * owned * sum_b V when with_energy (else 0), rows 4-7 zero.
 
-#include <cuda_runtime.h>
+#include "lj_common.cuh"
 
 namespace {
 
-// constant vector layout (ops/lj_cells.py: LJ_NAMES, 4 bilinear
-// coefficients each)
-enum { kLj1, kLj2, kLj3, kLj4, kLjMinSq, kLjMaxSq, kS95Sq, kLjMin, kK2, kK3,
-       kC2, kC3, kNLj };
+using namespace lj;
 
-__global__ void lj_cells_kernel(const float* __restrict__ P,
-                                const float* __restrict__ cst,
-                                float* __restrict__ out, int Dy, int Dz,
-                                int C, int x0, int y0, int z0, int Ay,
-                                int Az, int with_energy) {
-  extern __shared__ float sh[];          // [4, C]: x, y, z, element
+constexpr int kNOff = 27;
+
+template <bool kEnergy>
+__global__ void __launch_bounds__(kThreads, 9) lj_cells_kernel(
+    const float* __restrict__ P, const float4* __restrict__ Q,
+    const float4* __restrict__ box, const float* __restrict__ cst,
+    float* __restrict__ out, int Dy, int Dz, int C, int T, int x0, int y0,
+    int z0, int Ay, int Az) {
+  extern __shared__ float4 sh[];   // 2 x [T * 32 slots | T x boxes]
+  __shared__ float4 c4[kNLj];
+  const int stride = T * (kTile + kBoxes);
   const int b = blockIdx.x;
   const int az = b % Az, ay = (b / Az) % Ay, ax = b / (Az * Ay);
   const int cx = x0 + ax, cy = y0 + ay, cz = z0 + az;
-  const int t = threadIdx.x;
-  const bool act = t < C;
+  const int warp = threadIdx.x / kTile, lane = threadIdx.x % kTile;
+  const size_t acell = ((size_t)cx * Dy + cy) * Dz + cz;
+  if (threadIdx.x < kNLj)
+    c4[threadIdx.x] = reinterpret_cast<const float4*>(cst)[threadIdx.x];
 
-  const size_t abase = ((size_t)(cx * Dy + cy) * Dz + cz) * 8 * C;
-  float xa = 0.f, ya = 0.f, za = 0.f, ea = 0.f, own = 0.f;
-  if (act) {
-    xa = P[abase + 0 * C + t];
-    ya = P[abase + 1 * C + t];
-    za = P[abase + 2 * C + t];
-    ea = P[abase + 3 * C + t];
-    own = P[abase + 4 * C + t];
-  }
-  // per-A-slot bilinear rows: value = pa + pb * e_b
-  float pa[kNLj], pb[kNLj];
-#pragma unroll
-  for (int q = 0; q < kNLj; ++q) {
-    pa[q] = cst[4 * q] + ea * cst[4 * q + 1];
-    pb[q] = cst[4 * q + 2] + ea * cst[4 * q + 3];
-  }
-
-  float fx = 0.f, fy = 0.f, fz = 0.f, en = 0.f;
-  for (int o = 0; o < 27; ++o) {
+  auto stage = [&](int o, int buf) {
     const int ox = o / 9 - 1, oy = (o / 3) % 3 - 1, oz = o % 3 - 1;
-    const size_t bbase =
-        ((size_t)((cx + ox) * Dy + (cy + oy)) * Dz + (cz + oz)) * 8 * C;
-    __syncthreads();
-    for (int s = t; s < 4 * C; s += blockDim.x) sh[s] = P[bbase + s];
-    __syncthreads();
-    if (!act) continue;
-    for (int s = 0; s < C; ++s) {
-      const float dxm = xa - sh[s];
-      const float dym = ya - sh[C + s];
-      const float dzm = za - sh[2 * C + s];
-      const float rsq = dxm * dxm + dym * dym + dzm * dzm;
-      const float eb = sh[3 * C + s];
-      if (rsq < pa[kLjMinSq] + pb[kLjMinSq] * eb ||
-          rsq > pa[kLjMaxSq] + pb[kLjMaxSq] * eb)
-        continue;
-      const float rinv = rsqrtf(rsq);
-      const float r = rsq * rinv;
-      const float r2inv = rinv * rinv;
-      const float r6inv = r2inv * r2inv * r2inv;
-      const bool lj126 = rsq >= pa[kS95Sq] + pb[kS95Sq] * eb;
-      const float drp = r - (pa[kLjMin] + pb[kLjMin] * eb);
-      float fp;
-      if (lj126)
-        fp = ((pa[kLj1] + pb[kLj1] * eb) * r6inv - (pa[kLj2] + pb[kLj2] * eb)) *
-             r6inv * r2inv;
-      else
-        fp = drp * ((pa[kK3] + pb[kK3] * eb) * drp + (pa[kK2] + pb[kK2] * eb)) *
-             rinv;
-      fx += fp * dxm;
-      fy += fp * dym;
-      fz += fp * dzm;
-      if (with_energy) {
-        if (lj126)
-          en += ((pa[kLj3] + pb[kLj3] * eb) * r6inv - (pa[kLj4] + pb[kLj4] * eb)) *
-                r6inv;
-        else
-          en += drp * drp *
-                ((pa[kC3] + pb[kC3] * eb) * drp + (pa[kC2] + pb[kC2] * eb));
+    const size_t bc = ((size_t)(cx + ox) * Dy + (cy + oy)) * Dz + (cz + oz);
+    const float4* sq = Q + bc * T * kTile;
+    const float4* sb = box + bc * T * kBoxes;
+    float4* d = sh + buf * stride;
+    for (int i = threadIdx.x; i < stride; i += kThreads)
+      cp_async16(d + i, i < T * kTile ? sq + i : sb + (i - T * kTile));
+    cp_async_commit();
+  };
+
+  const int rounds = (T + kWarps - 1) / kWarps;
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int t = rd * kWarps + warp;
+    const int s = t * kTile + lane;
+    stage(0, 0);
+    __syncthreads();                       // c4 is in place
+    const float4 qa =
+        t < T ? Q[acell * T * kTile + s] : make_float4(kPad, kPad, kPad, 0.f);
+    const bool live = __any_sync(0xffffffffu, qa.x < kPadMin);
+    float a[kNLj], bb[kNLj];
+    rows_a(c4, qa.w, a, bb);
+    float fx = 0.f, fy = 0.f, fz = 0.f, en = 0.f;
+    for (int o = 0; o < kNOff; ++o) {
+      cp_async_wait_all();
+      __syncthreads();                     // B cell o landed; o - 1 swept
+      if (o + 1 < kNOff) stage(o + 1, (o + 1) & 1);
+      if (!live) continue;
+      const float4* cell = sh + (o & 1) * stride;
+      const float4* bx = cell + T * kTile;
+      for (int c = 0; c < T; ++c) {
+        const float4* ch = cell + c * kTile;
+        sum_hits<kEnergy>(ch, window_mask(ch, bx + c * kBoxes, qa, a, bb),
+                          qa, a, bb, fx, fy, fz, en);
       }
     }
-  }
-  if (!act) return;
-  const size_t obase = ((size_t)(ax * Ay + ay) * Az + az) * 8 * C;
-  out[obase + 0 * C + t] = fx;
-  out[obase + 1 * C + t] = fy;
-  out[obase + 2 * C + t] = fz;
-  out[obase + 3 * C + t] = with_energy ? 0.5f * own * en : 0.f;
+    __syncthreads();                       // before the next round's stage
+    if (t < T && s < C) {
+      const size_t obase = ((size_t)(ax * Ay + ay) * Az + az) * 8 * C;
+      out[obase + 0 * C + s] = fx;
+      out[obase + 1 * C + s] = fy;
+      out[obase + 2 * C + s] = fz;
+      out[obase + 3 * C + s] =
+          kEnergy ? 0.5f * P[acell * 8 * C + 4 * C + s] * en : 0.f;
 #pragma unroll
-  for (int r = 4; r < 8; ++r) out[obase + r * C + t] = 0.f;
+      for (int r = 4; r < 8; ++r) out[obase + r * C + s] = 0.f;
+    }
+  }
 }
 
 }  // namespace
 
 // P: [Dx, Dy, Dz, 8, C]; out: [Ax, Ay, Az, 8, C] over the a_range cells
-// starting at (x0, y0, z0).  C <= 1024.
+// starting at (x0, y0, z0); scratch: Dx * Dy * Dz * ceil(C / 32) * 144
+// floats (the packed slots and group boxes).  C <= 1024.
 extern "C" int lpt_lj_cell_forces(const float* P, const float* cst,
                                   float* out, int Dy, int Dz, int C, int x0,
                                   int y0, int z0, int Ax, int Ay, int Az,
-                                  int with_energy, void* stream) {
-  const int threads = ((C + 31) / 32) * 32;
-  const size_t shmem = 4 * (size_t)C * sizeof(float);
-  lj_cells_kernel<<<Ax * Ay * Az, threads, shmem, (cudaStream_t)stream>>>(
-      P, cst, out, Dy, Dz, C, x0, y0, z0, Ay, Az, with_energy);
+                                  int with_energy, void* stream,
+                                  float* scratch, int Dx) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int T = (C + kTile - 1) / kTile;
+  const int ncells = Dx * Dy * Dz;
+  cudaError_t e = launch_pack(P, scratch, ncells, C, T, s);
+  if (e != cudaSuccess) return (int)e;
+  const float4* Q = reinterpret_cast<const float4*>(scratch);
+  const float4* B =
+      reinterpret_cast<const float4*>(scratch + q_floats(ncells, T));
+  const size_t shmem = 2 * (size_t)T * (kTile + kBoxes) * sizeof(float4);
+  if (with_energy)
+    lj_cells_kernel<true><<<Ax * Ay * Az, kThreads, shmem, s>>>(
+        P, Q, B, cst, out, Dy, Dz, C, T, x0, y0, z0, Ay, Az);
+  else
+    lj_cells_kernel<false><<<Ax * Ay * Az, kThreads, shmem, s>>>(
+        P, Q, B, cst, out, Dy, Dz, C, T, x0, y0, z0, Ay, Az);
   return (int)cudaGetLastError();
 }

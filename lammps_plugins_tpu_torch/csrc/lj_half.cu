@@ -7,43 +7,48 @@
 // lexicographically positive offsets, 14 instead of 27.  Each evaluated
 // pair adds fp * (x_a - x_b) to atom a and subtracts it from atom b.
 //
-// What bounds it on the H100: FP32 arithmetic, 14 x C^2 pair evaluations
-// per A cell (about half of kernel C's), plus the warp reductions of the
-// B-side sums.
+// What bounds it on the H100: instruction issue and latency.  The window
+// test runs once per unordered slot pair, over the (A tile, B group)
+// pairs that survive culling (69 % of those with live slots at the bench
+// shapes), ~12 instructions each; the pair body runs on hits only, once
+// from each side.  Summing each B slot's side with a 15-shuffle butterfly
+// whenever any lane of the warp has a hit (~60 % of the B slots at the
+// bench shapes) would cost more than the pair bodies the half sweep
+// saves.
 //
-// Design.  The TPU kernel accumulated the B-side forces across its
-// sequential grid; blocks here run in no order, so nothing is accumulated
-// across blocks and no float atomics are used:
-//   * pass 1: one block per (A cell, offset o), blockDim = C rounded up to
-//     32, one thread per A slot; the B cell (A + o) is staged in shared
-//     memory.  For every B slot s the thread's pair term is added to its
-//     A-side sum in registers; the B-side term of slot s is summed over
-//     the warp by an xor butterfly (skipped when no lane of the warp has
-//     the pair inside the LJ window) and lane 0 stores it in shared memory;
-//     after the loop thread s sums its B slot over the warps in order.
+// Design (pieces shared with lj_cells.cu in lj_common.cuh):
+//   * the packing pass of lj_common.cuh (float4 slots, group boxes);
+//   * pass 1: one block of 4 warps per (A cell, offset o); the A and B
+//     cells' float4 slots and the B group boxes are staged in shared
+//     memory; warp w holds A tile w (w + 4, ... in further rounds), one
+//     lane per A slot.  Per B tile: groups that no lane reaches are
+//     skipped; each lane builds the 32-bit mask of the B slots inside its
+//     pair window (the only window test of the pair) and runs the pair
+//     body over its set bits into its A-side sum in registers; a
+//     five-round xor-shuffle transpose of the warp's 32 x 32 hit matrix
+//     then gives lane b the mask of the A lanes that hit B slot b, and
+//     lane b evaluates the body again from the B side over just those
+//     hits, in A-lane order, adding to the warp's B-side row in shared
+//     memory.  After the sweep the block sums the warps' rows in order.
 //     Block (A, o) writes its A-side sums into partial slot o and its
 //     B-side sums into slot 13 + o, each over the a_range grid: every
 //     (slot, cell) has exactly one writer.
 //   * pass 2: one thread per (a_range cell, C slot) sums the 27 partial
-//     slots in a fixed order.  Reruns are bit-identical.
+//     slots in a fixed order.  No float atomics: reruns are bit-identical.
 // The A cells of offset o span a_range extended by one cell on the side a
 // pair can straddle (as lj_cells_pallas.py:319-327); a_range leaves one
 // cell of the grid on every side, so both cells of every block exist, no
-// index is clamped and no pair is evaluated twice.  A block whose A cell lies outside a_range
-// writes no A-side sums, one whose B cell does writes no B-side sums; the
-// self-cell block (o = 0) sees both slot orders of every in-cell pair and
-// writes no B-side sums.  Self pairs (rsq = 0) and pad slots (parked at
-// 1e7) fall outside the LJ window, which is tested before any rsqrt.
+// index is clamped and no pair is evaluated twice.  A block whose A cell
+// lies outside a_range writes (and computes) no A-side sums, one whose B
+// cell does no B-side sums; the self-cell block (o = 0) sees both slot
+// orders of every in-cell pair and writes no B-side sums.
 // Output [Ax, Ay, Az, C, 3], the JAX function's layout.
 
-#include <cuda_runtime.h>
+#include "lj_common.cuh"
 
 namespace {
 
-// constant vector layout (ops/lj_cells.py: LJ_NAMES, 4 bilinear
-// coefficients each)
-enum { kLj1, kLj2, kLj3, kLj4, kLjMinSq, kLjMaxSq, kS95Sq, kLjMin, kK2, kK3,
-       kC2, kC3, kNLj };
+using namespace lj;
 
 constexpr int kNOff = 14;
 constexpr int kNSlots = 2 * kNOff - 1;
@@ -53,13 +58,14 @@ __constant__ int kOff[kNOff][3] = {
     {1, -1, -1}, {1, -1, 0}, {1, -1, 1}, {1, 0, -1}, {1, 0, 0},
     {1, 0, 1},  {1, 1, -1}, {1, 1, 0},  {1, 1, 1}};
 
-__global__ void lj_half_pairs(const float* __restrict__ P,
-                              const float* __restrict__ cst,
-                              float* __restrict__ part, int Dy, int Dz,
-                              int C, int x0, int y0, int z0, int Ax, int Ay,
-                              int Az) {
-  extern __shared__ float sh[];    // [4, C] B cell, then [nwarps, C, 3]
-  float* sred = sh + 4 * C;
+__global__ void __launch_bounds__(kThreads, 9) lj_half_pairs(
+    const float4* __restrict__ Q, const float4* __restrict__ box,
+    const float* __restrict__ cst, float* __restrict__ part, int Dy, int Dz,
+    int C, int T, int x0, int y0, int z0, int Ax, int Ay, int Az) {
+  // A slots [T * 32] | B slots [T * 32] | B boxes [T x boxes] float4,
+  // then the warps' B-side rows [kWarps, T * 32, 3] float
+  extern __shared__ float4 sh[];
+  __shared__ float4 c4[kNLj];
   const int o = blockIdx.y;
   const int ox = kOff[o][0], oy = kOff[o][1], oz = kOff[o][2];
   const int ex = Ax + abs(ox), ey = Ay + abs(oy), ez = Az + abs(oz);
@@ -77,97 +83,82 @@ __global__ void lj_half_pairs(const float* __restrict__ P,
                       rby < Ay && rbz >= 0 && rbz < Az;
   if (!writeA && !writeB) return;
 
-  const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5, nwarps = blockDim.x >> 5;
-  const bool act = t < C;
-  const size_t abase =
-      ((size_t)((x0 + rax) * Dy + (y0 + ray)) * Dz + (z0 + raz)) * 8 * C;
-  const size_t bbase =
-      ((size_t)((x0 + rbx) * Dy + (y0 + rby)) * Dz + (z0 + rbz)) * 8 * C;
-  for (int s = t; s < 4 * C; s += blockDim.x) sh[s] = P[bbase + s];
-  float xa = 0.f, ya = 0.f, za = 0.f, ea = 0.f;
-  if (act) {
-    xa = P[abase + 0 * C + t];
-    ya = P[abase + 1 * C + t];
-    za = P[abase + 2 * C + t];
-    ea = P[abase + 3 * C + t];
+  const int warp = threadIdx.x / kTile, lane = threadIdx.x % kTile;
+  const int ns = T * kTile;
+  float4* sA = sh;
+  float4* sB = sh + ns;
+  float4* sbx = sB + ns;
+  float* sred = reinterpret_cast<float*>(sbx + kBoxes * T);
+  const size_t ac =
+      ((size_t)(x0 + rax) * Dy + (y0 + ray)) * Dz + (z0 + raz);
+  const size_t bc =
+      ((size_t)(x0 + rbx) * Dy + (y0 + rby)) * Dz + (z0 + rbz);
+  if (threadIdx.x < kNLj)
+    c4[threadIdx.x] = reinterpret_cast<const float4*>(cst)[threadIdx.x];
+  for (int i = threadIdx.x; i < ns; i += kThreads) {
+    sA[i] = Q[ac * ns + i];
+    sB[i] = Q[bc * ns + i];
   }
-  // per-A-slot bilinear rows: value = pa + pb * e_b
-  float pa[kNLj], pb[kNLj];
-#pragma unroll
-  for (int q = 0; q < kNLj; ++q) {
-    pa[q] = cst[4 * q] + ea * cst[4 * q + 1];
-    pb[q] = cst[4 * q + 2] + ea * cst[4 * q + 3];
-  }
+  for (int i = threadIdx.x; i < kBoxes * T; i += kThreads)
+    sbx[i] = box[bc * kBoxes * T + i];
+  if (writeB)
+    for (int i = threadIdx.x; i < kWarps * ns * 3; i += kThreads)
+      sred[i] = 0.f;
   __syncthreads();
 
-  float fx = 0.f, fy = 0.f, fz = 0.f;
-  for (int s = 0; s < C; ++s) {
-    const float dxm = xa - sh[s];
-    const float dym = ya - sh[C + s];
-    const float dzm = za - sh[2 * C + s];
-    const float rsq = dxm * dxm + dym * dym + dzm * dzm;
-    const float eb = sh[3 * C + s];
-    const bool inwin = act && rsq >= pa[kLjMinSq] + pb[kLjMinSq] * eb &&
-                       rsq <= pa[kLjMaxSq] + pb[kLjMaxSq] * eb;
-    float fp = 0.f;
-    if (inwin) {
-      const float rinv = rsqrtf(rsq);
-      const float r = rsq * rinv;
-      const float r2inv = rinv * rinv;
-      const float r6inv = r2inv * r2inv * r2inv;
-      const float drp = r - (pa[kLjMin] + pb[kLjMin] * eb);
-      if (rsq >= pa[kS95Sq] + pb[kS95Sq] * eb)
-        fp = ((pa[kLj1] + pb[kLj1] * eb) * r6inv - (pa[kLj2] + pb[kLj2] * eb)) *
-             r6inv * r2inv;
-      else
-        fp = drp * ((pa[kK3] + pb[kK3] * eb) * drp + (pa[kK2] + pb[kK2] * eb)) *
-             rinv;
-    }
-    float px = fp * dxm, py = fp * dym, pz = fp * dzm;
-    fx += px;
-    fy += py;
-    fz += pz;
-    if (writeB) {
-      if (__any_sync(0xffffffffu, inwin)) {
-#pragma unroll
-        for (int m = 16; m > 0; m >>= 1) {
-          px += __shfl_xor_sync(0xffffffffu, px, m);
-          py += __shfl_xor_sync(0xffffffffu, py, m);
-          pz += __shfl_xor_sync(0xffffffffu, pz, m);
+  const size_t ncell = (size_t)Ax * Ay * Az;
+  const int rounds = (T + kWarps - 1) / kWarps;
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int t = rd * kWarps + warp;
+    if (t >= T) break;                     // no barrier follows in the loop
+    const int s = t * kTile + lane;
+    const float4 qa = sA[s];
+    const bool live = __any_sync(0xffffffffu, qa.x < kPadMin);
+    float a[kNLj], bb[kNLj];
+    rows_a(c4, qa.w, a, bb);
+    float fx = 0.f, fy = 0.f, fz = 0.f, en = 0.f;   // en: unused
+    for (int c = 0; live && c < T; ++c) {
+      const float4* ch = sB + c * kTile;
+      const unsigned m = window_mask(ch, sbx + c * kBoxes, qa, a, bb);
+      if (writeA) sum_hits<false>(ch, m, qa, a, bb, fx, fy, fz, en);
+      if (writeB) {
+        unsigned hits = transpose32(m, lane);  // A lanes that hit slot b
+        if (hits) {
+          const float4 qb = ch[lane];
+          float a2[kNLj], b2[kNLj];
+          rows_b(c4, qb.w, a2, b2);
+          float gx = 0.f, gy = 0.f, gz = 0.f;
+          sum_hits<false>(sA + t * kTile, hits, qb, a2, b2, gx, gy, gz, en);
+          float* r = sred + ((size_t)warp * ns + c * kTile + lane) * 3;
+          r[0] += gx;
+          r[1] += gy;
+          r[2] += gz;
         }
       }
-      if (lane == 0) {
-        float* r = sred + ((size_t)warp * C + s) * 3;
-        r[0] = px;
-        r[1] = py;
-        r[2] = pz;
-      }
+    }
+    if (writeA && s < C) {
+      const size_t ca = ((size_t)rax * Ay + ray) * Az + raz;
+      float* w = part + ((size_t)o * ncell + ca) * 3 * C;
+      w[s] = fx;
+      w[C + s] = fy;
+      w[2 * C + s] = fz;
     }
   }
+  if (!writeB) return;
   __syncthreads();
-  if (!act) return;
-  const size_t ncell = (size_t)Ax * Ay * Az;
-  if (writeA) {
-    const size_t ca = ((size_t)rax * Ay + ray) * Az + raz;
-    float* w = part + ((size_t)o * ncell + ca) * 3 * C;
-    w[t] = fx;
-    w[C + t] = fy;
-    w[2 * C + t] = fz;
-  }
-  if (writeB) {
-    float bx = 0.f, by = 0.f, bz = 0.f;
-    for (int v = 0; v < nwarps; ++v) {
-      const float* r = sred + ((size_t)v * C + t) * 3;
-      bx += r[0];
-      by += r[1];
-      bz += r[2];
+  const size_t cb = ((size_t)rbx * Ay + rby) * Az + rbz;
+  float* w = part + ((size_t)(kNOff - 1 + o) * ncell + cb) * 3 * C;
+  for (int s = threadIdx.x; s < C; s += kThreads) {
+    float gx = 0.f, gy = 0.f, gz = 0.f;
+    for (int v = 0; v < kWarps; ++v) {
+      const float* r = sred + ((size_t)v * ns + s) * 3;
+      gx += r[0];
+      gy += r[1];
+      gz += r[2];
     }
-    const size_t cb = ((size_t)rbx * Ay + rby) * Az + rbz;
-    float* w = part + ((size_t)(kNOff - 1 + o) * ncell + cb) * 3 * C;
-    w[t] = -bx;
-    w[C + t] = -by;
-    w[2 * C + t] = -bz;
+    w[s] = gx;
+    w[C + s] = gy;
+    w[2 * C + s] = gz;
   }
 }
 
@@ -189,28 +180,36 @@ __global__ void lj_half_reduce(const float* __restrict__ part,
 
 }  // namespace
 
-// P: [Dx, Dy, Dz, 8, C]; part: scratch [27, Ax*Ay*Az, 3, C]; out:
-// [Ax, Ay, Az, C, 3] over the a_range cells starting at (x0, y0, z0), which
-// must leave one halo cell on every side.  C <= 640 (shared memory above
-// 48 KB is requested for the launch).
+// P: [Dx, Dy, Dz, 8, C]; part: [27, Ax*Ay*Az, 3, C]; out: [Ax, Ay, Az,
+// C, 3] over the a_range cells starting at (x0, y0, z0), which must leave
+// one halo cell on every side; scratch: Dx * Dy * Dz * ceil(C / 32) * 144
+// floats (the packed slots and group boxes).  C <= 1024 (shared memory
+// above 48 KB is requested for the launch).
 extern "C" int lpt_lj_cell_forces_half(const float* P, const float* cst,
                                        float* part, float* out, int Dy,
                                        int Dz, int C, int x0, int y0, int z0,
-                                       int Ax, int Ay, int Az, void* stream) {
+                                       int Ax, int Ay, int Az, void* stream,
+                                       float* scratch, int Dx) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int threads = ((C + 31) / 32) * 32;
-  const size_t shmem = (4 + 3 * (size_t)(threads / 32)) * C * sizeof(float);
+  const int T = (C + kTile - 1) / kTile;
+  const int ncells = Dx * Dy * Dz;
+  cudaError_t e = launch_pack(P, scratch, ncells, C, T, s);
+  if (e != cudaSuccess) return (int)e;
+  const size_t shmem = (2 * (size_t)T * kTile + kBoxes * T) * sizeof(float4) +
+                       (size_t)kWarps * T * kTile * 3 * sizeof(float);
   if (shmem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        lj_half_pairs, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)shmem);
+    e = cudaFuncSetAttribute(lj_half_pairs,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)shmem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((Ax + 1) * (Ay + 1) * (Az + 1), kNOff);
-  lj_half_pairs<<<grid, threads, shmem, s>>>(P, cst, part, Dy, Dz, C, x0, y0,
-                                             z0, Ax, Ay, Az);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
+  lj_half_pairs<<<grid, kThreads, shmem, s>>>(
+      reinterpret_cast<const float4*>(scratch),
+      reinterpret_cast<const float4*>(scratch + q_floats(ncells, T)), cst,
+      part, Dy, Dz, C, T, x0, y0, z0, Ax, Ay, Az);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
   const size_t n = (size_t)Ax * Ay * Az * C;
   const int rthreads = 256;
   lj_half_reduce<<<(unsigned)((n + rthreads - 1) / rthreads), rthreads, 0,

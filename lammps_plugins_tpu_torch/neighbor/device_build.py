@@ -27,6 +27,9 @@ from .build import CellData, NeighborData
 from .neighbor import Ghosts, NeighborList
 
 BIG = float("inf")
+#: sub-cells per axis of the LJ cell table's slot order (_bin_dense): runs
+#: of 32 slots become compact tiles that the LJ kernels can cull whole
+LJ_CELL_SUB = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,18 +232,34 @@ def _pad_t(a: torch.Tensor, np_: int, fill) -> torch.Tensor:
     return out
 
 
+def _morton(s3, sub: int):
+    """Morton (z-order) index of sub-cell coordinates s3 [M, 3] in
+    [0, sub), sub a power of two: x's bit above y's above z's."""
+    m = torch.zeros_like(s3[:, 0])
+    for k in range(sub.bit_length() - 1):
+        for d in range(3):
+            m = m | (((s3[:, d] >> k) & 1) << (3 * k + 2 - d))
+    return m
+
+
 def _bin_dense(x_all, valid_row, mn, size, dims, capacity, m_all,
-               interior_first: int = 0):
+               interior_first: int = 0, sub: int = 1):
     """Sorted dense cell table [ncells+2, capacity] (junk row + oob row).
 
     interior_first > 0 clips the cell of the first that many rows (the
     owned atoms) into [1, dims-2]: rounding at the hi face must never bin
     an owned atom into the halo ring, outside the LJ kernel's A range.
+    sub > 1 (a power of two) orders each cell's slots by the Morton index
+    of the atom's sub-cell on a sub x sub x sub grid of the cell's own
+    frame (stable within a sub-cell), so that a run of consecutive slots
+    is spatially compact; sub = 1 keeps the rows in input order.  Either
+    way a cell holds the same atoms.
     Returns (dense, c3, occupancy, overflow)."""
     dev = x_all.device
     ncells = dims[0] * dims[1] * dims[2]
     hi = torch.tensor(dims, device=dev) - 1
-    c3 = torch.floor((x_all - mn) / size).to(torch.int64)
+    u = (x_all - mn) / size
+    c3 = torch.floor(u).to(torch.int64)
     c3 = torch.minimum(torch.clamp(c3, min=0), hi)
     if interior_first:
         own = (torch.arange(m_all, device=dev) < interior_first)[:, None]
@@ -248,7 +267,15 @@ def _bin_dense(x_all, valid_row, mn, size, dims, capacity, m_all,
                          c3)
     cid = (c3[:, 0] * dims[1] + c3[:, 1]) * dims[2] + c3[:, 2]
     cid = torch.where(valid_row, cid, torch.full_like(cid, ncells))
-    cid_sorted, order = torch.sort(cid, stable=True)
+    if sub > 1:
+        s3 = torch.clamp(torch.floor((u - c3) * sub).to(torch.int64), 0,
+                         sub - 1)
+        nsub = sub ** 3
+        key_sorted, order = torch.sort(cid * nsub + _morton(s3, sub),
+                                       stable=True)
+        cid_sorted = key_sorted // nsub
+    else:
+        cid_sorted, order = torch.sort(cid, stable=True)
     starts = torch.searchsorted(cid_sorted,
                                 torch.arange(ncells + 1, device=dev))
     slot = torch.arange(m_all, device=dev) - starts[cid_sorted]
@@ -517,11 +544,12 @@ def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
             s_vec = 1.0 / (np.array(plan.cell_dims, np.float64) - 2.0)
             dense_c, _, occc, ovc = _bin_dense(
                 f_all, valid_row, as_t(-s_vec), as_t(s_vec),
-                plan.cell_dims, C, m_all, interior_first=n)
+                plan.cell_dims, C, m_all, interior_first=n,
+                sub=LJ_CELL_SUB)
         else:
             dense_c, _, occc, ovc = _bin_dense(
                 x_all, valid_row, as_t(plan.cell_mn) + lo_off,
-                plan.cell_size, plan.cell_dims, C, m_all)
+                plan.cell_size, plan.cell_dims, C, m_all, sub=LJ_CELL_SUB)
         flags["cell_overflow"] = ovc
         flags["count:cell"] = occc
         offs14 = np.array(

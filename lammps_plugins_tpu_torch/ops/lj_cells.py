@@ -2,10 +2,15 @@
 
 Counterpart of lammps_plugins_tpu/ops/lj_cells_pallas.py::lj_cell_forces.
 Input: packed cell planes P [Dx, Dy, Dz, 8, C] (rows x, y, z, element
-code, owned flag; pad slots parked at 1e7; one empty halo ring).  Output:
-[Ax, Ay, Az, 8, C] over the a_range cells: rows 0-2 the force on each A
-slot from all 27 neighbour cells, row 3 0.5 * owned * sum_b V when
+code 0 or 1, owned flag; pad slots parked at 1e7; one empty halo ring).
+Output: [Ax, Ay, Az, 8, C] over the a_range cells: rows 0-2 the force on
+each A slot from all 27 neighbour cells, row 3 0.5 * owned * sum_b V when
 with_energy, other rows 0.
+
+The kernel (csrc/lj_cells.cu) gives each warp a 32-slot A tile and skips
+every 16-slot group of B slots that no slot of the tile can reach
+(group_boxes, near_groups: its rule, for counting on the host); the
+forces do not depend on the slot order within a cell.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import itertools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import build
 
@@ -23,6 +29,10 @@ launches = 0
 LJ_NAMES = ("lj1", "lj2", "lj3", "lj4", "ljminsq", "ljmaxsq", "s95sq",
             "ljmin", "k2", "k3", "c2", "c3")
 _MAX_C = 1024
+TILE = 32              # slots per tile: one warp's lanes
+GROUP = 16             # slots per culling box
+PAD = 1e7              # where the planes park pad slots
+PAD_MIN = 1e6          # x at or past it marks a pad slot (csrc/lj_common.cuh)
 
 
 def derive_lj_constants(tables) -> dict:
@@ -121,6 +131,84 @@ def lj_cell_forces_ref(P, consts, a_range, with_energy=False):
     return torch.stack(f + [erow, zero, zero, zero, zero], dim=-2)
 
 
+def tile_planes(P):
+    """Rows x, y, z, element of P padded to whole tiles: [..., 4, T * 32],
+    slots past C parked at PAD as the kernels' packing pass does."""
+    C = P.shape[-1]
+    Q = F.pad(P[..., 0:4, :], (0, -(-C // TILE) * TILE - C))
+    Q[..., 0:3, C:] = PAD
+    return Q
+
+
+def group_boxes(P):
+    """(lo, hi) [Dx, Dy, Dz, G, 4]: per 16-slot group the minima and maxima
+    of x, y, z and the element over its live (non-pad) slots, as the
+    kernels' packing pass computes them (+-max float and elements 0 in a
+    group without live slots)."""
+    q = tile_planes(P)
+    q = q.reshape(*q.shape[:-1], -1, GROUP)             # [..., 4, G, 16]
+    live = q[..., 0:1, :, :] < PAD_MIN
+    big = torch.finfo(P.dtype).max
+    lo = torch.where(live, q, big).amin(-1)
+    hi = torch.where(live, q, -big).amax(-1)
+    empty = ~live.any(-1)
+    lo[..., 3:4, :] = torch.where(empty, 0.0, lo[..., 3:4, :])
+    hi[..., 3:4, :] = torch.where(empty, 0.0, hi[..., 3:4, :])
+    return lo.transpose(-1, -2), hi.transpose(-1, -2)
+
+
+def near_groups(QA, blo, bhi, consts):
+    """The kernels' culling rule: [..., TA, GB] bool, True where some slot
+    of A tile a lies within its largest LJ cutoff over B group g's element
+    range (raised by 1e-5) of g's box.  QA [..., 4, TA * 32] (tile_planes), blo
+    and bhi [..., GB, 4] (group_boxes)."""
+    q = QA[..., 0:3, :, None]                           # [..., 3, S, 1]
+    lo = blo[..., 0:3].transpose(-1, -2)[..., :, None, :]
+    hi = bhi[..., 0:3].transpose(-1, -2)[..., :, None, :]
+    g = torch.clamp(torch.maximum(lo - q, q - hi), min=0.0)
+    gap2 = (g * g).sum(dim=-3)                          # [..., S, GB]
+    a0, a1, b0, b1 = consts["ljmaxsq"]
+    ea = QA[..., 3, :, None]
+    cut = [(a0 + ea * a1) + (b0 + ea * b1) * e[..., None, :, 3]
+           for e in (blo, bhi)]
+    near = gap2 <= torch.maximum(*cut) * (1.0 + 1e-5)
+    return near.reshape(*near.shape[:-2], -1, TILE,
+                        near.shape[-1]).any(dim=-2)
+
+
+def live_tiles(QA):
+    """[..., TA] bool: the tiles of QA (tile_planes) that hold a live slot,
+    the ones the kernels give work."""
+    return (QA[..., 0, :] < PAD_MIN).reshape(*QA.shape[:-2], -1,
+                                             TILE).any(-1)
+
+
+def candidate_pairs(P, consts, a_range):
+    """What the kernel tests, by its own rule: (tested, live) pairs of
+    (A tile, B group) over the 27 offsets, `live` those whose tile and
+    group both hold a live slot; the window test runs on the 32 x 16 slot
+    pairs of each tested one."""
+    (x0, x1), (y0, y1), (z0, z1) = a_range
+    lo, hi = group_boxes(P)
+    has = lo[..., 0] <= hi[..., 0]                      # [Dx, Dy, Dz, G]
+    QA = tile_planes(P[x0:x1, y0:y1, z0:z1])
+    tile_has = live_tiles(QA)
+    tested = live = 0
+    for ox, oy, oz in itertools.product((-1, 0, 1), repeat=3):
+        sl = (slice(x0 + ox, x1 + ox), slice(y0 + oy, y1 + oy),
+              slice(z0 + oz, z1 + oz))
+        tested += int(near_groups(QA, lo[sl], hi[sl], consts).sum())
+        live += int((tile_has[..., :, None] & has[sl][..., None, :]).sum())
+    return tested, live
+
+
+def scratch_floats(shape) -> int:
+    """Floats of the kernels' packing scratch for planes of `shape`: a
+    float4 per slot of whole tiles and two float4 per group (its box)."""
+    Dx, Dy, Dz, _, C = shape
+    return Dx * Dy * Dz * -(-C // TILE) * (TILE + 2 * TILE // GROUP) * 4
+
+
 def lj_cell_forces(P, consts, a_range, with_energy=False):
     """[Ax, Ay, Az, 8, C] forces (and energy row) from the cell planes.
     CPU tensors take the twin; CUDA float32 tensors the kernel."""
@@ -142,9 +230,11 @@ def lj_cell_forces(P, consts, a_range, with_energy=False):
         tuple(v for n in LJ_NAMES for v in consts[n]), dev)
     Ax, Ay, Az = x1 - x0, y1 - y0, z1 - z0
     out = torch.empty((Ax, Ay, Az, 8, C), dtype=f32, device=dev)
+    scratch = torch.empty(scratch_floats(P.shape), dtype=f32, device=dev)
     status = build.lib().lpt_lj_cell_forces(
         p_ptr, cvec.data_ptr(), out.data_ptr(), Dy, Dz, C, x0, y0, z0,
-        Ax, Ay, Az, int(with_energy), build.stream(dev))
+        Ax, Ay, Az, int(with_energy), build.stream(dev),
+        scratch.data_ptr(), Dx)
     build.raise_on_error(status, "lj_cell_forces")
     launches += 1
     return out

@@ -8,17 +8,21 @@ neighbouring cells is evaluated once, over the self cell and the 13
 lexicographically positive offsets (HALF_OFFSETS), and its pair terms are
 added to the A slot and subtracted from the B slot.  Returns the per-slot
 forces [Ax, Ay, Az, C, 3] over the a_range cells, as the JAX function does,
-ready for the same `aslot` remap.  No energy row.
+ready for the same `aslot` remap.  No energy row.  The kernel
+(csrc/lj_half.cu) culls 16-slot groups of B slots by the rule of
+ops/lj_cells.py (candidate_pairs_half counts what it tests).
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 
 import torch
 
 from . import build
-from .lj_cells import LJ_NAMES, pair_terms
+from .lj_cells import (LJ_NAMES, group_boxes, live_tiles, near_groups,
+                       pair_terms, scratch_floats, tile_planes)
 
 #: kernel launches (one per call that reached the CUDA kernel)
 launches = 0
@@ -27,7 +31,7 @@ launches = 0
 #: these cover the 27 neighbour cells once (the order of csrc/lj_half.cu)
 HALF_OFFSETS = ((0, 0, 0),) + tuple(
     o for o in itertools.product((-1, 0, 1), repeat=3) if o > (0, 0, 0))
-_MAX_C = 640
+_MAX_C = 1024
 
 
 def lj_cell_forces_half_ref(P, consts, a_range):
@@ -59,6 +63,47 @@ def lj_cell_forces_half_ref(P, consts, a_range):
     return out
 
 
+def _half_blocks(a_range, o, device):
+    """The A cells of offset o (a_range extended by one cell opposite to
+    o) as slices of the grid, and the bool grid over them of the blocks
+    that run: A cell in a_range (A-side sums) or, o not the self cell, B
+    cell in a_range (B-side sums)."""
+    lo = [r[0] - max(oi, 0) for r, oi in zip(a_range, o)]
+    hi = [r[1] - min(oi, 0) for r, oi in zip(a_range, o)]
+    g = torch.meshgrid(*[torch.arange(l, h, device=device)
+                         for l, h in zip(lo, hi)], indexing="ij")
+
+    def inside(d):
+        return functools.reduce(torch.logical_and, [
+            (g[k] + d[k] >= a_range[k][0]) & (g[k] + d[k] < a_range[k][1])
+            for k in range(3)])
+
+    run = inside((0, 0, 0))
+    if o != (0, 0, 0):
+        run = run | inside(o)
+    return tuple(slice(l, h) for l, h in zip(lo, hi)), run
+
+
+def candidate_pairs_half(P, consts, a_range):
+    """What the kernel tests, by its own rule: (tested, live, blocks) —
+    pairs of (A tile, B group) tested over the 14 offsets' blocks that
+    run, those whose tile and group both hold a live slot, and the number
+    of such blocks (the first design tested C x C slot pairs in each)."""
+    lo_b, hi_b = group_boxes(P)
+    has = lo_b[..., 0] <= hi_b[..., 0]
+    tested = live = blocks = 0
+    for o in HALF_OFFSETS:
+        A, run = _half_blocks(a_range, o, P.device)
+        B = tuple(slice(s.start + d, s.stop + d) for s, d in zip(A, o))
+        QA = tile_planes(P[A])
+        near = near_groups(QA, lo_b[B], hi_b[B], consts)
+        tested += int(near.sum((-2, -1))[run].sum())
+        live += int((live_tiles(QA)[..., :, None] & has[B][..., None, :])
+                    .sum((-2, -1))[run].sum())
+        blocks += int(run.sum())
+    return tested, live, blocks
+
+
 def lj_cell_forces_half(P, consts, a_range):
     """[Ax, Ay, Az, C, 3] per-slot forces from the cell planes.
     CPU tensors take the twin; CUDA float32 tensors the kernel."""
@@ -82,9 +127,10 @@ def lj_cell_forces_half(P, consts, a_range):
     part = torch.empty((2 * len(HALF_OFFSETS) - 1, Ax * Ay * Az, 3, C),
                        dtype=f32, device=dev)
     out = torch.empty((Ax, Ay, Az, C, 3), dtype=f32, device=dev)
+    scratch = torch.empty(scratch_floats(P.shape), dtype=f32, device=dev)
     status = build.lib().lpt_lj_cell_forces_half(
         p_ptr, cvec.data_ptr(), part.data_ptr(), out.data_ptr(), Dy, Dz, C,
-        x0, y0, z0, Ax, Ay, Az, build.stream(dev))
+        x0, y0, z0, Ax, Ay, Az, build.stream(dev), scratch.data_ptr(), Dx)
     build.raise_on_error(status, "lj_cell_forces_half")
     launches += 1
     return out

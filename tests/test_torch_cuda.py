@@ -20,10 +20,15 @@ planes at K = 8, 16, 20, 36 and 64 that hold atoms with no live edge,
 masked-in slots past rcmax and (K > 32) atoms with more than 32 live
 edges: dead slots exactly 0, reruns bit-identical.  The pin copy is exact
 on odd element counts and on views that start off a 16-byte boundary.
-An Engine on the card, built with default arguments, launches the main
-path's four kernels and refuses the host build and the autograd force
-fallback; one per force configuration launches that configuration's
-kernels.
+The LJ sweeps (full and Newton-half) are also held against their twins
+on synthetic cell planes: C = 8, 33, 104 and 200 slots a cell (ragged
+tiles, cells of up to seven warps' tiles), slots permuted at random
+within each cell (culling needs no order), cells so large that whole
+tiles and groups are culled, and cells that hold only pads; every case
+reruns bit-identically.  An Engine on the card, built with default
+arguments, launches the main path's four kernels and refuses the host
+build and the autograd force fallback; one per force configuration
+launches that configuration's kernels.
 """
 
 import numpy as np
@@ -40,7 +45,8 @@ from lammps_plugins_tpu_torch.ops import (lj_cells, lj_half, mirror,
                                           select_k)
 from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
 from lammps_plugins_tpu_torch.run.simulation import Engine
-from torch_parity import (SYNTH_REBO, cuda, sextic_tables,  # noqa: F401
+from torch_parity import (SYNTH_REBO, cuda, permute_cell_slots,  # noqa: F401
+                          sextic_tables, synthetic_lj_planes,
                           synthetic_rebo_planes)
 
 pytestmark = pytest.mark.cuda
@@ -199,6 +205,84 @@ def test_lj_kernel_matches_twin(cuda, small):
         <= 2e-4 * scale
     ek, et = (float(o[..., 3, :].double().sum()) for o in (ok, ot))
     assert abs(ek - et) <= 2e-5 * abs(et)
+
+
+def _lj_sweeps_match_twins(P, consts, a_range):
+    """C (with its energy row) and E on the card against their twins and
+    each other; reruns bit-identical.  Returns (C out, E out)."""
+    before = (lj_cells.launches, lj_half.launches)
+    ok = lj_cells.lj_cell_forces(P, consts, a_range, with_energy=True)
+    hk = lj_half.lj_cell_forces_half(P, consts, a_range)
+    torch.cuda.synchronize()
+    assert (lj_cells.launches, lj_half.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    ot = lj_cells.lj_cell_forces_ref(P, consts, a_range, with_energy=True)
+    scale = float(ot[..., :3, :].abs().max())
+    assert scale > 1e-4
+    assert float((ok[..., :3, :] - ot[..., :3, :]).abs().max()) \
+        <= 2e-4 * scale
+    assert not ok[..., 4:, :].any()
+    ek, et = (float(o[..., 3, :].double().sum()) for o in (ok, ot))
+    assert abs(ek - et) <= 2e-5 * abs(et)
+    fk = lj_cells.lj_cell_forces(P, consts, a_range)
+    assert float((fk[..., :3, :] - ot[..., :3, :]).abs().max()) \
+        <= 2e-4 * scale
+    assert not fk[..., 3:, :].any()
+    ht = lj_half.lj_cell_forces_half_ref(P, consts, a_range)
+    assert float((hk - ht).abs().max()) <= 2e-4 * scale
+    assert float((hk - ok[..., 0:3, :].permute(0, 1, 2, 4, 3)).abs().max()) \
+        <= 3e-4 * scale
+    assert torch.equal(ok, lj_cells.lj_cell_forces(P, consts, a_range,
+                                                   with_energy=True))
+    assert torch.equal(fk, lj_cells.lj_cell_forces(P, consts, a_range))
+    assert torch.equal(hk, lj_half.lj_cell_forces_half(P, consts, a_range))
+    return ok, hk
+
+
+@pytest.mark.parametrize("C", [8, 33, 104, 200])
+def test_lj_sweeps_on_ragged_tiles(cuda, C):
+    P, consts, ar = synthetic_lj_planes(C=C, seed=C)
+    _lj_sweeps_match_twins(P.to(cuda), consts, ar)
+
+
+def test_lj_sweeps_on_permuted_slots(cuda):
+    """Atoms and pads interleaved at random within every cell: the same
+    forces, slot for slot, as the sorted cells."""
+    P, consts, ar = synthetic_lj_planes(C=104, occ=90, seed=5)
+    Pp, perm = permute_cell_slots(P, seed=5)
+    ok, hk = _lj_sweeps_match_twins(P.to(cuda), consts, ar)
+    okp, hkp = _lj_sweeps_match_twins(Pp.to(cuda), consts, ar)
+    (x0, x1), (y0, y1), (z0, z1) = ar
+    pa = perm[x0:x1, y0:y1, z0:z1].to(cuda)
+    scale = float(ok[..., :3, :].abs().max())
+    back = torch.gather(ok, -1, pa[..., None, :].expand(ok.shape))
+    assert float((okp[..., :3, :] - back[..., :3, :]).abs().max()) \
+        <= 2e-4 * scale
+    back = torch.gather(hk, -2, pa[..., None].expand(hk.shape))
+    assert float((hkp - back).abs().max()) <= 3e-4 * scale
+
+
+def test_lj_sweeps_with_culled_tiles(cuda):
+    """Cells of 24 A, over twice the largest LJ cutoff: most (A tile,
+    B group) pairs are culled, and the forces still match."""
+    P, consts, ar = synthetic_lj_planes(C=104, occ=104, cell=24.0, seed=7)
+    tested, live = lj_cells.candidate_pairs(P, consts, ar)
+    assert tested < 0.5 * live
+    tested_h, live_h, _ = lj_half.candidate_pairs_half(P, consts, ar)
+    assert tested_h < 0.5 * live_h
+    _lj_sweeps_match_twins(P.to(cuda), consts, ar)
+
+
+def test_lj_sweeps_on_pad_only_cells(cuda):
+    """Cells with no atom, inside the A range and in the halo ring: their
+    slots get exactly zero, and their neighbours match the twins."""
+    empty = [(2, 2, 2), (1, 3, 2), (3, 1, 1), (0, 2, 2), (4, 4, 4),
+             (2, 0, 3)]
+    P, consts, ar = synthetic_lj_planes(C=104, occ=80, empty=empty, seed=9)
+    ok, hk = _lj_sweeps_match_twins(P.to(cuda), consts, ar)
+    for c in [(2, 2, 2), (1, 3, 2), (3, 1, 1)]:
+        a = tuple(i - 1 for i in c)
+        assert not ok[a].any() and not hk[a].any()
 
 
 def _keys(dev, N=1000, W=768, seed=3):

@@ -15,7 +15,8 @@ import torch
 
 from lammps_plugins_tpu_torch.ops import lj_cells, lj_half
 from torch_parity import (assert_same_trajectory, config_forces_rel_err,
-                          jax_engine, port_of, rel_err, run_20_steps)
+                          jax_engine, permute_cell_slots, port_of, rel_err,
+                          run_20_steps)
 
 
 def _full_slots(P, pair, a_range):
@@ -64,6 +65,21 @@ def test_twin_matches_full_twin_f64(scene):
     assert np.abs(full).max() > 1e-4
     half = lj_half.lj_cell_forces_half(P, pair._lj_consts, a_range).numpy()
     assert rel_err(half, full) <= 1e-10
+
+
+def test_twin_forces_do_not_depend_on_slot_order_f64():
+    jeng = jax_engine("bulk", "f64", jiggle=0.05)
+    pair, st, nbr = port_of(jeng)
+    P = pair._cell_planes(st.x, nbr.ghosts, nbr.cells, st.box.h)
+    ar = nbr.cells.a_range
+    Pp, perm = permute_cell_slots(P, seed=4)
+    out = lj_half.lj_cell_forces_half(P, pair._lj_consts, ar)
+    outp = lj_half.lj_cell_forces_half(Pp, pair._lj_consts, ar)
+    (x0, x1), (y0, y1), (z0, z1) = ar
+    pa = perm[x0:x1, y0:y1, z0:z1]
+    back = torch.gather(out, -2, pa[..., None].expand(out.shape))
+    assert float(out.abs().max()) > 1e-4
+    assert rel_err(outp.numpy(), back.numpy()) <= 1e-12
 
 
 def test_half_offsets_cover_the_neighbourhood_once():

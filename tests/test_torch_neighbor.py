@@ -5,7 +5,9 @@ packages (float64, CPU: the port's select-k twin, JAX's top_k): wrapped
 positions agree to rounding, image counters and ghost tables exactly,
 every row has the same neighbor set, the mirror tables pair the same
 edges (and mirror(mirror(e)) = e), and every coarse cell holds the same
-atoms.  Plans and the host build agree too.
+atoms (the port orders each LJ cell's slots by sub-cell, so rows are
+compared as sets; _bin_dense's order is checked on its own).  Plans and
+the host build agree too.
 """
 
 import dataclasses
@@ -233,3 +235,72 @@ def test_overflow_recovery_resizes():
     for name, k in eng._plan.k_caps:
         assert k == _quantize_k(eng._k_hwm[name] + 2) == \
             dict(ref._plan.k_caps)[name]
+
+
+@pytest.mark.parametrize("sub,interior", [(2, 0), (4, 0), (4, 40)])
+def test_bin_dense_orders_slots_by_subcell(sub, interior):
+    """Each cell's slots in Morton order of the sub x sub x sub sub-cell
+    (stable within one), the same atoms per cell as the plain order."""
+    rng = np.random.default_rng(sub + interior)
+    dims, size, m = (4, 3, 5), 2.0, 300
+    x = torch.as_tensor(rng.uniform(-0.5, 10.5, (m, 3)))
+    valid = torch.as_tensor(rng.uniform(size=m) < 0.9)
+    mn = torch.zeros(3, dtype=torch.float64)
+    args = (x, valid, mn, size, dims, 64, m)
+    plain, c3, occ, ovf = pdb._bin_dense(*args, interior_first=interior)
+    table, c3s, occs, ovfs = pdb._bin_dense(*args, interior_first=interior,
+                                            sub=sub)
+    assert not bool(ovf) and int(occ) == int(occs) and not bool(ovfs)
+    assert torch.equal(c3, c3s)
+    u = x.numpy() / size - c3.numpy()
+    s3 = np.clip(np.floor(u * sub).astype(np.int64), 0, sub - 1)
+    key = np.zeros(m, np.int64)
+    for k in range(sub.bit_length() - 1):
+        for d in range(3):
+            key |= ((s3[:, d] >> k) & 1) << (3 * k + 2 - d)
+    for row_p, row_s in zip(plain.numpy(), table.numpy()):
+        assert sorted(row_p) == sorted(row_s)
+        ids = row_s[row_s < m]
+        assert (np.diff(key[ids]) >= 0).all()
+        # stable: input order within one sub-cell
+        for kk in np.unique(key[ids]):
+            run = ids[key[ids] == kk]
+            assert (np.diff(run) > 0).all()
+
+
+def test_rebuild_orders_lj_cells_by_subcell(monkeypatch):
+    """The device rebuild bins the LJ cells with sub = LJ_CELL_SUB: every
+    cell of the table it returns lists its atoms in sub-cell Morton order
+    of the coordinates it binned, and aslot still inverts the table (the
+    rows stay set-equal to the JAX rebuild's: test_same_cell_occupancy)."""
+    from torch_parity import port_engine
+    calls = []
+    real = pdb._bin_dense
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        if kw.get("sub", 1) > 1:
+            calls.append((args, kw, out))
+        return out
+
+    monkeypatch.setattr(pdb, "_bin_dense", spy)
+    eng = port_engine("bulk", jiggle=0.05)
+    eng.rebuild_neighbors()
+    assert calls                      # the last one made eng.nbr
+    (x_all, valid, mn, size, dims, cap, m_all), kw, (table, c3, _, _) = \
+        calls[-1]
+    sub = kw["sub"]
+    assert sub == pdb.LJ_CELL_SUB > 1
+    cells = eng.nbr.cells
+    assert torch.equal(cells.table, table)
+    u = ((x_all - mn) / size).numpy() - c3.numpy()
+    s3 = np.clip(np.floor(u * sub).astype(np.int64), 0, sub - 1)
+    key = pdb._morton(torch.as_tensor(s3), sub).numpy()
+    for row in table.numpy():
+        ids = row[row < m_all]
+        assert (np.diff(key[ids]) >= 0).all()
+    Dx, Dy, Dz = cells.dims
+    (x0, x1), (y0, y1), (z0, z1) = cells.a_range
+    grid = table[:Dx * Dy * Dz].reshape(Dx, Dy, Dz, -1)[x0:x1, y0:y1, z0:z1]
+    np.testing.assert_array_equal(grid.reshape(-1)[cells.aslot].numpy(),
+                                  np.arange(cells.n_owned))

@@ -183,3 +183,55 @@ def synthetic_rebo_planes(K, Np, seed=0, dense=8):
     planes = [as32(d[0]), as32(d[1]), as32(d[2]), as32(ej), as32(msk),
               as32(ei)]
     return planes, torch.as_tensor(dead)
+
+
+def synthetic_lj_planes(dims=(5, 5, 5), C=104, occ=None, cell=11.0,
+                        order="sorted", empty=(), seed=0,
+                        dtype=torch.float32):
+    """LJ cell planes [Dx, Dy, Dz, 8, C] (rows x, y, z, element, owned)
+    of random atoms, the LJ constants of the synthetic parameters, and
+    a_range (every cell but the halo ring).
+
+    Cell (i, j, k) spans [i, i + 1) x ... in units of `cell` Angstrom and
+    holds occ[i, j, k] atoms (default: uniform in [0, C]) at uniform
+    random positions, elements 0/1 at random; cells listed in `empty`
+    hold none.  Atoms of a_range cells are owned.  Slot order within a
+    cell: "sorted" by sub-cell on a 4 x 4 x 4 grid (compact runs of
+    slots, as the device rebuild orders them), "random" (atoms and pads
+    interleaved at random), or "index" (atoms first, in creation order);
+    unused slots are pads parked at 1e7."""
+    from lammps_plugins_tpu_torch.ops.lj_cells import derive_lj_constants
+    from lammps_plugins_tpu_torch.potentials.tables import read_rebomos
+    rng = np.random.default_rng(seed)
+    Dx, Dy, Dz = dims
+    if occ is None:
+        occ = rng.integers(0, C + 1, dims)
+    occ = np.minimum(np.broadcast_to(occ, dims), C).copy()
+    for c in empty:
+        occ[c] = 0
+    P = np.zeros((Dx, Dy, Dz, 8, C))
+    P[..., 0:3, :] = 1e7
+    for i, j, k in np.ndindex(*dims):
+        n = int(occ[i, j, k])
+        u = rng.uniform(0.0, 1.0, (n, 3))
+        if order == "sorted":
+            s = np.floor(u * 4).astype(int)
+            u = u[np.lexsort((s[:, 2], s[:, 1], s[:, 0]))]
+        slots = (rng.permutation(C)[:n] if order == "random"
+                 else np.arange(n))
+        P[i, j, k, 0:3, slots] = (u + [i, j, k]) * cell
+        P[i, j, k, 3, slots] = rng.integers(0, 2, n)
+        inner = (0 < i < Dx - 1) and (0 < j < Dy - 1) and (0 < k < Dz - 1)
+        P[i, j, k, 4, slots] = float(inner)
+    consts = derive_lj_constants(read_rebomos(SYNTH_REBO))
+    a_range = ((1, Dx - 1), (1, Dy - 1), (1, Dz - 1))
+    return torch.as_tensor(P, dtype=dtype), consts, a_range
+
+
+def permute_cell_slots(P, seed=0):
+    """P with the slots of every cell permuted at random, and the
+    [Dx, Dy, Dz, C] permutation: out[..., s] = P[..., perm[..., s]]."""
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.argsort(torch.rand(P.shape[:3] + P.shape[-1:], generator=g),
+                         dim=-1)
+    return torch.gather(P, -1, perm[..., None, :].expand(P.shape)), perm

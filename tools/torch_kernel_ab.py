@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Two or more builds of the REBO cotangent kernel (A) and the pin copy (H)
-on one card, on the same inputs, timed in turns.
+"""Two or more builds of the REBO cotangent kernel (A), the pin copy (H)
+and the LJ cell sweeps (C, E) on one card, on the same inputs, timed in
+turns.
 
     python3 tools/torch_kernel_ab.py --tree LABEL=PATH [--tree ...]
         [--reps 60] [--k 16,20]
@@ -11,40 +12,33 @@ commit, or a scratch copy with another design of a kernel).  Each tree's
 own ops/build.py builds its csrc/*.cu into PATH/build/torch_kernels/, and
 each library's lpt_rebo_cotangents and lpt_pin_copy are called through
 ctypes with the same arguments (their C signatures are unchanged since
-the first port).
+the first port), and lpt_lj_cell_forces / lpt_lj_cell_forces_half with
+the arguments of the tree's own signature (the tile-culling designs
+take a packing scratch and Dx as two trailing arguments, the first
+designs do not; read from the tree's ops/build.py).
 
 Inputs come from this tree: the 97,920-atom bench scene
 (chip_smoke.bench_engine) after one rebuild.  A runs on the rebuild's
 [K, Np] planes and on the same planes padded with empty slots to each
 larger K of --k (what the Engine's K re-size gives); H on chip_smoke's
-three phase-1 shapes.  Every launch of every build is timed with CUDA
+three phase-1 shapes; C (with and without the energy row) and E on the
+scene's packed cell planes.  Every launch of every build is timed with CUDA
 events, one launch each per turn, the order reversed every other turn,
 and clone() takes its turn beside the pin copies; the medians of --reps
 turns are printed with each build's max error against this tree's twin
-(A) or exactness (H), and one line `RESULT {json}` with the card's name
-and power limit.
+(A, C, E) or exactness (H), and one line `RESULT {json}` with the card's
+name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def load_build(label, tree):
-    """The tree's ops/build.py as a module of its own (it builds into the
-    tree's build/ directory)."""
-    path = os.path.join(tree, "lammps_plugins_tpu_torch", "ops", "build.py")
-    spec = importlib.util.spec_from_file_location(f"_ab_build_{label}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def main():
@@ -66,10 +60,10 @@ def main():
     for spec in args.tree:
         label, path = spec.split("=", 1)
         trees[label] = os.path.abspath(path)
-    libs = {}
+    libs, builds = {}, {}
     for label, tree in trees.items():
-        b = build if label == "this" else load_build(label, tree)
-        libs[label] = b.lib()
+        b = build if label == "this" else cs.load_build(label, tree)
+        libs[label], builds[label] = b.lib(), b
         print(f"built {label} from {tree}")
         if b.build_log:
             print(b.build_log, file=sys.stderr)
@@ -83,7 +77,7 @@ def main():
     cvec = build.device_constants(tuple(rebo.rebo_constant_vector(cst)), dev)
     stream = build.stream(dev)
     K0, Np = planes0[0].shape
-    out = {"rebo": {}, "pin": {}}
+    out = {"rebo": {}, "pin": {}, "lj": {}}
     for K in sorted({K0, *(int(k) for k in args.k.split(",") if k)}):
         if K < K0:
             continue
@@ -155,11 +149,50 @@ def main():
         print(f"pin {shape}: " + ", ".join(
             f"{lab} {t:.4f} ms" for lab, t in ms.items())
             + f"; exact {exact}; bound {b_ms:.4f} ms")
+    out["lj"] = time_lj(builds, eng, args.reps, cs)
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print("RESULT " + json.dumps(dict(trees=trees, reps=args.reps, gpu=gpu,
                                       **out)))
+
+
+def time_lj(builds, eng, reps, cs):
+    """C with and without the energy row, and E, from every build on the
+    scene's packed cell planes; errors against this tree's twins."""
+    import torch
+    from lammps_plugins_tpu_torch.ops import lj_cells, lj_half
+    pair, st, nbr = eng.pair, eng.state, eng.nbr
+    P = pair._cell_planes(st.x, nbr.ghosts, nbr.cells, st.box.h)
+    ar, lc = nbr.cells.a_range, pair._lj_consts
+    ref_c = lj_cells.lj_cell_forces_ref(P, lc, ar, with_energy=True)
+    ref = {"lj_cell_forces": ref_c, "lj_cell_forces+energy": ref_c,
+           "lj_cell_forces_half": lj_half.lj_cell_forces_half_ref(P, lc, ar)}
+    launchers = {lab: cs.lj_launchers(b, P, lc, ar)
+                 for lab, b in builds.items()}
+    res = {}
+    for name, r in ref.items():
+        fns = {lab: fn[name] for lab, fn in launchers.items()}
+        outs = {lab: fn() for lab, fn in fns.items()}
+        torch.cuda.synchronize()
+        rows = ((...,) if name == "lj_cell_forces_half"
+                else (..., slice(0, 3), slice(None)))
+        errs = {lab: float((o[rows] - r[rows]).abs().max())
+                for lab, o in outs.items()}
+        e_rel = {}
+        if name == "lj_cell_forces+energy":
+            e_ref = float(r[..., 3, :].double().sum())
+            e_rel = {lab: abs(float(o[..., 3, :].double().sum()) - e_ref)
+                     / abs(e_ref) for lab, o in outs.items()}
+        ms = cs.interleaved_ms(fns, reps)
+        bar = 2e-4 * float(r[rows].abs().max())
+        res[name] = dict(ms=ms, max_abs_err=errs, bar=bar,
+                         energy_rel_err=e_rel)
+        print(f"{name}: " + ", ".join(
+            f"{lab} {ms[lab]:.4f} ms (err {errs[lab]:.3e}"
+            + (f", energy rel {e_rel[lab]:.2e}" if e_rel else "") + ")"
+            for lab in fns) + f"; bar {bar:.3e}")
+    return res
 
 
 if __name__ == "__main__":
