@@ -18,10 +18,15 @@ Phases (any failure raises, so the script exits non-zero):
      histogram of live REBO edges per atom (n, the slots the REBO kernel
      works on); for the LJ sweeps the slot pairs they test after culling,
      reckoned with their own rule, beside the pairs inside the LJ window
-     and the first design's count; with --prev-tree (a tree holding an
-     earlier lammps_plugins_tpu_torch/, e.g. a `git archive` of the parent
-     commit) the LJ sweeps of that tree's build are timed in turns with
-     this one's (prev_design_ms)
+     and the first design's count; the rebuild's fused candidate selection
+     (D') on the arguments of the bench rebuild, exact against its twin and
+     against the unfused path (torch-built keys, then kernel D), whose time
+     in turns is D''s prev_design_ms; the reaction combine also against
+     the route tables' twin; with --prev-tree (a tree holding an earlier
+     lammps_plugins_tpu_torch/, e.g. a `git archive` of the parent commit)
+     the LJ sweeps, select-k and the reaction combine of that tree's build
+     are timed in turns with this one's (prev_design_ms), and the reaction
+     combine's forces must equal that build's bit for bit
   2. f32 forces of the 288-atom scene on the card (device rebuild +
      kernels) against the float64 CPU twin forces: max|dF| < 1e-2 RMS(F)
   3. the main path: Engine.run on the 97,920-atom scene (f32, skin 0.8,
@@ -216,18 +221,21 @@ def phase0_environment():
 #: refuse the configuration.
 CONFIGS = (
     ("half_rows", dict(lj="half", combine="rows"), False,
-     ("rebo", "mirror_rows", "lj_half", "select_k")),
+     ("rebo", "mirror_rows", "lj_half", "select_candidates")),
     ("react", dict(combine="react", react_gate=False), True,
-     ("rebo", "react", "lj_cells", "select_k")),
+     ("rebo", "react", "lj_cells", "select_candidates")),
     ("pin", dict(combine="pin"), False, ("rebo", "pin", "lj_cells",
-                                         "select_k")),
+                                         "select_candidates")),
     ("pin2", dict(combine="pin2"), False, ("rebo", "pin", "lj_cells",
-                                           "select_k")),
+                                           "select_candidates")),
 )
-MAIN_PATH = ("rebo", "mirror", "lj_cells", "select_k")
-#: launch-counter module of ops/ -> kernel name in the JSON line
+MAIN_PATH = ("rebo", "mirror", "lj_cells", "select_candidates")
+#: launch-counter module of ops/ -> kernel name in the JSON line.  The
+#: standalone select_k (D) runs on no path since the rebuild fused it with
+#: its keys (select_candidates, D'); phase 1 still holds it to its twin.
 KERNEL_NAMES = {"rebo": "rebo_cotangents", "mirror": "mirror_combine",
                 "lj_cells": "lj_cell_forces", "select_k": "select_k",
+                "select_candidates": "select_candidates",
                 "lj_half": "lj_cell_forces_half",
                 "mirror_rows": "mirror_combine_rows",
                 "react": "react_combine", "pin": "pin_copy"}
@@ -290,6 +298,137 @@ def lj_launchers(b, P, consts, a_range):
             "lj_cell_forces_half": e}
 
 
+def select_k_launcher(b, keys, K, payloads):
+    """fn() launching select_k (D) of the build `b` on keys [N, W] with two
+    float32 payloads, returning (pos, *payloads at pos); the C signature
+    is the same in every design."""
+    lib = b.lib()
+    N, W = keys.shape
+    dev = keys.device
+    pos = torch.empty((N, K), dtype=torch.int32, device=dev)
+    outs = [torch.empty((N, K), device=dev) for _ in range(2)]
+    stream = b.stream(dev)
+
+    def fn():
+        b.raise_on_error(lib.lpt_select_k(
+            keys.data_ptr(), payloads[0].data_ptr(), payloads[1].data_ptr(),
+            2, pos.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(), N, W,
+            K, stream), "select_k")
+        return (pos, *outs)
+    return fn
+
+
+def react_launcher(b, g3, rl):
+    """fn() launching the reaction combine (G) of the build `b` on the
+    cotangent planes g3 with the list rl's tables, returning its [Np, 3]
+    forces: the route-scan design (11 arguments) reads the route tables,
+    the target-table design the target-major table rtgt."""
+    lib = b.lib()
+    K, Np = g3[0].shape
+    dev = g3[0].device
+    out = torch.empty((Np, 3), device=dev)
+    stream = b.stream(dev)
+    if len(b._SIGNATURES["lpt_react_combine"]) == 11:
+        _, NW, KC, _ = rl.route.shape
+        tables = (rl.rblocks.data_ptr(), rl.route.data_ptr(), out.data_ptr(),
+                  K, Np, NW, KC)
+    else:
+        tables = (rl.rtgt.data_ptr(), out.data_ptr(), K, Np,
+                  rl.rtgt.shape[0])
+
+    def fn():
+        b.raise_on_error(lib.lpt_react_combine(
+            *(g.data_ptr() for g in g3), *tables, stream), "react_combine")
+        return out
+    return fn
+
+
+def candidates_launcher(b, args):
+    """(fn, design) for the rebuild's candidate selection of the build `b`
+    on the select_candidates arguments `args`: its fused kernel D' where
+    the build has one ("fused"), else the keys built in torch by this
+    tree's twin and selected by the build's select_k ("unfused").  fn()
+    returns (idx, jtype, mask, kmax)."""
+    from lammps_plugins_tpu_torch.ops import select_candidates as sc
+    xt_pad, dense_f, c3f, fdims, cut, K = args
+    dev = xt_pad.device
+    if "lpt_select_candidates" not in b._SIGNATURES:
+        def select(keys, k, payloads):
+            return select_k_launcher(b, keys, k, payloads)()
+        return (lambda: sc.select_candidates_ref(*args, select=select),
+                "unfused")
+    lib = b.lib()
+    n, m_all, Cf = c3f.shape[0], xt_pad.shape[0] - 1, dense_f.shape[1]
+    d0, d1, d2 = fdims
+    outs = [torch.empty((n, K), dtype=dt, device=dev)
+            for dt in (torch.int64, torch.int64, torch.bool)]
+    cnt = torch.empty(n, dtype=torch.int32, device=dev)
+    stream = b.stream(dev)
+
+    def fn():
+        table, order, starts, cutc = sc.prepare(dense_f, c3f, fdims, cut)
+        b.raise_on_error(lib.lpt_select_candidates(
+            xt_pad.data_ptr(), table.data_ptr(), order.data_ptr(),
+            starts.data_ptr(), cutc.data_ptr(), cut.shape[0],
+            *(o.data_ptr() for o in outs), cnt.data_ptr(), d0, d1, d2, Cf,
+            m_all, K, stream), "select_candidates")
+        return (*outs, cnt.max().to(torch.int64))
+    return fn, "fused"
+
+
+def select_k_keys(dev, N, W):
+    """[N, W] candidate-like keys with two payloads (ids, types), seeded:
+    quantized so that ties occur, 5 % finite as in a cell window."""
+    g = torch.Generator(device=dev).manual_seed(BENCH["seed"])
+    keys = torch.round(torch.rand((N, W), generator=g, device=dev)
+                       * 21.0 * 64.0) / 64.0
+    keys = torch.where(torch.rand((N, W), generator=g, device=dev) < 0.05,
+                       keys, torch.full_like(keys, float("inf")))
+    ids = torch.randint(0, 2 ** 24, (N, W), generator=g, device=dev).float()
+    typ = torch.randint(1, 3, (N, W), generator=g, device=dev).float()
+    return keys, ids, typ
+
+
+def candidate_work(args):
+    """(bytes, flops, candidate pairs) of one select_candidates call: the
+    kernel's inputs (positions, the int32 cell table, the atoms-by-cell
+    order and cell starts, the cutoff table) read once and its outputs
+    (idx and jtype int64, mask, the per-row count) written once; ~10
+    operations (3 sub, 3 mul, 3 add, 1 compare) per pair of an owned atom
+    and a real atom of its 27 cells."""
+    from lammps_plugins_tpu_torch.ops.select_candidates import (
+        neighbour_cells)
+    xt_pad, dense_f, c3f, fdims, cut, K = args
+    n, m_all, Cf = c3f.shape[0], xt_pad.shape[0] - 1, dense_f.shape[1]
+    ncf = int(np.prod(fdims))
+    occ = (dense_f < m_all).sum(dim=1)
+    occ[ncf:] = 0
+    pairs = float(occ[neighbour_cells(c3f, fdims)].sum())
+    nbytes = (16 * (m_all + 1) + 4 * (ncf + 2) * Cf + 4 * n
+              + 4 * (ncf + 1) + 4 * cut.numel() + n * K * 17 + 4 * n)
+    return nbytes, 10 * pairs, pairs
+
+
+def capture_candidate_calls(eng):
+    """eng.rebuild_neighbors(), recording the arguments of every
+    select_candidates call of the rebuild (the last is the one whose
+    lists the Engine kept)."""
+    from lammps_plugins_tpu_torch.neighbor import device_build
+    calls = []
+    real = device_build.select_candidates
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    device_build.select_candidates = spy
+    try:
+        eng.rebuild_neighbors()
+    finally:
+        device_build.select_candidates = real
+    return calls
+
+
 def bench_engine(dev, sort=False, **config):
     """The bench scene on the card with its velocities; no lists yet.
     sort: spatially sorted atoms; config: REBOMoS force configuration."""
@@ -311,13 +450,15 @@ def bench_engine(dev, sort=False, **config):
 
 def phase1_kernels(dev, prev_tree=""):
     """Each kernel vs its twin on the bench scene's own tensors; with
-    prev_tree, the LJ sweeps of that tree's build timed in turns."""
+    prev_tree, the LJ sweeps, select-k and the reaction combine of that
+    tree's build timed in turns."""
     from lammps_plugins_tpu_torch.ops import (lj_cells, lj_half, mirror,
                                               mirror_rows, pin, react, rebo,
-                                              select_k)
+                                              select_candidates, select_k)
     eng = bench_engine(dev)
-    eng.rebuild_neighbors()
+    cand_args = capture_candidate_calls(eng)[-1]
     pair, st, nbr = eng.pair, eng.state, eng.nbr
+    prev_build = load_build("prev", prev_tree) if prev_tree else None
     rl = nbr.lists["rebo"]
     K, Np = rl.idxT.shape
     Wp = -(-27 * eng._plan.cand_capacity // 128) * 128
@@ -458,8 +599,8 @@ def phase1_kernels(dev, prev_tree=""):
           f"group) pairs with live slots survive culling); the first "
           f"design's 27-cell sweep: {ncand_prev}")
     prev = None
-    if prev_tree:
-        prev = lj_launchers(load_build("prev", prev_tree), P, lc, ar)
+    if prev_build:
+        prev = lj_launchers(prev_build, P, lc, ar)
         pc = prev["lj_cell_forces"]()
         torch.cuda.synchronize()
         print(f"previous design ({prev_tree}) C: max_abs_err "
@@ -528,33 +669,81 @@ def phase1_kernels(dev, prev_tree=""):
            reruns_bit_identical=True,
            **({"prev_design_ms": e_prev} if prev else {}))
 
-    # D: select_k on [N, W] candidate-like keys (seeded; quantized so that
-    # ties occur; most slots invalid as in a cell window), exact
-    g = torch.Generator(device=dev).manual_seed(BENCH["seed"])
+    # D: select_k on [N, W] candidate-like keys, exact
     N = st.natoms
-    keys = torch.round(torch.rand((N, Wp), generator=g, device=dev)
-                       * 21.0 * 64.0) / 64.0
-    keys = torch.where(torch.rand((N, Wp), generator=g, device=dev) < 0.05,
-                       keys, torch.full_like(keys, float("inf")))
-    ids = torch.randint(0, 2 ** 24, (N, Wp), generator=g, device=dev).float()
-    typ = torch.randint(1, 3, (N, Wp), generator=g, device=dev).float()
+    keys, ids, typ = select_k_keys(dev, N, Wp)
     sk = select_k.select_k(keys, K, payloads=(ids, typ))
     stw = select_k.select_k_ref(keys, K, payloads=(ids, typ))
     err = max(float((a.double() - b.double()).abs().max())
               for a, b in zip(sk, stw))
+    if not all(torch.equal(a, b) for a, b in
+               zip(sk, select_k.select_k(keys, K, payloads=(ids, typ)))):
+        raise AssertionError("select_k reruns differ")
+    hits = (keys < float("inf")).sum(dim=1)
     # yardstick, not a twin: topk's tie order differs from the stable rule
-    t = interleaved_ms({
-        "kernel": lambda: select_k.select_k(keys, K, (ids, typ)),
-        "topk": lambda: torch.topk(keys, K, dim=1, largest=False,
-                                   sorted=True)}, 20)
+    fns = {"kernel": lambda: select_k.select_k(keys, K, (ids, typ)),
+           "topk": lambda: torch.topk(keys, K, dim=1, largest=False,
+                                      sorted=True)}
+    if prev_build:
+        fns["prev"] = select_k_launcher(prev_build, keys, K, (ids, typ))
+        if not all(torch.equal(a, b) for a, b in zip(fns["prev"](), sk)):
+            raise AssertionError(f"select_k of {prev_tree} disagrees")
+    t = interleaved_ms(fns, 20)
+    print(f"select_k rows with more than 32 finite keys: "
+          f"{int((hits > 32).sum())} of {N} (mean "
+          f"{float(hits.float().mean()):.2f})")
     record("select_k", err, 0.0, t["kernel"],
            timed_ms(lambda: select_k.select_k_ref(keys, K, (ids, typ))),
            "lammps_plugins_tpu_torch/csrc/select_k.cu",
            "lammps_plugins_tpu/ops/select_k_pallas.py:99",
            (4 * N * Wp + 8 * N * K + 12 * N * K, N * Wp),
-           library_ms=t["topk"], W=Wp)
+           library_ms=t["topk"], W=Wp, reruns_bit_identical=True,
+           rows_over_32_hits=int((hits > 32).sum()),
+           **({"prev_design_ms": t["prev"]} if prev_build else {}))
     del eng, planes, gk, gt, g3, g4, gmir4, stacked, flat, pin_inputs, P
-    del ok, ot, hk, ht, keys, ids, typ, again, prev
+    del ok, ot, hk, ht, keys, ids, typ, again, prev, sk, stw, fns
+    torch.cuda.empty_cache()
+
+    # D': the rebuild's fused candidate selection on the bench rebuild's
+    # own arguments; exact against its twin and against the unfused path
+    # (the keys built in torch, then D), whose time in turns is
+    # prev_design_ms
+    ck = select_candidates.select_candidates(*cand_args)
+    ct = select_candidates.select_candidates_ref(*cand_args)
+
+    def unfused():
+        return select_candidates.select_candidates_ref(
+            *cand_args, select=select_k.select_k)
+
+    cu = unfused()
+    again = select_candidates.select_candidates(*cand_args)
+    diffs = [float((a.long() - b.long()).abs().max()) for other in (ct, cu)
+             for a, b in zip(ck, other)]
+    exact = all(torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+                for a, b, c, d in zip(ck, ct, cu, again))
+    if not exact:
+        raise AssertionError(f"select_candidates differs from its twin or "
+                             f"the unfused path: {diffs}")
+    xt_pad, dense_f, c3f, fdims, _, Kc = cand_args
+    cwork = candidate_work(cand_args)
+    t = interleaved_ms({"kernel": lambda: select_candidates.select_candidates(
+        *cand_args), "unfused": unfused, "prepare": lambda:
+        select_candidates.prepare(*cand_args[1:5])}, 20)
+    print(f"select_candidates: n={c3f.shape[0]} K={Kc} Cf={dense_f.shape[1]} "
+          f"fine cells {fdims}, kmax {int(ck[3])}, candidate pairs "
+          f"{cwork[2]:.0f}")
+    record("select_candidates", max(diffs), 0.0, t["kernel"],
+           timed_ms(lambda: select_candidates.select_candidates_ref(
+               *cand_args), reps=3),
+           "lammps_plugins_tpu_torch/csrc/select_k.cu",
+           "lammps_plugins_tpu/ops/select_k_pallas.py:99 with the keys of "
+           "lammps_plugins_tpu/neighbor/device_build.py:718-784",
+           cwork[:2], prev_design_ms=t["unfused"], prepare_ms=t["prepare"],
+           K=Kc,
+           W=27 * dense_f.shape[1], kmax=int(ck[3]),
+           candidate_pairs=cwork[2], exact_vs_twin=True,
+           exact_vs_unfused=True, reruns_bit_identical=True)
+    del ck, ct, cu, again, cand_args, xt_pad, dense_f, c3f
     torch.cuda.empty_cache()
 
     # G: reaction combine on the route tables of the sorted scene's rebuild
@@ -565,28 +754,48 @@ def phase1_kernels(dev, prev_tree=""):
     planes = pair._rebo_planes(st.x, pair.el_of_type[st.type], nbr.ghosts,
                                rl, st.box.h)
     g3 = rebo.rebo_cotangents(*planes, pair._rebo_consts)
-    rk = react.react_combine(*g3, rl.rblocks, rl.route)
-    rt = react.react_combine_ref(*g3, rl.rblocks, rl.route)
+    rk = react.react_combine(*g3, rl.rtgt)
+    rt = react.react_combine_target_ref(*g3, rl.rtgt)
+    rr = react.react_combine_ref(*g3, rl.rblocks, rl.route)
     fm = mirror.mirror_combine(*g3, rl.mirT, rl.mirvT.float())
     sc = float(rt.abs().max())
     err_m = float((rk - fm).abs().max())
-    if not err_m <= 1e-5 * sc:
+    err_r = float((rk - rr).abs().max())
+    if not max(err_m, err_r) <= 1e-5 * sc:
         raise AssertionError(f"react_combine disagrees with the mirror "
-                             f"combine: {err_m}")
+                             f"combine ({err_m}) or the route tables' twin "
+                             f"({err_r})")
+    if not torch.equal(rk, react.react_combine(*g3, rl.rtgt)):
+        raise AssertionError("react_combine reruns differ")
+    fns = {"kernel": lambda: react.react_combine(*g3, rl.rtgt)}
+    same_as_prev = None
+    if prev_build:
+        fns["prev"] = react_launcher(prev_build, g3, rl)
+        same_as_prev = bool(torch.equal(fns["prev"](), rk))
+        print(f"react_combine forces bit-identical to {prev_tree}'s: "
+              f"{same_as_prev}")
+        if not same_as_prev:
+            raise AssertionError(f"react_combine differs from {prev_tree}'s")
+    t = interleaved_ms(fns, 20)
     p = eng._plan
     Kr, Npr = g3[0].shape
+    routed = int((rl.rtgt >= 0).sum())
     record("react_combine", float((rk - rt).abs().max()), 1e-5 * sc,
-           timed_ms(lambda: react.react_combine(*g3, rl.rblocks, rl.route)),
-           timed_ms(lambda: react.react_combine_ref(*g3, rl.rblocks,
-                                                    rl.route)),
+           t["kernel"],
+           timed_ms(lambda: react.react_combine_target_ref(*g3, rl.rtgt)),
            "lammps_plugins_tpu_torch/csrc/react.cu",
            "lammps_plugins_tpu/ops/react_pallas.py:202 and :226",
-           (4 * (3 * Kr * Npr + rl.rblocks.numel() + rl.route.numel()
-                 + rk.numel()), 3 * Kr * Npr),
+           (4 * (3 * Kr * Npr + rl.rtgt.numel() + rk.numel()),
+            3 * (Kr * Npr + routed + Npr)),
            max_abs_err_vs_mirror_combine=err_m,
+           max_abs_err_vs_route_twin=err_r, reruns_bit_identical=True,
+           routed_entries=routed, Dt=rl.rtgt.shape[0],
            NW_KC_QR=[p.react_nw, p.react_kc, p.react_qr],
-           measured_NW_KC_QR=list(eng._react_hwm))
-    del eng, planes, g3, rk, rt, fm
+           measured_NW_KC_QR=list(eng._react_hwm),
+           **({"prev_design_ms": t["prev"],
+               "bit_identical_to_prev_design": same_as_prev}
+              if prev_build else {}))
+    del eng, planes, g3, rk, rt, rr, fm, fns
     torch.cuda.empty_cache()
     return results
 
@@ -805,7 +1014,8 @@ def main():
                     help="path of the published MoS.REBO.set5b")
     ap.add_argument("--prev-tree", default="",
                     help="tree of an earlier lammps_plugins_tpu_torch/ whose "
-                         "LJ sweeps are timed in turns with this one's")
+                         "LJ sweeps, select-k and reaction combine are "
+                         "timed in turns with this one's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")

@@ -5,73 +5,50 @@
 //
 // Replaces: lammps_plugins_tpu/ops/react_pallas.py::react_combine, both of
 // its Pallas calls (the stack phase _make_stack_kernel and the route phase
-// _make_route_kernel; LPT_REACT).  The rebuild-time tables are those of
-// build_route_tables (ops/react.py): for each 128-atom output chunk c,
-// rblocks[c, w] names the w-th 128-column source block, and
-// route[c, w, kc, col] = (k << 8) | lane is the kc-th edge from source
-// column col of that block into output lane `lane` of chunk c (-1: none).
+// _make_route_kernel; LPT_REACT).  The TPU kernel stacked each 128-atom
+// chunk's routed source entries and summed them into its output lanes with
+// one-hot [128, 128] products.  Here the routing is done once per rebuild:
+// ops/react.py::route_by_target turns the route tables
+// (build_route_tables) into a target-major table rtgt [Dt, Np] whose
+// column i lists the flat plane indices k * Np + j of the entries aimed at
+// atom i, in the route tables' order (window, route row, source column),
+// -1 past the last.
 //
-// What bounds it on the H100: shared-memory broadcast reads of the route
-// scan, 128 entries per routed row for every output lane (~rq x 128 x 128
-// per chunk), and the random 4-byte reads of G at the routed slots.
+// What bounds it on the H100: the bytes, like the mirror combine (B): the
+// three [K, Np] planes, the [Dt, Np] table and the [Np, 3] output, each
+// once; the routed reads of G are random 4-byte reads, mostly from L2.
 //
-// Design.  The TPU selected each window's entries by a K-deep where-chain,
-// stacked them at packed row offsets (qoff) in scratch and routed them
-// with a one-hot [128, 128] compare-accumulate.  Here one block of 128
-// threads serves one output chunk: for each window and each route row
-// kc, thread `col` decodes its route entry and reads (gx, gy, gz)[k] of
-// its source column directly (no k-select), and stores (value, lane) as
-// one float4 in shared memory; then every thread, as output lane t, scans
-// the row's 128 entries and adds those aimed at t.  The stack never exists
-// as a whole (it would be up to 254 KB per chunk, above a block's shared
-// memory), so the packed offsets are not needed.  A route row with no
-// valid entry ends its window: a source column's edges into one chunk fill
-// depths 0, 1, ... without gaps.  Every row is staged afresh and invalid
-// entries carry lane -1, which no thread matches, so no stale entry of an
-// earlier chunk or window can route.  Each lane sums in a fixed
-// (window, row, column) order and owns its output: no atomics, reruns are
+// Design: one thread per output atom reads its own K slots and its Dt
+// table entries (coalesced across the warp) and the G values they name,
+// and writes sum_k G[k, i] - sum_d G[entry_d]: no shared memory, no
+// atomics.  Each atom's routed entries are summed in the order in which
+// the previous design's route-row scan (one block per chunk, every lane
+// scanning the staged rows) met them, from zero, and the own slots
+// likewise, so F is bit for bit the previous design's and reruns are
 // bit-identical.  Output rows are [Np, 3].
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kChunk = 128;
+constexpr int kThreads = 256;
 
-__global__ void react_combine_kernel(const float* __restrict__ gx,
-                                     const float* __restrict__ gy,
-                                     const float* __restrict__ gz,
-                                     const int* __restrict__ rblocks,
-                                     const int* __restrict__ route,
-                                     float* __restrict__ out, int K, int Np,
-                                     int NW, int KC) {
-  __shared__ float4 ent[kChunk];
-  const int c = blockIdx.x;
-  const int t = threadIdx.x;
+__global__ void __launch_bounds__(kThreads)
+react_combine_kernel(const float* __restrict__ gx,
+                     const float* __restrict__ gy,
+                     const float* __restrict__ gz,
+                     const int* __restrict__ rtgt, float* __restrict__ out,
+                     int K, int Np, int Dt) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= Np) return;
   float rx = 0.f, ry = 0.f, rz = 0.f;
-  for (int w = 0; w < NW; ++w) {
-    const size_t src = (size_t)rblocks[(size_t)c * NW + w] * kChunk + t;
-    for (int kc = 0; kc < KC; ++kc) {
-      const int r = route[(((size_t)c * NW + w) * KC + kc) * kChunk + t];
-      float4 e = make_float4(0.f, 0.f, 0.f, __int_as_float(-1));
-      if (r >= 0) {
-        const size_t g = (size_t)(r >> 8) * Np + src;
-        e = make_float4(gx[g], gy[g], gz[g], __int_as_float(r & 255));
-      }
-      ent[t] = e;
-      if (!__syncthreads_or(r >= 0)) break;
-      for (int q = 0; q < kChunk; ++q) {
-        const float4 v = ent[q];
-        if (__float_as_int(v.w) == t) {
-          rx += v.x;
-          ry += v.y;
-          rz += v.z;
-        }
-      }
-      __syncthreads();
-    }
+  for (int d = 0; d < Dt; ++d) {
+    const int e = rtgt[(size_t)d * Np + i];
+    if (e < 0) break;                   // an atom's entries fill d = 0, 1..
+    rx += gx[e];
+    ry += gy[e];
+    rz += gz[e];
   }
-  const size_t i = (size_t)c * kChunk + t;
   float sx = 0.f, sy = 0.f, sz = 0.f;
   for (int k = 0; k < K; ++k) {
     const size_t e = (size_t)k * Np + i;
@@ -79,20 +56,20 @@ __global__ void react_combine_kernel(const float* __restrict__ gx,
     sy += gy[e];
     sz += gz[e];
   }
-  out[3 * i + 0] = sx - rx;
-  out[3 * i + 1] = sy - ry;
-  out[3 * i + 2] = sz - rz;
+  out[3 * (size_t)i + 0] = sx - rx;
+  out[3 * (size_t)i + 1] = sy - ry;
+  out[3 * (size_t)i + 2] = sz - rz;
 }
 
 }  // namespace
 
-// gx/gy/gz: [K, Np] with Np = 128 * nch; rblocks: [nch, NW] int32;
-// route: [nch, NW, KC, 128] int32; out: [Np, 3].
+// gx/gy/gz: [K, Np] with K * Np < 2^31; rtgt: [Dt, Np] int32; out: [Np, 3].
 extern "C" int lpt_react_combine(const float* gx, const float* gy,
-                                 const float* gz, const int* rblocks,
-                                 const int* route, float* out, int K, int Np,
-                                 int NW, int KC, void* stream) {
-  react_combine_kernel<<<Np / kChunk, kChunk, 0, (cudaStream_t)stream>>>(
-      gx, gy, gz, rblocks, route, out, K, Np, NW, KC);
+                                 const float* gz, const int* rtgt, float* out,
+                                 int K, int Np, int Dt, void* stream) {
+  if (Np == 0) return 0;
+  react_combine_kernel<<<(Np + kThreads - 1) / kThreads, kThreads, 0,
+                         (cudaStream_t)stream>>>(gx, gy, gz, rtgt, out, K,
+                                                 Np, Dt);
   return (int)cudaGetLastError();
 }

@@ -1,15 +1,16 @@
 """On-device neighbor rebuild with fixed shapes (port of
 lammps_plugins_tpu/neighbor/device_build.py, default path).
 
-Wrap, two-stage ghost compaction, fine-grid candidate generation from a
-packed (x|y|z|type|id) cell table, per-tier K-nearest selection
-(ops/select_k.py, CUDA kernel D), the mirror-edge tables with their
-[K, Np] transposes, and the fractional coarse cell grid for the LJ tier
-with the `aslot` inverse table.  Every array has a shape fixed by the
-host-side RebuildPlan: compaction is a masked cumsum into a fixed
-capacity (no data-dependent `nonzero` shapes), and running past a
-capacity sets an overflow flag that the Engine checks, re-sizes and
-retries on.
+Wrap, two-stage ghost compaction, the fine-grid cell table and per-tier
+K-nearest selection of each owned atom's candidates in its 27 fine cells
+(ops/select_candidates.py: CUDA kernel D', keys made and selected in one
+pass), the mirror-edge tables with their [K, Np] transposes, the reaction
+combine's route tables and their target-major form (ops/react.py), and the
+fractional coarse cell grid for the LJ tier with the `aslot` inverse
+table.  Every array has a shape fixed by the host-side RebuildPlan:
+compaction is a masked cumsum into a fixed capacity (no data-dependent
+`nonzero` shapes), and running past a capacity sets an overflow flag that
+the Engine checks, re-sizes and retries on.
 """
 
 from __future__ import annotations
@@ -21,12 +22,11 @@ import numpy as np
 import torch
 
 from ..core.box import Box, matvec3
-from ..ops.react import build_route_tables
-from ..ops.select_k import select_k
+from ..ops.react import build_route_tables, route_by_target
+from ..ops.select_candidates import select_candidates
 from .build import CellData, NeighborData
 from .neighbor import Ghosts, NeighborList
 
-BIG = float("inf")
 #: sub-cells per axis of the LJ cell table's slot order (_bin_dense): runs
 #: of 32 slots become compact tiles that the LJ kernels can cull whole
 LJ_CELL_SUB = 4
@@ -357,8 +357,8 @@ def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
 
     cut_mats: per-tier [T+1, T+1] cutoff matrices (numpy).  react: measure
     the route geometry of the mirror tiers (count:rnw/rkc/rq) and, when
-    the plan carries route capacities, build the route tables
-    (react_overflow flags them too small)."""
+    the plan carries route capacities, build the route tables and their
+    target-major form rtgt (react_overflow flags them too small)."""
     dtype, dev = x.dtype, x.device
     n = x.shape[0]
     as_t = lambda v: torch.as_tensor(np.asarray(v), dtype=dtype,  # noqa
@@ -420,88 +420,25 @@ def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
     # -- [N, K] tiers: fine-grid candidates -------------------------------
     lists = {}
     if plan.k_caps:
-        if dtype == torch.float32 and m_all >= 2 ** 24:
-            raise ValueError(f"{m_all} owned+ghost rows: atom ids ride the "
-                             "candidate rows and select_k as float32 "
-                             "payloads, exact only below 2^24")
         Cf = plan.cand_capacity
         dense_f, c3f, occf, ovf = _bin_dense(
             x_all, valid_row, mn, plan.cand_size, plan.cand_dims, Cf, m_all)
         flags["candcell_overflow"] = ovf
         flags["count:candcell"] = occf
-        fdims = plan.cand_dims
-        ncf = fdims[0] * fdims[1] * fdims[2]
-        offs27 = torch.tensor([(a, b, c) for a in (-1, 0, 1)
-                               for b in (-1, 0, 1) for c in (-1, 0, 1)],
-                              device=dev)
-        nbr3 = c3f[:n][:, None, :] + offs27[None, :, :]
-        in_rng = torch.all((nbr3 >= 0)
-                           & (nbr3 < torch.tensor(fdims, device=dev)), -1)
-        ncid = (nbr3[..., 0] * fdims[1] + nbr3[..., 1]) * fdims[2] \
-            + nbr3[..., 2]
-        ncid = torch.where(in_rng, ncid, torch.full_like(ncid, ncf + 1))
-        W = 27 * Cf
-        Wp = -(-W // 128) * 128
-        # packed candidate table [ncf+2, 5*Cf]: (x | y | z | type | id)
-        # blocks, so each atom's candidates are ONE row gather; ids and
-        # types ride as floats (exact below 2^24, checked above)
+        # (x, y, z, type) of every row and of the pad row, the one table the
+        # candidate selection reads positions and types from
         xt_pad = torch.cat([x_pad, t_pad.to(dtype)[:, None]], dim=1)
-        tmp4 = xt_pad[dense_f]                              # [ncf+2, Cf, 4]
-        idf = torch.clamp(dense_f, max=m_all).to(dtype)
-        packed5 = torch.cat([tmp4[..., 0], tmp4[..., 1], tmp4[..., 2],
-                             tmp4[..., 3], idf], dim=1)
         sidx_ghost = torch.where(ghost_valid, sidx_from_sel,
                                  torch.zeros_like(sidx_from_sel))
         inv_sidx = _inverse_shift_perm(plan.shifts)
 
-        # chunk over atom blocks: the [chunk, W] working set is ~6 arrays
-        CH = n if n <= 131072 else 65536
-        outs = {name: [] for name, _ in plan.k_caps}
-        for c0 in range(0, n, CH):
-            c1 = min(c0 + CH, n)
-            g = packed5[ncid[c0:c1]]                        # [ch, 27, 5Cf]
-            comp = [g[:, :, a * Cf:(a + 1) * Cf].reshape(c1 - c0, W)
-                    for a in range(5)]
-            cand, cand_t = comp[4], comp[3]
-            rsq = torch.zeros_like(cand)
-            for a in range(3):
-                da = comp[a] - xw[c0:c1, a][:, None]
-                rsq = rsq + da * da
-            rid = torch.arange(c0, c1, device=dev).to(dtype)
-            valid = (cand < m_all) & (cand != rid[:, None])
-            ti = types[c0:c1][:, None]
-            for name, K in plan.k_caps:
-                # per-type-pair cutoff as a select chain
-                cm = np.asarray(cut_mats[name], np.float64)
-                T = cm.shape[0] - 1
-                cut = torch.zeros_like(cand)
-                for a in range(1, T + 1):
-                    row = torch.zeros_like(cand)
-                    for b in range(1, T + 1):
-                        row = torch.where(cand_t == b, as_t(cm[a, b]), row)
-                    cut = torch.where(ti == a, row, cut)
-                cut = cut + plan.skin
-                m_tier = valid & (rsq < cut * cut)
-                key = torch.where(m_tier, rsq, torch.full_like(rsq, BIG))
-                padw = lambda a_, fill: torch.nn.functional.pad(  # noqa
-                    a_, (0, Wp - W), value=fill)
-                pos, idfk, jtfk = select_k(
-                    padw(key, BIG).contiguous(), K,
-                    payloads=(padw(cand, 0.0).contiguous(),
-                              padw(cand_t, 0.0).contiguous()))
-                mask = pos < W
-                zero = torch.zeros((), dtype=torch.int64, device=dev)
-                outs[name].append((
-                    torch.where(mask, idfk.to(torch.int64), zero),
-                    torch.where(mask, jtfk.to(torch.int64), zero), mask,
-                    m_tier.sum(dim=1).max()))
-
         Np = -(-n // 128) * 128
         for name, K in plan.k_caps:
-            parts = outs[name]
-            idx, jtype, mask = (torch.cat([p[i] for p in parts])
-                                for i in range(3))
-            kmax = torch.stack([p[3] for p in parts]).max()
+            cm = np.asarray(cut_mats[name], np.float64)
+            cut = torch.zeros(cm.shape, dtype=dtype, device=dev)
+            cut[1:, 1:] = as_t(cm[1:, 1:])
+            idx, jtype, mask, kmax = select_candidates(
+                xt_pad, dense_f, c3f[:n], plan.cand_dims, cut + plan.skin, K)
             kw = {}
             if name in plan.mirror_tiers:
                 mirror = _mirror_table(idx, mask, owner, ghost_valid,
@@ -525,8 +462,11 @@ def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
                     flags[f"count:rkc:{name}"] = kc_n
                     flags[f"count:rq:{name}"] = rq_n
                     if plan.react_nw > 0:
+                        rtgt, dt_n = route_by_target(rblocks, route, K, Np)
+                        flags[f"count:rdt:{name}"] = dt_n
                         flags[f"react_overflow:{name}"] = r_ovf
-                        kw.update(rblocks=rblocks, route=route)
+                        flags[f"react_overflow:target:{name}"] = dt_n > K
+                        kw.update(rblocks=rblocks, route=route, rtgt=rtgt)
             lists[name] = NeighborList(idx=idx, mask=mask, jtype=jtype,
                                        **kw)
             flags[f"k_overflow:{name}"] = kmax > K

@@ -54,7 +54,9 @@ class NeighborList:
     mirvT marks valid mirrors.  rblocks [nch, NW] and route
     [nch, NW, KC, 128] are the reaction-combine route tables
     (ops/react.py::build_route_tables), present when the rebuild was asked
-    for them and the plan carries route capacities."""
+    for them and the plan carries route capacities; rtgt [K, Np] int32 is
+    the same routing target-major (ops/react.py::route_by_target), the
+    table the reaction-combine kernel reads."""
 
     idx: torch.Tensor
     mask: torch.Tensor
@@ -67,6 +69,7 @@ class NeighborList:
     mirvT: torch.Tensor | None = None
     rblocks: torch.Tensor | None = None
     route: torch.Tensor | None = None
+    rtgt: torch.Tensor | None = None
 
     @property
     def capacity(self) -> int:

@@ -49,7 +49,8 @@ _SIGNATURES = {
     "lpt_pin_copy": [_P, _P, _I, _I, _P],
     "lpt_mirror_combine_rows": [_P] * 6 + [_I, _I, _P],
     "lpt_lj_cell_forces_half": [_P] * 4 + [_I] * 9 + [_P, _P, _I],
-    "lpt_react_combine": [_P] * 6 + [_I] * 4 + [_P],
+    "lpt_react_combine": [_P] * 5 + [_I] * 3 + [_P],
+    "lpt_select_candidates": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 6 + [_P],
 }
 
 

@@ -1,5 +1,5 @@
 """Block-sparse REBO reaction combine: CUDA kernel wrapper, plain-PyTorch
-twin, and the rebuild-time route tables.
+twins, and the rebuild-time route tables with their target-major form.
 
 Counterpart of lammps_plugins_tpu/ops/react_pallas.py (react_combine,
 build_route_tables) and of neighbor/device_build.py::choose_react.  With
@@ -13,7 +13,11 @@ the reaction sum written as routes: on a spatially sorted scene the source
 columns of every edge aimed at one 128-atom output chunk lie in a few
 128-column source blocks (rblocks), and route[c, w, kc, col] packs
 (k << 8) | target lane for the kc-th such edge of source column col of
-window w, -1 where there is none.
+window w, -1 where there is none.  route_by_target turns these tables, at
+rebuild time, into one list per output atom of the plane entries it
+subtracts; the kernel reads that list.  react_combine_ref reads the route
+tables themselves: it is the twin held against the JAX package's
+react_combine.
 """
 
 from __future__ import annotations
@@ -29,8 +33,8 @@ _CH = 128
 
 
 def react_combine_ref(gx, gy, gz, rblocks, route):
-    """Twin: decode every route entry to (k, source column, target) and
-    index_add the reaction sum."""
+    """Forces from the route tables: decode every route entry to (k,
+    source column, target) and index_add the reaction sum."""
     K, Np = gx.shape
     nch = route.shape[0]
     g = torch.stack([gx, gy, gz], dim=-1)                   # [K, Np, 3]
@@ -45,30 +49,89 @@ def react_combine_ref(gx, gy, gz, rblocks, route):
     return g.sum(dim=0) - R
 
 
-def react_combine(gx, gy, gz, rblocks, route):
-    """Per-atom forces [Np, 3] from cotangent planes gx/gy/gz [K, Np]
-    (Np = 128 * nch) and the route tables rblocks [nch, NW] and route
-    [nch, NW, KC, 128] (int32).  CPU tensors take the twin; CUDA float32
-    tensors the kernel."""
+def react_combine_target_ref(gx, gy, gz, rtgt):
+    """Twin of the kernel: the reaction sum read from the target-major
+    table rtgt [Dt, Np] (flat plane indices k * Np + source, -1 for
+    none)."""
+    K, Np = gx.shape
+    g = torch.stack([gx, gy, gz], dim=-1)                   # [K, Np, 3]
+    e = rtgt.long()
+    ok = (e >= 0)[..., None]
+    rows = g.reshape(K * Np, 3)[torch.clamp(e, min=0)]     # [Dt, Np, 3]
+    return g.sum(dim=0) - torch.where(ok, rows, torch.zeros_like(rows)) \
+        .sum(dim=0)
+
+
+def react_combine(gx, gy, gz, rtgt):
+    """Per-atom forces [Np, 3] from cotangent planes gx/gy/gz [K, Np] and
+    the target-major route table rtgt [Dt, Np] int32 (route_by_target).
+    CPU tensors take the twin; CUDA float32 tensors the kernel."""
     global launches
     if not build.use_kernel(gx, "react_combine"):
-        return react_combine_ref(gx, gy, gz, rblocks, route)
+        return react_combine_target_ref(gx, gy, gz, rtgt)
     K, Np = gx.shape
-    nch, NW, KC, L = route.shape
-    if L != _CH or Np != nch * _CH:
-        raise ValueError(f"react_combine: route {tuple(route.shape)} does "
-                         f"not tile Np = {Np} in chunks of {_CH}")
+    Dt = rtgt.shape[0]
+    if K * Np >= 2 ** 31:
+        raise ValueError(f"react_combine: K * Np = {K * Np} needs int64 "
+                         "plane indices")
     dev, f32, i32 = gx.device, torch.float32, torch.int32
     ptrs = [build.check(t, n, (K, Np), f32, dev) for t, n in
             ((gx, "gx"), (gy, "gy"), (gz, "gz"))]
-    ptrs.append(build.check(rblocks, "rblocks", (nch, NW), i32, dev))
-    ptrs.append(build.check(route, "route", (nch, NW, KC, _CH), i32, dev))
+    ptrs.append(build.check(rtgt, "rtgt", (Dt, Np), i32, dev))
     out = torch.empty((Np, 3), dtype=f32, device=dev)
-    status = build.lib().lpt_react_combine(*ptrs, out.data_ptr(), K, Np, NW,
-                                           KC, build.stream(dev))
+    status = build.lib().lpt_react_combine(*ptrs, out.data_ptr(), K, Np, Dt,
+                                           build.stream(dev))
     build.raise_on_error(status, "react_combine")
     launches += 1
     return out
+
+
+def _spread(n: int, base: int, device) -> torch.Tensor:
+    """n dump positions base, base + 1, ..., base + 1023, base, ...: the
+    entries a fixed-shape scatter discards, spread so that they do not all
+    store to one address."""
+    return base + torch.arange(n, device=device) % 1024
+
+
+def route_by_target(rblocks, route, K: int, Np: int):
+    """The route tables turned target-major, at rebuild time.
+
+    Returns (rtgt [K, Np] int32, depth_needed): rtgt[d, t] is the flat
+    plane index k * Np + source of the d-th entry aimed at atom t, -1 past
+    its last; each atom's entries are in the order the route tables list
+    them, window, then route row, then source column.  Under the mirror
+    bijection an atom receives one entry per mirrored edge of its own row,
+    so K rows suffice; depth_needed (the largest count of any atom)
+    measures it, and entries past K are dropped (the rebuild flags that).
+    Fixed shapes throughout: no host synchronisation."""
+    dev = route.device
+    nch, NW, KC, L = route.shape
+    r = route.reshape(-1).long()
+    ok = r >= 0
+    cap = K * Np                  # routed entries <= mirrored edges <= K Np
+    # the valid entries' flat positions, in table order (masked cumsum)
+    rank = torch.cumsum(ok.to(torch.int64), 0) - 1
+    dst = torch.where(ok & (rank < cap), rank, _spread(r.numel(), cap, dev))
+    sel = torch.full((cap + 1024,), -1, dtype=torch.int64, device=dev)
+    sel.scatter_(0, dst, torch.arange(r.numel(), device=dev))
+    sel = sel[:cap]
+    e = torch.clamp(sel, min=0)
+    re = r[e]
+    c, w, col = e // (NW * KC * L), (e // (KC * L)) % NW, e % L
+    src = rblocks.reshape(-1).long()[c * NW + w] * L + col
+    flat = (re >> 8) * Np + src
+    tgt = torch.where(sel >= 0, c * L + (re & 255), torch.full_like(e, Np))
+    # stable: each target keeps the table order of its entries
+    tsort, order = torch.sort(tgt, stable=True)
+    depth = torch.arange(cap, device=dev) \
+        - torch.searchsorted(tsort, tsort)
+    hit = tsort < Np
+    depth_needed = torch.where(hit, depth + 1, torch.zeros_like(depth)).max()
+    fits = hit & (depth < K)
+    pos = torch.where(fits, depth * Np + tsort, _spread(cap, cap, dev))
+    out = torch.full((cap + 1024,), -1, dtype=torch.int32, device=dev)
+    out[pos] = flat[order].to(torch.int32)
+    return out[:cap].reshape(K, Np), depth_needed
 
 
 def build_route_tables(idx, mask, mirror, owner, n: int, K: int, NW: int,

@@ -15,7 +15,8 @@ from . import build
 
 #: kernel launches (one per call that reached the CUDA kernel)
 launches = 0
-MAX_W = 1024        # 32 keys per lane in registers
+MAX_W = 1024        # 8 float4 of keys per lane in registers
+MAX_K = 128         # 4 outputs per lane
 
 
 def select_k_ref(keys, k, payloads=()):
@@ -35,8 +36,9 @@ def select_k(keys, k, payloads=()):
     """(pos [N, k] int32, *payloads at pos [N, k]).
 
     keys [N, W] float; on CUDA W must be a multiple of 128 and at most
-    MAX_W, and at most two float32 payloads ride along.
-    CPU tensors take the twin; CUDA float32 tensors the kernel."""
+    MAX_W, k at most MAX_K, keys 16-byte aligned, and at most two float32
+    payloads ride along.  CPU tensors take the twin; CUDA float32 tensors
+    the kernel."""
     global launches
     if not build.use_kernel(keys, "select_k"):
         return select_k_ref(keys, k, payloads)
@@ -44,8 +46,12 @@ def select_k(keys, k, payloads=()):
     if W % 128 or W > MAX_W:
         raise ValueError(f"select_k: W={W} must be a multiple of 128 and "
                          f"<= {MAX_W}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"select_k: k={k} outside [1, {MAX_K}]")
     if len(payloads) > 2:
         raise ValueError("select_k: at most two payloads")
+    if keys.data_ptr() % 16:
+        raise ValueError("select_k: keys not 16-byte aligned")
     dev, f32 = keys.device, torch.float32
     kp = build.check(keys, "keys", (N, W), f32, dev)
     pp = [build.check(p, f"payload{i}", (N, W), f32, dev)

@@ -22,9 +22,9 @@ and LPT_REACT flags) are constructor arguments here:
   * combine="pin" / "pin2": the stacked cotangent table goes through the
     layout-pin copy (ops/pin.py) as [R, 128] / [K, 3 Np], then a gather at
     mirT and the K sums in torch;
-  * combine="react": the rebuild-time route tables and the block-sparse
-    reaction combine (ops/react.py, kernel G); the Engine builds the
-    tables, and a geometry its gate refuses raises (react_gate=False
+  * combine="react": the rebuild-time route tables, turned target-major,
+    and the block-sparse reaction combine (ops/react.py, kernel G); the
+    Engine builds the tables, and a geometry its gate refuses raises (react_gate=False
     builds them at any size).
 
 Energy and virial (thermo rows) are autograd of `energy`.
@@ -371,10 +371,10 @@ class REBOMoS(PairStyle):
                                        mirv)[:N]
         gx, gy, gz = rebo_cotangents(*planes, self._rebo_consts)
         if self.combine == "react":
-            if rebo.route is None:
+            if rebo.rtgt is None:
                 raise RuntimeError("combine='react' needs the rebuild's "
                                    "route tables (Engine builds them)")
-            return react_combine(gx, gy, gz, rebo.rblocks, rebo.route)[:N]
+            return react_combine(gx, gy, gz, rebo.rtgt)[:N]
         if self.combine in ("pin", "pin2"):
             K, Np = gx.shape
             pin = pin_rows3 if self.combine == "pin" else pin_rows3_v2

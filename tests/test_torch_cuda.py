@@ -13,8 +13,14 @@ scene with route tables (numpy seeds), made on the CPU in float32 and
 moved to the card.  Bars are the JAX suite's: REBO 5e-4 x scale, mirror,
 mirror rows and reaction combine 1e-5 x scale, LJ 2e-4 x scale (and the
 Newton-half kernel within 3e-4 x scale of the full one) and energy 2e-5
-relative, select-k and the pin copy exact.  The REBO kernel is checked
-with the synthetic parameters and with degree-6 g and gamma polynomials,
+relative, select-k, the fused candidate selection and the pin copy exact.
+Select-k also runs on rows with 0, fewer than K, exactly 32, more than 32
+and all-tied hits; the candidate selection on the arguments of the 72-atom
+and the sorted 2,304-atom CPU rebuilds (the latter also with fine cells
+too small, so that they overflow), against its twin on the card and on
+the CPU.  The reaction combine reads the rebuild's target-major table.
+The REBO kernel is checked with the synthetic parameters and with
+degree-6 g and gamma polynomials,
 its emit_rows table bit for bit against its planes, and on synthetic
 planes at K = 8, 16, 20, 36 and 64 that hold atoms with no live edge,
 masked-in slots past rcmax and (K > 32) atoms with more than 32 live
@@ -26,10 +32,13 @@ tiles, cells of up to seven warps' tiles), slots permuted at random
 within each cell (culling needs no order), cells so large that whole
 tiles and groups are culled, and cells that hold only pads; every case
 reruns bit-identically.  An Engine on the card, built with default
-arguments, launches the main path's four kernels and refuses the host
+arguments, launches the main path's four kernels (the rebuild's fused
+candidate selection, not the standalone select-k) and refuses the host
 build and the autograd force fallback; one per force configuration
 launches that configuration's kernels.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -42,12 +51,12 @@ from lammps_plugins_tpu_torch.fixes.nve import FixNVE
 from lammps_plugins_tpu_torch.neighbor.build import build_neighbor_data
 from lammps_plugins_tpu_torch.ops import (lj_cells, lj_half, mirror,
                                           mirror_rows, pin, react, rebo,
-                                          select_k)
+                                          select_candidates, select_k)
 from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
 from lammps_plugins_tpu_torch.run.simulation import Engine
 from torch_parity import (SYNTH_REBO, cuda, permute_cell_slots,  # noqa: F401
-                          sextic_tables, synthetic_lj_planes,
-                          synthetic_rebo_planes)
+                          rebuild_with_spy, sextic_tables,
+                          synthetic_lj_planes, synthetic_rebo_planes)
 
 pytestmark = pytest.mark.cuda
 
@@ -305,10 +314,85 @@ def test_select_k_kernel_matches_twin_exactly(cuda):
     assert (out_k[0][0] == keys.shape[1]).all()
 
 
+@pytest.mark.parametrize("hits,K,W", [
+    (0, 16, 512), (5, 16, 512), (32, 16, 512), (33, 16, 512),
+    (200, 16, 512), (32, 40, 512), (100, 40, 1024), (300, 128, 384),
+    ("tied", 16, 512), ("tied", 40, 128), ("tied", 20, 1024)])
+def test_select_k_kernel_by_hits_per_row(cuda, hits, K, W):
+    """Rows with 0, fewer than K, exactly 32, more than 32 and all-tied
+    finite keys (the bitonic branch up to 32, the argmin rounds past it),
+    K above 32 too: positions and payloads exact, reruns identical."""
+    N = 67
+    rng = np.random.default_rng(W + K)
+    keys = np.full((N, W), np.inf, np.float32)
+    for r in range(N):
+        n = min(W, rng.integers(1, 90)) if hits == "tied" else hits
+        cols = rng.choice(W, size=n, replace=False)
+        keys[r, cols] = (1.5 if hits == "tied"
+                         else np.round(rng.uniform(0.0, 4.0, n) * 4.0) / 4.0)
+    ids = rng.integers(0, 2 ** 24, (N, W)).astype(np.float32)
+    typ = rng.integers(1, 3, (N, W)).astype(np.float32)
+    keys, ids, typ = (torch.as_tensor(a, device=cuda)
+                      for a in (keys, ids, typ))
+    before = select_k.launches
+    out_k = select_k.select_k(keys, K, payloads=(ids, typ))
+    torch.cuda.synchronize()
+    assert select_k.launches == before + 1
+    out_t = select_k.select_k_ref(keys, K, payloads=(ids, typ))
+    again = select_k.select_k(keys, K, payloads=(ids, typ))
+    for a, b, c in zip(out_k, out_t, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
 def test_select_k_kernel_rejects_wide_rows(cuda):
     keys = torch.zeros((4, select_k.MAX_W + 128), device=cuda)
     with pytest.raises(ValueError):
         select_k.select_k(keys, 8)
+
+
+def _candidate_call(scene, cand_capacity=None):
+    """The arguments and CPU (twin) result of the select_candidates call of
+    a float32 CPU rebuild: the jiggled 72-atom scene or the jiggled, sorted
+    2,304-atom one; cand_capacity cuts the fine cells (overflow)."""
+    sort = scene == "sorted2k"
+    nxyz = (12, 16, 2) if sort else (3, 4, 1)
+    st = rebomos_bulk_commensurate(*nxyz, dtype=torch.float32, device="cpu",
+                                   sort=sort)
+    rng = np.random.default_rng(6 if sort else 4)
+    x = st.x.numpy() + rng.uniform(-0.1, 0.1, st.x.shape)
+    st = st.replace(x=torch.as_tensor(x, dtype=torch.float32))
+    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float32,
+                             device="cpu")
+    eng = Engine(st, pair, [FixNVE()], units.METAL)
+    eng.rebuild_neighbors()
+    plan = eng._plan
+    if cand_capacity:
+        plan = dataclasses.replace(plan, cand_capacity=cand_capacity)
+    st = eng.state
+    (_, _, _, flags), calls = rebuild_with_spy(
+        plan, st.x, st.image, st.type, *eng._box_dev,
+        pair.neighbor_requests())
+    assert bool(flags["candcell_overflow"]) == bool(cand_capacity)
+    return calls[0]
+
+
+@pytest.mark.parametrize("scene,cap", [("small", None), ("sorted2k", None),
+                                       ("sorted2k", 4)])
+def test_select_candidates_kernel_matches_twin_exactly(cuda, scene, cap):
+    """D' on the card: idx, jtype, mask and kmax equal to its twin's on the
+    card and on the CPU, element for element; reruns identical."""
+    args, out_cpu = _candidate_call(scene, cap)
+    dargs = [a.to(cuda) if torch.is_tensor(a) else a for a in args]
+    before = select_candidates.launches
+    out_k = select_candidates.select_candidates(*dargs)
+    torch.cuda.synchronize()
+    assert select_candidates.launches == before + 1
+    out_t = select_candidates.select_candidates_ref(*dargs)
+    again = select_candidates.select_candidates(*dargs)
+    for a, b, c, d in zip(out_k, out_t, out_cpu, again):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c) \
+            and torch.equal(a, d)
+    assert int(out_k[3]) > 0
 
 
 @pytest.fixture(scope="module")
@@ -360,17 +444,19 @@ def test_react_kernel_matches_twin_and_is_deterministic(cuda, sorted2k):
     _, _, nbr = sorted2k
     rl = nbr.lists["rebo"]
     g = _planes_2k(sorted2k, cuda)
-    rb, rt = rl.rblocks.to(cuda), rl.route.to(cuda)
+    rb, rt, tg = (t.to(cuda) for t in (rl.rblocks, rl.route, rl.rtgt))
     before = react.launches
-    fk = react.react_combine(*g, rb, rt)
+    fk = react.react_combine(*g, tg)
     torch.cuda.synchronize()
     assert react.launches == before + 1
-    ft = react.react_combine_ref(*g, rb, rt)
+    ft = react.react_combine_target_ref(*g, tg)
     scale = float(ft.abs().max())
     assert scale > 1e-3
     assert float((fk - ft).abs().max()) <= 1e-5 * scale
-    assert torch.equal(fk, react.react_combine(*g, rb, rt))
-    # the same forces as the mirror gather
+    assert torch.equal(fk, react.react_combine(*g, tg))
+    # the same forces as the route tables' twin and the mirror gather
+    fr = react.react_combine_ref(*g, rb, rt)
+    assert float((fk - fr).abs().max()) <= 1e-5 * scale
     fm = mirror.mirror_combine(*g, rl.mirT.to(cuda), rl.mirvT.float().to(cuda))
     assert float((fk - fm).abs().max()) <= 1e-5 * scale
 
@@ -451,8 +537,7 @@ def test_new_wrappers_reject_float64(cuda, sorted2k):
             mv),
         lambda: lj_half.lj_cell_forces_half(P, pair._lj_consts,
                                             nbr.cells.a_range),
-        lambda: react.react_combine(*g, rl.rblocks.to(cuda),
-                                    rl.route.to(cuda)),
+        lambda: react.react_combine(*g, rl.rtgt.to(cuda)),
         lambda: rebo.rebo_cotangents(
             *[p.double() for p in _planes(pair, st, nbr, cuda)],
             pair._rebo_consts, emit_rows=True)]
@@ -471,7 +556,8 @@ def test_configuration_on_card_launches_its_kernels(cuda, config, mods):
     configuration's kernels launch and its step-0 forces are within
     3e-4 x scale of the default configuration's."""
     import lammps_plugins_tpu_torch.ops as ops_pkg
-    modules = [getattr(ops_pkg, m) for m in mods] + [rebo, select_k]
+    modules = [getattr(ops_pkg, m) for m in mods] + [rebo,
+                                                     select_candidates]
     for m in modules:
         m.launches = 0
     st = rebomos_bulk_commensurate(12, 16, 2, dtype=torch.float32,
@@ -494,9 +580,12 @@ def test_configuration_on_card_launches_its_kernels(cuda, config, mods):
 
 def test_engine_on_card_launches_every_kernel(cuda):
     """A short f32 run of the 288-atom scene on the card, Engine built
-    with default arguments, goes through all four kernels and stays within
-    1e-2 RMS(F) of the f64 CPU forces."""
-    mods = (rebo, mirror, lj_cells, select_k)
+    with default arguments, goes through all four kernels of the main path
+    (REBO, mirror combine, LJ sweep, the rebuild's fused candidate
+    selection) and no standalone select_k, and stays within 1e-2 RMS(F) of
+    the f64 CPU forces."""
+    mods = (rebo, mirror, lj_cells, select_candidates)
+    select_k.launches = 0
     for m in mods:
         m.launches = 0
     pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float32,
@@ -505,6 +594,7 @@ def test_engine_on_card_launches_every_kernel(cuda):
                  [FixNVE()], units.METAL)
     rows = eng.run(20, thermo_every=10)
     assert all(m.launches > 0 for m in mods)
+    assert select_k.launches == 0
     assert all(np.isfinite(r["etotal"]) for r in rows)
     f64 = dict(dtype=torch.float64, device="cpu")
     ref = Engine(rebomos_bulk(**f64),

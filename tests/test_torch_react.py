@@ -3,8 +3,11 @@
 On the JAX package's own lists of the jiggled 288-atom scene (three
 128-atom chunks): the port's build_route_tables equals JAX's output
 exactly (counts-only mode too), every valid edge is routed exactly once to
-the owner of its neighbour, and the twin of react_combine matches the JAX
-kernel (interpret mode) on the JAX REBO kernel's cotangents, 1e-5 x scale.
+the owner of its neighbour, route_by_target lists each routed entry once
+under its target in (window, row, column) order within K rows, and both
+twins (the target table's and the route tables') match the JAX kernel
+(interpret mode) on the JAX REBO kernel's cotangents, 1e-5 x scale, and
+each other in float64 to 1e-12.
 The Engine: the first rebuild only measures, the plan then carries the
 same route capacities as the JAX Engine under LPT_REACT=force, and a
 combine="react" that the gate refuses raises.  REBOMoS.forces with
@@ -21,7 +24,7 @@ import torch
 from lammps_plugins_tpu_torch import convert
 from lammps_plugins_tpu_torch.ops import react
 from torch_parity import (assert_same_trajectory, config_forces_rel_err,
-                          jax_engine, port_engine, run_20_steps)
+                          jax_engine, port_engine, rel_err, run_20_steps)
 
 
 @pytest.fixture(scope="module")
@@ -111,13 +114,17 @@ def test_twin_matches_pallas_react_combine(lists):
                                          n, K, *caps)[:3]
     f_jax = np.asarray(react_combine(*g, rb, qoff, route, QR=caps[2],
                                      interpret=True))
-    f_port = react.react_combine(
-        *(torch.from_numpy(np.array(a)) for a in g),
-        torch.from_numpy(np.array(rb)),
-        torch.from_numpy(np.array(route))).numpy()
+    gt = [torch.from_numpy(np.array(a)) for a in g]
+    rb_t, route_t = (torch.from_numpy(np.array(a)) for a in (rb, route))
+    rtgt, _ = react.route_by_target(rb_t, route_t, K, Np)
     scale = np.abs(f_jax).max()
     assert scale > 1e-3
-    np.testing.assert_allclose(f_port, f_jax, atol=1e-5 * scale, rtol=0)
+    # the wrapper (the twin of the target-table kernel on the CPU) and the
+    # route-table twin
+    for f_port in (react.react_combine(*gt, rtgt),
+                   react.react_combine_ref(*gt, rb_t, route_t)):
+        np.testing.assert_allclose(f_port.numpy(), f_jax, atol=1e-5 * scale,
+                                   rtol=0)
 
 
 def test_engine_route_capacities_match_jax(monkeypatch):
@@ -172,3 +179,56 @@ def test_sorted_scene_matches_jax(monkeypatch):
     unsorted = rebomos_bulk_commensurate(4, 6, 2, dtype=torch.float64,
                                          device="cpu")
     assert not np.array_equal(ps.x.numpy(), unsorted.x.numpy())
+
+
+def _routed_by_target(rblocks, route, Np):
+    """{target atom: [flat plane index k * Np + source, ...]} of the route
+    tables, each target's entries in table order (window, row, column)."""
+    r = route.long()
+    out = {}
+    for c, w, kc, col in zip(*(a.tolist() for a in
+                               torch.nonzero(r >= 0, as_tuple=True))):
+        v = int(r[c, w, kc, col])
+        src = int(rblocks[c, w]) * 128 + col
+        out.setdefault(c * 128 + (v & 255), []).append((v >> 8) * Np + src)
+    return out
+
+
+def test_route_by_target_lists_each_entry_once_in_order(lists):
+    """Every routed entry once, under its target, in (window, row, column)
+    order, within K rows; a table cut short keeps each target's first
+    entries and reports the depth it needed."""
+    _, _, _, pn, caps = lists
+    pl = pn.lists["rebo"]
+    n, K = pl.idx.shape
+    Np = -(-n // 128) * 128
+    rblocks, _, route = _port_tables(lists, caps)[:3]
+    expect = _routed_by_target(rblocks, route, Np)
+    assert sum(len(v) for v in expect.values()) \
+        == int((pl.mask & (pl.mirror >= 0)).sum()) > 0
+    depth = max(len(v) for v in expect.values())
+    assert depth <= K
+    for Dt in (K, depth - 1):
+        rtgt, need = react.route_by_target(rblocks, route, Dt, Np)
+        assert rtgt.shape == (Dt, Np) and rtgt.dtype == torch.int32
+        assert int(need) == depth
+        for t in range(Np):
+            want = expect.get(t, [])[:Dt]
+            col = rtgt[:, t].tolist()
+            assert col == want + [-1] * (Dt - len(want))
+
+
+def test_target_twin_matches_route_twin_f64(lists):
+    """On seeded float64 planes the target-table twin (and the wrapper on
+    the CPU, which takes it) equals the route-table twin to 1e-12."""
+    _, _, _, pn, caps = lists
+    n, K = pn.lists["rebo"].idx.shape
+    Np = -(-n // 128) * 128
+    rblocks, _, route = _port_tables(lists, caps)[:3]
+    rtgt, _ = react.route_by_target(rblocks, route, K, Np)
+    rng = np.random.default_rng(11)
+    g = [torch.from_numpy(rng.normal(size=(K, Np))) for _ in range(3)]
+    f_r = react.react_combine_ref(*g, rblocks, route).numpy()
+    for f in (react.react_combine_target_ref(*g, rtgt),
+              react.react_combine(*g, rtgt)):
+        assert rel_err(f.numpy(), f_r) <= 1e-12

@@ -137,6 +137,27 @@ def sextic_tables():
     return dataclasses.replace(t, b=b, bg=bg)
 
 
+def rebuild_with_spy(plan, x, image, types, h, h_inv, lo, requests):
+    """The port's device_rebuild, recording the arguments and results of
+    each select_candidates call: (rebuild output, [(args, result)])."""
+    from lammps_plugins_tpu_torch.neighbor import device_build as pdb
+    calls = []
+    real = pdb.select_candidates
+
+    def spy(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+
+    pdb.select_candidates = spy
+    try:
+        out = pdb.device_rebuild(plan, x, image, types, h, h_inv, lo,
+                                 requests)
+    finally:
+        pdb.select_candidates = real
+    return out, calls
+
+
 def rel_err(a, b):
     """max |a - b| / max |b|."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)

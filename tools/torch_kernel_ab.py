@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Two or more builds of the REBO cotangent kernel (A), the pin copy (H)
-and the LJ cell sweeps (C, E) on one card, on the same inputs, timed in
-turns.
+"""Two or more builds of the REBO cotangent kernel (A), the pin copy (H),
+the LJ cell sweeps (C, E), select-k (D), the rebuild's candidate
+selection (D') and the reaction combine (G) on one card, on the same
+inputs, timed in turns.
 
     python3 tools/torch_kernel_ab.py --tree LABEL=PATH [--tree ...]
         [--reps 60] [--k 16,20]
@@ -15,19 +16,26 @@ ctypes with the same arguments (their C signatures are unchanged since
 the first port), and lpt_lj_cell_forces / lpt_lj_cell_forces_half with
 the arguments of the tree's own signature (the tile-culling designs
 take a packing scratch and Dx as two trailing arguments, the first
-designs do not; read from the tree's ops/build.py).
+designs do not; read from the tree's ops/build.py); likewise
+lpt_react_combine (the route-scan design reads the route tables, the
+target-table design rtgt).  lpt_select_k keeps one signature; a tree
+without lpt_select_candidates takes the candidate selection's unfused
+path (this tree's torch-built keys, then that tree's select_k).
 
 Inputs come from this tree: the 97,920-atom bench scene
 (chip_smoke.bench_engine) after one rebuild.  A runs on the rebuild's
 [K, Np] planes and on the same planes padded with empty slots to each
 larger K of --k (what the Engine's K re-size gives); H on chip_smoke's
 three phase-1 shapes; C (with and without the energy row) and E on the
-scene's packed cell planes.  Every launch of every build is timed with CUDA
+scene's packed cell planes; D on chip_smoke's seeded candidate-like keys,
+D' on the arguments of the bench rebuild's select_candidates call, G on
+the route tables of the spatially sorted scene's rebuild.  Every launch
+of every build is timed with CUDA
 events, one launch each per turn, the order reversed every other turn,
 and clone() takes its turn beside the pin copies; the medians of --reps
 turns are printed with each build's max error against this tree's twin
-(A, C, E) or exactness (H), and one line `RESULT {json}` with the card's
-name and power limit.
+(A, C, E, G) or exactness (H, D, D'; G's bit-identity with this tree's),
+and one line `RESULT {json}` with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -69,7 +77,7 @@ def main():
             print(b.build_log, file=sys.stderr)
 
     eng = cs.bench_engine(dev)
-    eng.rebuild_neighbors()
+    cand_args = cs.capture_candidate_calls(eng)[-1]
     pair, st, nbr = eng.pair, eng.state, eng.nbr
     planes0 = pair._rebo_planes(st.x, pair.el_of_type[st.type], nbr.ghosts,
                                 nbr.lists["rebo"], st.box.h)
@@ -150,6 +158,8 @@ def main():
             f"{lab} {t:.4f} ms" for lab, t in ms.items())
             + f"; exact {exact}; bound {b_ms:.4f} ms")
     out["lj"] = time_lj(builds, eng, args.reps, cs)
+    del eng, planes0, g, stacked, flat, shapes
+    out.update(time_select_react(builds, cand_args, K0, args.reps, cs, dev))
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -192,6 +202,64 @@ def time_lj(builds, eng, reps, cs):
             f"{lab} {ms[lab]:.4f} ms (err {errs[lab]:.3e}"
             + (f", energy rel {e_rel[lab]:.2e}" if e_rel else "") + ")"
             for lab in fns) + f"; bar {bar:.3e}")
+    return res
+
+
+
+def time_select_react(builds, cand_args, K, reps, cs, dev):
+    """D on chip_smoke's keys, D' (or the unfused path) on the bench
+    rebuild's arguments, G on the sorted scene's tables, every build in
+    turns; each build's outputs against this tree's."""
+    import torch
+    from lammps_plugins_tpu_torch.ops import (react, rebo,
+                                              select_candidates, select_k)
+    res = {}
+    N = cand_args[2].shape[0]
+    W = -(-27 * cand_args[1].shape[1] // 128) * 128
+    keys, ids, typ = cs.select_k_keys(dev, N, W)
+    ref = select_k.select_k_ref(keys, K, (ids, typ))
+    fns = {lab: cs.select_k_launcher(b, keys, K, (ids, typ))
+           for lab, b in builds.items()}
+    exact = {lab: all(torch.equal(a, r) for a, r in zip(fn(), ref))
+             for lab, fn in fns.items()}
+    ms = cs.interleaved_ms(fns, reps)
+    res["select_k"] = dict(ms=ms, exact=exact, N=N, W=W, K=K)
+    print("select_k: " + ", ".join(f"{lab} {t:.4f} ms" for lab, t in
+                                   ms.items()) + f"; exact {exact}")
+    del keys, ids, typ, ref, fns
+
+    ref = select_candidates.select_candidates_ref(*cand_args)
+    fns, design = {}, {}
+    for lab, b in builds.items():
+        fns[lab], design[lab] = cs.candidates_launcher(b, cand_args)
+    exact = {lab: all(torch.equal(a, r) for a, r in zip(fn(), ref))
+             for lab, fn in fns.items()}
+    ms = cs.interleaved_ms(fns, reps)
+    res["select_candidates"] = dict(ms=ms, exact=exact, design=design)
+    print("select_candidates: " + ", ".join(
+        f"{lab} ({design[lab]}) {t:.4f} ms" for lab, t in ms.items())
+        + f"; exact {exact}")
+    del ref, fns
+
+    eng = cs.bench_engine(dev, sort=True, combine="react", react_gate=False)
+    eng.rebuild_neighbors()
+    pair, st, nbr = eng.pair, eng.state, eng.nbr
+    rl = nbr.lists["rebo"]
+    planes = pair._rebo_planes(st.x, pair.el_of_type[st.type], nbr.ghosts,
+                               rl, st.box.h)
+    g3 = rebo.rebo_cotangents(*planes, pair._rebo_consts)
+    mine = react.react_combine(*g3, rl.rtgt)
+    ref = react.react_combine_ref(*g3, rl.rblocks, rl.route)
+    fns = {lab: cs.react_launcher(b, g3, rl) for lab, b in builds.items()}
+    errs = {lab: float((fn() - ref).abs().max()) for lab, fn in fns.items()}
+    same = {lab: bool(torch.equal(fn(), mine)) for lab, fn in fns.items()}
+    ms = cs.interleaved_ms(fns, reps)
+    bar = 1e-5 * float(ref.abs().max())
+    res["react_combine"] = dict(ms=ms, max_abs_err=errs, bar=bar,
+                                bit_identical_to_this=same)
+    print("react_combine: " + ", ".join(
+        f"{lab} {ms[lab]:.4f} ms (err {errs[lab]:.3e}, same as this "
+        f"{same[lab]})" for lab in fns) + f"; bar {bar:.3e}")
     return res
 
 

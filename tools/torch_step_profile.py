@@ -16,7 +16,9 @@ defaults.  After 100 warm-up steps of the 97,920-atom scene
 (chip_smoke.bench_engine) it measures
 
   * atom-steps/s of 3 runs of 1,000 steps with their rebuild counts,
-  * host-clock ms per rebuild (5 reps),
+  * host-clock ms per rebuild (5 reps), and torch.profiler over 3 more
+    rebuilds: device ms per rebuild and its kernels by device time (the
+    rebuild's breakdown; every gather kernel listed by name),
   * host-clock ms per step without a rebuild (3 reps of 10 segments of
     check_every steps), then torch.profiler device time per step over 10
     more such segments, and the idle share 1 - device / wall,
@@ -92,6 +94,17 @@ def main():
         ms = clock(lambda: eng.run(1000), 1)
         runs.append((natoms * 1000 / (ms * 1e-3), eng.rebuilds - rb0))
     rebuild_ms = [clock(eng.rebuild_neighbors, 1) for _ in range(5)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            eng.rebuild_neighbors()
+        torch.cuda.synchronize()
+    rebuild_ops = sorted(
+        ([e.key, e.self_device_time_total / 3e3, e.count / 3]
+         for e in prof.key_averages() if e.self_device_time_total > 0),
+        key=lambda r: -r[1])
+    print("rebuild, device ms per rebuild by kernel:")
+    for name, ms, count in rebuild_ops[:25]:
+        print(f"  {ms:9.4f} ms  x{count:5.1f}  {name[:110]}")
     # wall and device time of the same plan (K), back to back
     segment()
     step_ms = [clock(segment, 10) / seg for _ in range(3)]
@@ -122,6 +135,10 @@ def main():
         label=args.label, config=config, natoms=natoms,
         k_caps=dict(eng._plan.k_caps),
         step_ms_no_rebuild=step_ms, rebuild_ms=rebuild_ms,
+        rebuild_device_ms=sum(r[1] for r in rebuild_ops),
+        rebuild_ops=[[n[:120], ms, c] for n, ms, c in rebuild_ops[:25]],
+        rebuild_gathers={n[:120]: ms for n, ms, _ in rebuild_ops
+                         if "gather" in n.lower()},
         run1000_atom_steps_per_s=[r for r, _ in runs],
         run1000_rebuilds=[n for _, n in runs],
         run1000_median=statistics.median(r for r, _ in runs),
