@@ -30,16 +30,24 @@ Phases (any failure raises, so the script exits non-zero):
   2. f32 forces of the 288-atom scene on the card (device rebuild +
      kernels) against the float64 CPU twin forces: max|dF| < 1e-2 RMS(F)
   3. the main path: Engine.run on the 97,920-atom scene (f32, skin 0.8,
-     check every 10 steps, 300 K from seed 12345) with every launch
-     counter reset first; asserts that each kernel launched, that the
-     thermo is finite and the NVE drift < 1e-6 eV/step/atom; then three
-     timed 1,000-step runs for atom-steps/s (median and range); then the
-     REBO kernel against its twin again on the run's own lists at the
-     run's re-sized K
+     check every 10 steps, 300 K from seed 12345) through the device
+     loop's CUDA graphs (the default on the card: the rebuild under a
+     conditional node, one host read per span), with every launch counter
+     reset first (the wrappers count graph replays); asserts that each
+     kernel launched, that the thermo is finite, the NVE drift < 1e-6
+     eV/step/atom, and that x, v, f, image and the rebuild count after the
+     300 steps equal an eager Engine's (fused_loop=False) from the same
+     start bit for bit; then the graph and the eager loop in turns: three
+     timed 1,000-step windows each (atom-steps/s, wall ms per step), one
+     torch.profiler run of 1,000 steps each (device ops, host launch calls
+     and host syncs, device ms per step, hence the idle share; A, B, C and
+     D' must show by name in the graph loop's profile), host-clock ms per
+     rebuild, the peak memory (line `LOOPS {json}`); then the REBO kernel
+     against its twin again on the run's own lists at the run's K
   4. the other force configurations at the same width, each its own
-     Engine: lj="half" with combine="rows", combine="react" on the
-     spatially sorted scene (gate off), combine="pin", combine="pin2".
-     Each: step-0
+     Engine through the graph loop: lj="half" with combine="rows",
+     combine="react" on the spatially sorted scene (gate off),
+     combine="pin", combine="pin2".  Each: step-0
      forces within 3e-4 x scale of the default configuration's on the
      same state, then with the counters reset 300 steps in which each of
      its kernels launches and no kernel it replaces does, finite thermo,
@@ -55,6 +63,7 @@ power limit (nvidia-smi), and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import statistics
@@ -829,8 +838,152 @@ def phase2_f32_accuracy(dev):
         raise AssertionError("f32 forces outside 1e-2 RMS(F)")
 
 
+#: the kernels (by the names the profiler shows) that must run inside the
+#: main path's graph replays: A, B, C and D'
+GRAPH_KERNELS = ("rebo_cotangents_kernel", "mirror_combine_kernel",
+                 "lj_cells_kernel", "select_candidates_kernel")
+#: host calls that launch device work, and host calls that wait for it
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
+                "cudaGraphLaunch")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+PROFILE_STEPS = 1000
+REBUILD_REPS = 10
+
+
+def profile_run(eng, steps):
+    """torch.profiler over eng.run(steps): device ops (kernels, copies,
+    sets) executed per step and their device ms per step, host launch
+    calls per step (kernels, copies, sets and graph launches), host syncs
+    per 1,000 steps (the one closing the window left out), and the device
+    ops by name."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.run(steps)
+        torch.cuda.synchronize()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = [e for e in events if e.device_type == cuda]
+    calls = collections.Counter(e.name for e in events
+                                if e.device_type != cuda
+                                and e.name.startswith("cu"))
+    return dict(
+        device_ops_per_step=len(ops) / steps,
+        host_launch_calls_per_step=sum(calls[c] for c in LAUNCH_CALLS)
+        / steps,
+        graph_launches_per_step=calls["cudaGraphLaunch"] / steps,
+        syncs_per_1000_steps=(sum(calls[c] for c in SYNC_CALLS) - 1)
+        * 1000 / steps,
+        device_ms_per_step=sum(e.time_range.elapsed_us() for e in ops)
+        / steps / 1e3,
+        host_calls=dict(sorted(calls.items())),
+        device_ops=collections.Counter(e.name[:100] for e in ops))
+
+
+def graph_rebuild_ms(eng, reps=REBUILD_REPS):
+    """Wall ms that a rebuild adds to one iteration of the graph loop:
+    reps replays with the rebuild's flag set before each, less reps with
+    it cleared, host clock; the Engine's bookkeeping follows the replays."""
+    loop = eng._device_loop()
+    eng.state = loop.start(eng.state, eng.nbr, False, eng._seg_dprev)
+    eng.nbr = loop.nbr
+
+    def timed(pending):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            loop.pending.fill_(pending)
+            loop.replay(1)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps
+
+    with_rb, without = timed(True), timed(False)
+    res = loop.read()
+    eng.state = eng.state.replace(step=loop.step0 + res.done)
+    eng._pending_rebuild, eng._seg_dprev = res.pending, res.dprev
+    eng.rebuilds += res.n_rb
+    return 1e3 * (with_rb - without)
+
+
+def eager_rebuild_ms(eng, reps=REBUILD_REPS):
+    """Host-clock ms of rebuild_neighbors() (its flags copy included)."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.rebuild_neighbors()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def loop_numbers(engines, gpu):
+    """The graph and the eager loop in turns on their own Engines (same
+    scene): three 1,000-step windows each, one profiled 1,000-step run each,
+    then host-clock ms per rebuild; idle share = 1 - device ms / wall ms
+    per step (device ms from the profile, wall from the windows)."""
+    natoms = next(iter(engines.values())).state.natoms
+    out = {name: dict(windows=[], wall_ms_per_step=[], rebuilds=[])
+           for name in engines}
+    names = list(engines)
+    for rep in range(TIMED_REPS):
+        for name in (names if rep % 2 == 0 else names[::-1]):
+            eng, o = engines[name], out[name]
+            rb0 = eng.rebuilds
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run(TIMED_STEPS)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            o["windows"].append(natoms * TIMED_STEPS / dt)
+            o["wall_ms_per_step"].append(1e3 * dt / TIMED_STEPS)
+            o["rebuilds"].append(eng.rebuilds - rb0)
+    for name in names:
+        out[name].update(profile_run(engines[name], PROFILE_STEPS))
+    for name in names:
+        o = out[name]
+        o["idle_share"] = [1.0 - o["device_ms_per_step"] / w
+                           for w in o["wall_ms_per_step"]]
+        o["rebuild_host_ms"] = (graph_rebuild_ms(engines[name])
+                                if name == "graph"
+                                else eager_rebuild_ms(engines[name]))
+    for name in names:
+        o = out[name]
+        print(f"{name} loop on {gpu}: atom-steps/s "
+              f"{', '.join(f'{r:.6g}' for r in o['windows'])} (median "
+              f"{statistics.median(o['windows']):.6g}; rebuilds "
+              f"{o['rebuilds']}); wall ms/step "
+              f"{', '.join(f'{w:.4f}' for w in o['wall_ms_per_step'])}; "
+              f"device ms/step {o['device_ms_per_step']:.4f}; idle share "
+              f"{', '.join(f'{i:.3f}' for i in o['idle_share'])}; device "
+              f"ops/step {o['device_ops_per_step']:.1f}; host launch calls/"
+              f"step {o['host_launch_calls_per_step']:.2f} (graph launches "
+              f"{o['graph_launches_per_step']:.3f}); host syncs per 1,000 "
+              f"steps {o['syncs_per_1000_steps']:.1f}; host-clock ms per "
+              f"rebuild {o['rebuild_host_ms']}")
+        print(f"  {name} host calls in {PROFILE_STEPS} steps: "
+              f"{o['host_calls']}")
+    graph_ops = out["graph"]["device_ops"]
+    seen = {k: any(k in op for op in graph_ops) for k in GRAPH_KERNELS}
+    print(f"graph loop profile: kernels by name {seen}")
+    if not all(seen.values()):
+        raise AssertionError(f"kernels missing from the graph loop's "
+                             f"profile: {seen}")
+    if out["graph"]["host_calls"].get("cudaGraphLaunch", 0) == 0:
+        raise AssertionError("the graph loop's profile shows no graph "
+                             "launch")
+    for o in out.values():
+        del o["device_ops"]
+    return out
+
+
 def phase3_main_path(dev, modules):
-    """Engine.run on the bench scene; every kernel must launch in it."""
+    """Engine.run on the bench scene through the graph loop (the default);
+    every kernel must launch in it, and the state after RUN_STEPS must be
+    bit-identical to an eager Engine's from the same start."""
     eng = bench_engine(dev)
     natoms = eng.state.natoms
     torch.cuda.reset_peak_memory_stats()
@@ -841,31 +994,44 @@ def phase3_main_path(dev, modules):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: m.launches for name, m in modules.items()}
-    print(f"main run: {RUN_STEPS} steps in {wall:.2f} s (first rebuild, "
-          f"plan sizing and two thermo rows included), launches {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+    print(f"main run (graph loop): {RUN_STEPS} steps in {wall:.2f} s (first "
+          f"rebuild, plan sizing, capture and two thermo rows included), "
+          f"launches {launches}, rebuilds {eng.rebuilds}; peak memory "
+          f"{peak:.3f} GiB allocated, {peak_reserved:.3f} GiB reserved; "
+          f"memory_usage {eng.memory_usage()}; capture (warm-up, two "
+          f"captures, join, instantiate) {eng._loop.capture_s:.3f} s")
+    if eng._loop is None or eng._loop.exec is None:
+        raise AssertionError("the main path did not run through the graph")
     check_launches("main path", launches, MAIN_PATH)
     for r in rows:
         print(f"  step {r['step']} T {r['temp']:.6f} pe {r['pe']:.6f} "
               f"etotal {r['etotal']:.6f} press {r['press']:.4f}")
     check_run(eng, rows)
 
-    rates, rebuilds = [], []
-    for _ in range(TIMED_REPS):
-        rb0 = eng.rebuilds
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.run(TIMED_STEPS)
-        torch.cuda.synchronize()
-        rates.append(natoms * TIMED_STEPS / (time.perf_counter() - t0))
-        rebuilds.append(eng.rebuilds - rb0)
+    ref = bench_engine(dev)
+    ref.fused_loop = False
+    ref.run(RUN_STEPS, thermo_every=RUN_STEPS)
+    same = {a: bool(torch.equal(getattr(eng.state, a), getattr(ref.state, a)))
+            for a in ("x", "v", "f", "image")}
+    print(f"graph vs eager loop after {RUN_STEPS} steps: bit-identical "
+          f"{same}, rebuilds {eng.rebuilds} / {ref.rebuilds}, steps "
+          f"{eng.state.step} / {ref.state.step}")
+    if not all(same.values()) or eng.rebuilds != ref.rebuilds:
+        raise AssertionError("the graph loop's state differs from the "
+                             "eager loop's")
     gpu = sh("nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader")
-    print(f"steady runs: {TIMED_REPS} x {TIMED_STEPS} steps, atom-steps/s "
-          f"{', '.join(f'{r:.6g}' for r in rates)} (median "
-          f"{statistics.median(rates):.6g}, min {min(rates):.6g}, max "
-          f"{max(rates):.6g}; {natoms} atoms, f32) on {gpu}; rebuilds "
-          f"{rebuilds} in the timed runs; K={dict(eng._plan.k_caps)}; peak "
-          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    numbers = loop_numbers({"graph": eng, "eager": ref}, gpu)
+    print("LOOPS " + json.dumps(dict(gpu=gpu, natoms=natoms,
+                                     peak_gib=peak,
+                                     peak_reserved_gib=peak_reserved,
+                                     capture_s=eng._loop.capture_s,
+                                     k_caps=dict(eng._plan.k_caps),
+                                     **numbers)))
+    del ref
+    torch.cuda.empty_cache()
     return launches, rebo_at_run_k(eng)
 
 
@@ -958,7 +1124,11 @@ def phase4_configurations(dev, modules):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {m: mod.launches for m, mod in modules.items()}
-        print(f"  {RUN_STEPS} steps in {wall:.2f} s, launches {launches}")
+        print(f"  {RUN_STEPS} steps through the graph loop in {wall:.2f} s, "
+              f"launches {launches}")
+        if eng._loop is None or eng._loop.exec is None:
+            raise AssertionError(f"config {name} did not run through the "
+                                 "graph")
         check_launches(f"config {name}", launches, used)
         check_run(eng, rows)
         p = eng._plan

@@ -1,7 +1,12 @@
 """Fix interface (port of lammps_plugins_tpu/fixes/base.py).
 
 Hooks run in definition order as in Verlet::run; each maps State -> State
-without writing tensors in place.
+without writing tensors in place.  The Engine's device loop captures the
+hooks in a CUDA graph, which replays their device work and nothing else:
+a hook must compute from the state's tensors and the context's constants
+only, never from a value it reads back from the device or that changes on
+the host between steps.  A fix that cannot keep to this sets
+`capturable = False`, and the device loop refuses it.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ class Fix:
 
     name: str = "fix"
     time_integrate: bool = False
+    capturable: bool = True
 
     def setup(self, state: State, ctx: StepContext) -> State:
         return state

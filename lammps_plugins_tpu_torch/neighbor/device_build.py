@@ -11,17 +11,24 @@ table.  Every array has a shape fixed by the host-side RebuildPlan:
 compaction is a masked cumsum into a fixed capacity (no data-dependent
 `nonzero` shapes), and running past a capacity sets an overflow flag that
 the Engine checks, re-sizes and retries on.
+
+The rebuild reads no value on the host and copies nothing from it: the
+plan's geometry reaches the device once per plan, device and dtype
+(`rebuild_constants`), so that a CUDA graph can capture the whole rebuild
+(run/device_loop.py).  `flags_to_host` is the caller's one copy back.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from ..core.box import Box, matvec3
+from ..ops import build
 from ..ops.react import build_route_tables, route_by_target
 from ..ops.select_candidates import select_candidates
 from .build import CellData, NeighborData
@@ -257,7 +264,7 @@ def _bin_dense(x_all, valid_row, mn, size, dims, capacity, m_all,
     Returns (dense, c3, occupancy, overflow)."""
     dev = x_all.device
     ncells = dims[0] * dims[1] * dims[2]
-    hi = torch.tensor(dims, device=dev) - 1
+    hi = build.device_constants(tuple(dims), dev, torch.int64) - 1
     u = (x_all - mn) / size
     c3 = torch.floor(u).to(torch.int64)
     c3 = torch.minimum(torch.clamp(c3, min=0), hi)
@@ -313,16 +320,15 @@ def _inverse_shift_perm(shifts) -> np.ndarray:
     return inv
 
 
-def _mirror_table(idx, mask, owner, ghost_valid, sidx_ghost, inv_sidx, n,
-                  K):
+def _mirror_table(idx, mask, owner, ghost_valid, sidx_ghost, inv_t, n, K):
     """[N, K] flat slot (row*K + col) of each edge's mirror edge, -1 if
     none.  Edge (i, j): the mirror is the unique edge (owner(j), image of
     i under the negated shift of j), found through the ghost inverse
     table ginv[(owner, shift slot)] -> ghost id and a compare against the
-    mirror row's index list, one neighbor slot at a time."""
+    mirror row's index list, one neighbor slot at a time.  inv_t: the
+    device form of _inverse_shift_perm."""
     dev = idx.device
     Mg = owner.shape[0]
-    inv_t = torch.as_tensor(inv_sidx, device=dev)
     ar_n = torch.arange(n, device=dev)
     o_all = torch.cat([ar_n, owner])
     inv_all = torch.cat([torch.zeros_like(ar_n), inv_t[sidx_ghost]])
@@ -343,6 +349,53 @@ def _mirror_table(idx, mask, owner, ghost_valid, sidx_ghost, inv_sidx, n,
                        torch.full_like(idx, -1))
 
 
+_OFFS14 = np.array(
+    [(0, 0, 0)] + [(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+                   for c in (-1, 0, 1) if (a, b, c) > (0, 0, 0)], np.int64)
+
+
+@functools.lru_cache(maxsize=16)
+def _constants(plan: RebuildPlan, cuts: tuple, dtype, device) -> dict:
+    """The device constants of one plan (see rebuild_constants); cuts:
+    ((tier, shape, flat cutoffs), ...) as hashable content."""
+    as_t = lambda v: torch.as_tensor(np.asarray(v, np.float64),  # noqa
+                                     dtype=dtype, device=device)
+    i64 = lambda v: torch.as_tensor(np.asarray(v, np.int64),  # noqa
+                                    device=device)
+    c = dict(periodic=as_t(np.array(plan.periodic, np.float64)),
+             shifts=as_t(np.array(plan.shifts, np.float64).reshape(-1, 3)),
+             margins=as_t(plan.margins),
+             per=torch.as_tensor([m > 0 for m in plan.margins],
+                                 device=device),
+             lo_ref=as_t(plan.lo_ref), grid_mn=as_t(plan.grid_mn),
+             inv_sidx=i64(_inverse_shift_perm(plan.shifts)), cut={})
+    for name, shape, flat in cuts:
+        cm = np.asarray(flat, np.float64).reshape(shape)
+        cut = torch.zeros(cm.shape, dtype=dtype, device=device)
+        cut[1:, 1:] = as_t(cm[1:, 1:])
+        c["cut"][name] = cut + plan.skin
+    if plan.cell_tiers:
+        s_vec = 1.0 / (np.array(plan.cell_dims, np.float64) - 2.0)
+        c.update(s_vec=as_t(s_vec), neg_s_vec=as_t(-s_vec),
+                 cell_mn=as_t(plan.cell_mn),
+                 nbid=i64(_nbr_cell_ids(plan.cell_dims, _OFFS14)))
+    return c
+
+
+def rebuild_constants(plan: RebuildPlan, cut_mats: Dict[str, np.ndarray],
+                      dtype, device) -> dict:
+    """Every host-side constant of device_rebuild on the device, uploaded
+    once per plan, cutoffs, dtype and device (a small cache): image shifts,
+    margins, grid origins, the inverse shift table, the per-tier cutoff
+    tables (+ skin) and the cell grid's neighbour-cell map (the grids'
+    dimensions: ops/build.py::device_constants).  A
+    later rebuild with the same plan finds them and copies nothing from
+    the host."""
+    cuts = tuple((k, np.shape(v), tuple(np.asarray(v, np.float64).ravel()))
+                 for k, v in sorted(cut_mats.items()))
+    return _constants(plan, cuts, dtype, torch.device(device))
+
+
 def flags_to_host(flags: Dict[str, torch.Tensor]) -> Dict[str, int]:
     """All rebuild flags and counts in one device-to-host copy."""
     names = sorted(flags)
@@ -361,23 +414,20 @@ def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
     target-major form rtgt (react_overflow flags them too small)."""
     dtype, dev = x.dtype, x.device
     n = x.shape[0]
-    as_t = lambda v: torch.as_tensor(np.asarray(v), dtype=dtype,  # noqa
-                                     device=dev)
+    cst = rebuild_constants(plan, cut_mats, dtype, dev)
 
     # -- wrap into the primary cell (Domain::pbc) --------------------------
     f = matvec3(x - lo, h_inv)
     shift = torch.floor(f)
     if not all(plan.periodic):
-        shift = shift * as_t(np.array(plan.periodic, np.float64))[None, :]
+        shift = shift * cst["periodic"][None, :]
     fw = f - shift
     xw = matvec3(fw, h) + lo
     image = image + shift.to(torch.int32)
 
     # -- ghost-image compaction, two-stage: boundary atoms, then images ---
-    shifts = as_t(np.array(plan.shifts, np.float64))        # [S, 3]
-    margins = as_t(np.array(plan.margins))
+    shifts, margins, per = cst["shifts"], cst["margins"], cst["per"]
     Mg, Nb = plan.ghost_capacity, plan.bnd_capacity
-    per = torch.tensor([m > 0 for m in plan.margins], device=dev)
     near = (fw <= margins) | (fw >= 1.0 - margins)
     bnd = torch.any(near & per[None, :], dim=1)
     flags = {"count:bnd": bnd.sum()}
@@ -412,8 +462,8 @@ def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
     m_all = n + Mg
     valid_row = torch.cat([torch.ones(n, dtype=torch.bool, device=dev),
                            ghost_valid])
-    lo_off = lo - as_t(plan.lo_ref)
-    mn = as_t(plan.grid_mn) + lo_off
+    lo_off = lo - cst["lo_ref"]
+    mn = cst["grid_mn"] + lo_off
     x_pad = torch.cat([x_all, x.new_full((1, 3), 1e7)], dim=0)
     t_pad = torch.cat([t_all, t_all.new_zeros(1)])
 
@@ -430,19 +480,15 @@ def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
         xt_pad = torch.cat([x_pad, t_pad.to(dtype)[:, None]], dim=1)
         sidx_ghost = torch.where(ghost_valid, sidx_from_sel,
                                  torch.zeros_like(sidx_from_sel))
-        inv_sidx = _inverse_shift_perm(plan.shifts)
-
         Np = -(-n // 128) * 128
         for name, K in plan.k_caps:
-            cm = np.asarray(cut_mats[name], np.float64)
-            cut = torch.zeros(cm.shape, dtype=dtype, device=dev)
-            cut[1:, 1:] = as_t(cm[1:, 1:])
             idx, jtype, mask, kmax = select_candidates(
-                xt_pad, dense_f, c3f[:n], plan.cand_dims, cut + plan.skin, K)
+                xt_pad, dense_f, c3f[:n], plan.cand_dims, cst["cut"][name],
+                K)
             kw = {}
             if name in plan.mirror_tiers:
                 mirror = _mirror_table(idx, mask, owner, ghost_valid,
-                                       sidx_ghost, inv_sidx, n, K)
+                                       sidx_ghost, cst["inv_sidx"], n, K)
                 mir_ok = mask & (mirror >= 0)
                 mir_safe = torch.clamp(mirror, min=0)
                 mir_flat = torch.where(mir_ok, (mir_safe % K) * Np
@@ -481,23 +527,17 @@ def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
             # strictly below 1 (f - floor(f) can round to 1.0 in f32)
             fb = torch.clamp(fw, 0.0, 1.0 - 2.0 ** -24)
             f_all = torch.cat([fb, fw[owner] + gshift])
-            s_vec = 1.0 / (np.array(plan.cell_dims, np.float64) - 2.0)
             dense_c, _, occc, ovc = _bin_dense(
-                f_all, valid_row, as_t(-s_vec), as_t(s_vec),
+                f_all, valid_row, cst["neg_s_vec"], cst["s_vec"],
                 plan.cell_dims, C, m_all, interior_first=n,
                 sub=LJ_CELL_SUB)
         else:
             dense_c, _, occc, ovc = _bin_dense(
-                x_all, valid_row, as_t(plan.cell_mn) + lo_off,
-                plan.cell_size, plan.cell_dims, C, m_all, sub=LJ_CELL_SUB)
+                x_all, valid_row, cst["cell_mn"] + lo_off, plan.cell_size,
+                plan.cell_dims, C, m_all, sub=LJ_CELL_SUB)
         flags["cell_overflow"] = ovc
         flags["count:cell"] = occc
-        offs14 = np.array(
-            [(0, 0, 0)] + [(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
-                           for c in (-1, 0, 1) if (a, b, c) > (0, 0, 0)],
-            np.int64)
-        nbid = torch.as_tensor(_nbr_cell_ids(plan.cell_dims, offs14),
-                               device=dev)
+        nbid = cst["nbid"]
         cell_jt = torch.where(dense_c < m_all, t_pad[dense_c],
                               torch.zeros_like(dense_c))
         # inverse table: owned atom -> flat slot of the a_range force grid

@@ -51,6 +51,10 @@ _SIGNATURES = {
     "lpt_lj_cell_forces_half": [_P] * 4 + [_I] * 9 + [_P, _P, _I],
     "lpt_react_combine": [_P] * 5 + [_I] * 3 + [_P],
     "lpt_select_candidates": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 6 + [_P],
+    "lpt_graph_if_then": [_P] * 4,
+    "lpt_graph_instantiate": [_P, _P],
+    "lpt_graph_launch": [_P, _P],
+    "lpt_graph_destroy": [_P, _P],
 }
 
 
@@ -151,11 +155,13 @@ def stream(device) -> int:
 
 
 @functools.lru_cache(maxsize=16)
-def device_constants(values: tuple, device: torch.device) -> torch.Tensor:
-    """A kernel's float32 constant vector on `device`, uploaded once.
-    An upload from host memory at every launch would synchronise the
-    stream; kernels only read the cached tensor."""
-    return torch.tensor(values, dtype=torch.float32, device=device)
+def device_constants(values: tuple, device: torch.device,
+                     dtype=torch.float32) -> torch.Tensor:
+    """A small constant table (a kernel's float32 constants, a grid's
+    dimensions) on `device`, uploaded once.  An upload from host memory at
+    every call would synchronise the stream, and a CUDA graph cannot
+    capture it; callers only read the cached tensor."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def raise_on_error(status: int, name: str):

@@ -40,15 +40,17 @@ OFFS27 = tuple((a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
 BIG = float("inf")
 
 
+
 def neighbour_cells(c3f, fdims):
     """[n, 27] flat ids of the fine cells around each c3f row; out-of-range
     cells map to the table's empty pad row (ncf + 1)."""
     dev = c3f.device
     ncf = fdims[0] * fdims[1] * fdims[2]
-    offs = torch.tensor(OFFS27, device=dev)
+    offs = build.device_constants(OFFS27, dev, torch.int64)
     nbr3 = c3f[:, None, :] + offs[None, :, :]
     in_rng = torch.all((nbr3 >= 0)
-                       & (nbr3 < torch.tensor(fdims, device=dev)), -1)
+                       & (nbr3 < build.device_constants(tuple(fdims), dev,
+                                                        torch.int64)), -1)
     ncid = (nbr3[..., 0] * fdims[1] + nbr3[..., 1]) * fdims[2] \
         + nbr3[..., 2]
     return torch.where(in_rng, ncid, torch.full_like(ncid, ncf + 1))

@@ -1,0 +1,325 @@
+"""The Engine's device loop (port of lammps_plugins_tpu/run/simulation.py,
+`_device_loop_fn` and the loop half of `_run_span_device`).
+
+One iteration of the JAX loop body, on buffers that stay in place:
+
+    if pending: rebuild the lists into the loop's neighbor buffers, max-merge
+                the rebuild's flags, n_rb += 1
+    check_every steps (fixes and forces) from the loop's state
+    md = max |x - x_build|^2 in float64;  tripped = md > (skin / 2)^2
+    accept = pending | ~tripped   (a discarded segment keeps its start)
+    done += accept * check_every
+    d = sqrt(md); pending = (d + max(d - dprev, 0) > 0.95 skin / 2) | tripped;
+    dprev = d
+
+On a CUDA state the iteration is one CUDA graph.  PyTorch captures the
+rebuild and the segment as two graphs sharing one memory pool, and
+csrc/graph.cu joins them under an IF conditional node whose flag is
+`pending`: the host launches the iteration m times without deciding
+anything, then reads the control vector (done, pending, n_rb, dprev,
+flags) in one copy.  On a CPU state the same code runs eagerly, with a
+Python branch on `pending` in place of the conditional node.
+
+The decisions are made in float64 from the float32 md, as the host loop
+makes them with Python floats (float(md) is exact), so both loops take the
+same rebuilds and give the same trajectory bit for bit.
+
+What the captured code may do: read and write device tensors only.  The
+kernel wrappers' `launches` counters tick once at capture; the loop puts
+them back and adds each graph's launches at every replay (the rebuild's
+n_rb times).  A fix whose hooks read a host value (`Fix.capturable`
+False), or that changes a State field other than x, v and f, is refused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import importlib
+import math
+import time
+
+import numpy as np
+import torch
+
+from ..neighbor import device_build
+from ..ops import build
+
+#: the kernel wrapper modules of ops/ (each with a `launches` counter)
+KERNEL_MODULES = ("rebo", "mirror", "lj_cells", "select_k",
+                  "select_candidates", "lj_half", "mirror_rows", "react",
+                  "pin")
+_STATE_FIELDS = ("x", "v", "f")
+_CTL = ("done", "pending", "n_rb", "dprev")     # ctl[0:4]; flags follow
+
+
+def kernel_modules():
+    return [importlib.import_module(f"lammps_plugins_tpu_torch.ops.{m}")
+            for m in KERNEL_MODULES]
+
+
+def _launch_counts():
+    return [m.launches for m in kernel_modules()]
+
+
+def _add_launches(counts, times=1):
+    for m, c in zip(kernel_modules(), counts):
+        m.launches += c * times
+
+
+def tensors(obj):
+    """Every tensor of a neighbor structure (NeighborData and the
+    dataclasses and dicts inside it) in a fixed order."""
+    if torch.is_tensor(obj):
+        yield obj
+    elif isinstance(obj, dict):
+        for k in sorted(obj):
+            yield from tensors(obj[k])
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from tensors(getattr(obj, f.name))
+
+
+def _cloned(obj):
+    """A copy of a neighbor structure with every tensor cloned."""
+    if torch.is_tensor(obj):
+        return obj.clone()
+    if isinstance(obj, dict):
+        return {k: _cloned(v) for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _cloned(getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def device_seconds(fn, device) -> float:
+    """Seconds of device time of fn() on a CUDA device (events around it,
+    queued behind a spin kernel so that they do not read the host's time
+    to launch), host-clock seconds on the CPU."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(60_000_000)            # ~30 ms at 1.98 GHz
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return 1e-3 * a.elapsed_time(b)
+
+
+@dataclasses.dataclass
+class SpanResult:
+    done: int
+    pending: bool
+    n_rb: int
+    dprev: float
+    flags: dict
+
+
+class DeviceLoop:
+    """The iteration's buffers and, on a CUDA state, its graph.  Built by
+    the Engine for one plan, pair style, fix list, dt, skin and
+    check_every (Engine._device_loop); anything else means a new loop."""
+
+    def __init__(self, eng, flag_names):
+        st = eng.state
+        self.eng = eng
+        self.plan = eng._plan
+        self.check = eng.check_every
+        self.requests = eng.pair.neighbor_requests()
+        half2 = (0.5 * eng.skin) ** 2
+        self.half2, self.c95 = half2, 0.95 * math.sqrt(half2)
+        bad = [type(f).__name__ for f in eng.fixes
+               if not getattr(f, "capturable", True)]
+        if bad:
+            raise RuntimeError(f"fused loop: fixes {bad} read host values "
+                               "in their hooks and cannot be captured")
+        dev = st.x.device
+        self.cuda = st.x.is_cuda
+        self.names = list(flag_names)
+        # the loop's state: x, v, f, image in place; type, mass, box as given
+        self.buf = {a: getattr(st, a).clone()
+                    for a in _STATE_FIELDS + ("image",)}
+        self.snap = {a: t.clone() for a, t in self.buf.items()}
+        self.base = st.replace(**self.buf)
+        self.nbr = _cloned(eng.nbr)
+        self.ctl = torch.zeros(len(_CTL) + len(self.names), dtype=torch.int64,
+                               device=dev)
+        self.done, self.n_rb = self.ctl[0], self.ctl[2]
+        self.flags = self.ctl[len(_CTL):]
+        self.pending = torch.zeros((), dtype=torch.bool, device=dev)
+        self.dprev = torch.zeros((), dtype=torch.float64, device=dev)
+        self.graphs = ()
+        self.exec = None
+        self.rb_launches = self.seg_launches = None
+        self.pool_bytes = 0
+        self.capture_s = 0.0
+        self.step0 = st.step
+        if self.cuda:
+            self._capture()
+
+    # -- the iteration --------------------------------------------------------
+    def _rebuild(self):
+        """Rebuild into the loop's neighbor buffers; max-merge the flags."""
+        e, b = self.eng, self.buf
+        xw, image, nbr, flags = device_build.device_rebuild(
+            self.plan, b["x"], b["image"], self.base.type, *e._box_dev,
+            self.requests, react=e._react)
+        if sorted(flags) != self.names:
+            raise RuntimeError(f"fused loop: rebuild flags {sorted(flags)} "
+                               f"are not the loop's {self.names}")
+        b["x"].copy_(xw)
+        b["image"].copy_(image)
+        for dst, src in zip(tensors(self.nbr), tensors(nbr), strict=True):
+            dst.copy_(src)
+        new = torch.stack([flags[k].to(torch.int64).reshape(())
+                           for k in self.names])
+        self.flags.copy_(torch.maximum(self.flags, new))
+        self.n_rb.add_(1)
+
+    def _segment(self):
+        """check_every steps from the loop's state, then the decisions."""
+        b = self.buf
+        st = self.base
+        with torch.no_grad():
+            for _ in range(self.check):
+                st = self.eng._one_step(st, self.nbr)
+        moved = [f.name for f in dataclasses.fields(st)
+                 if f.name not in _STATE_FIELDS + ("step",)
+                 and getattr(st, f.name) is not getattr(self.base, f.name)]
+        if moved:
+            raise RuntimeError(f"fused loop: a step changed {moved}; the "
+                               "loop carries x, v and f only")
+        dd = st.x - self.nbr.x_build
+        md = torch.max(torch.sum(dd * dd, dim=-1)).double()
+        tripped = md > self.half2
+        accept = self.pending | ~tripped
+        for a in _STATE_FIELDS:
+            b[a].copy_(torch.where(accept, getattr(st, a), b[a]))
+        self.done.add_(accept.to(torch.int64) * self.check)
+        d = torch.sqrt(md)
+        growth = torch.clamp(d - self.dprev, min=0.0)
+        pending = (d + growth > self.c95) | tripped
+        self.pending.copy_(pending)
+        self.dprev.copy_(d)
+        self.ctl[1].copy_(pending)
+        self.ctl[3].copy_(d.view(torch.int64))
+
+    # -- CUDA graph -----------------------------------------------------------
+    def _capture(self):
+        """Warm every kernel and cache eagerly, capture the rebuild and the
+        segment, and join them under the conditional node."""
+        e, b = self.eng, self.buf
+        with torch.no_grad():
+            device_build.device_rebuild(self.plan, b["x"], b["image"],
+                                        self.base.type, *e._box_dev,
+                                        self.requests, react=e._react)
+            e.pair.forces(b["x"], self.base.type, self.nbr, self.base.box.h)
+        lib = build.lib()
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()      # as torch.cuda.graph does on entry
+        reserved = torch.cuda.memory_reserved()
+        before = _launch_counts()
+        pool = torch.cuda.graph_pool_handle()
+        rb = torch.cuda.CUDAGraph(keep_graph=True)
+        seg = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(rb, pool=pool):
+            self._rebuild()
+        mid = _launch_counts()
+        with torch.cuda.graph(seg, pool=pool):
+            self._segment()
+        after = _launch_counts()
+        for m, c in zip(kernel_modules(), before):
+            m.launches = c
+        self.rb_launches = [m - a for a, m in zip(before, mid)]
+        self.seg_launches = [z - m for m, z in zip(mid, after)]
+        self.graphs = (rb, seg)
+        top, exe = ctypes.c_void_p(), ctypes.c_void_p()
+        build.raise_on_error(lib.lpt_graph_if_then(
+            rb.raw_cuda_graph(), seg.raw_cuda_graph(),
+            self.pending.data_ptr(), ctypes.byref(top)), "lpt_graph_if_then")
+        self.top = top
+        build.raise_on_error(lib.lpt_graph_instantiate(top, ctypes.byref(exe)),
+                             "lpt_graph_instantiate")
+        self.exec = exe
+        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self.capture_s = time.perf_counter() - t0
+
+    def close(self):
+        """Release the executable, the joined graph and the pool."""
+        if self.exec is not None:
+            build.raise_on_error(build.lib().lpt_graph_destroy(self.top,
+                                                               self.exec),
+                                 "lpt_graph_destroy")
+            self.exec = None
+        for g in self.graphs:
+            g.reset()
+        self.graphs = ()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:       # interpreter shutdown: nothing left to free
+            pass
+
+    # -- driving --------------------------------------------------------------
+    def start(self, state, nbr, pending: bool, dprev: float):
+        """Load the Engine's state and lists (copied where they are not the
+        loop's own), the host's pending/dprev, and zero the counters.
+        Returns the Engine's state on the loop's buffers."""
+        for a, t in self.buf.items():
+            src = getattr(state, a)
+            if src is not t:
+                t.copy_(src)
+            self.snap[a].copy_(t)
+        if nbr is not self.nbr:
+            for dst, src in zip(tensors(self.nbr), tensors(nbr), strict=True):
+                dst.copy_(src)
+        self.pending.fill_(bool(pending))
+        self.dprev.fill_(float(dprev))
+        self.ctl.zero_()
+        self.step0 = state.step
+        return state.replace(**self.buf)
+
+    def replay(self, n: int):
+        """n iterations: n graph launches (CUDA), or n eager iterations."""
+        if self.cuda:
+            lib = build.lib()
+            stream = ctypes.c_void_p(build.stream(self.pending.device))
+            for _ in range(n):
+                build.raise_on_error(lib.lpt_graph_launch(self.exec, stream),
+                                     "lpt_graph_launch")
+            _add_launches(self.seg_launches, n)
+            return
+        for _ in range(n):
+            if bool(self.pending):
+                self._rebuild()
+            self._segment()
+
+    def read(self) -> SpanResult:
+        """The control vector in one copy to the host; the rebuild graph's
+        launches counted n_rb times."""
+        v = self.ctl.cpu().numpy()
+        n_rb = int(v[2])
+        if self.cuda:
+            _add_launches(self.rb_launches, n_rb)
+        return SpanResult(
+            done=int(v[0]), pending=bool(v[1]), n_rb=n_rb,
+            dprev=float(np.array(v[3:4]).view(np.float64)[0]),
+            flags=dict(zip(self.names, (int(x) for x in v[len(_CTL):]))))
+
+    def restore(self):
+        """Back to the state start() loaded (a discarded span)."""
+        for a, t in self.buf.items():
+            t.copy_(self.snap[a])
+
+    def nbytes(self) -> int:
+        """Device bytes of the loop's own: snapshot, control, graph pool."""
+        return (sum(t.numel() * t.element_size() for t in self.snap.values())
+                + self.ctl.numel() * 8 + 9 + self.pool_bytes)

@@ -1,25 +1,35 @@
-"""Engine — velocity-Verlet host loop with ordered fix hooks (port of
-lammps_plugins_tpu/run/simulation.py, host-loop form).
+"""Engine — velocity-Verlet loop with ordered fix hooks (port of
+lammps_plugins_tpu/run/simulation.py).
 
 Per step (Verlet::run): initial_integrate, post_integrate, forces,
 post_force, final_integrate, end_of_step.  Steps run in segments of
-`check_every` between neighbor-list checks, and the host synchronises
-once per segment to read the segment's maximum displacement.  Rebuild
-safety is exact: a segment whose displacement passes half the skin is
-discarded and re-run from its start with fresh lists; a predictive rule
-rebuilds before the next segment would trip.  The on-device rebuild
-sizes its capacities from a plan, re-sizes on overflow flags, keeps a
-per-tier K high-water mark and quantizes K (`_quantize_k`).  A pair style
-whose `combine` is "react" gets the reaction-combine route tables: the
-first rebuild measures the route geometry, the plan then carries route
-capacities (high-water marked like K), and a geometry the gate refuses
-raises.
+`check_every` between neighbor-list checks.  Rebuild safety is exact, by
+the JAX package's fused-loop rule: a segment whose displacement passes
+half the skin is discarded and re-run from its start with fresh lists; a
+predictive rule marks a rebuild before the next segment would trip, and
+the rebuild runs when that segment starts.
 
-The lists are rebuilt on the state's device (`device_rebuild`).  The
-host (numpy) build is kept for CPU parity tests, which clear
-`Engine.device_rebuild`; a CUDA state refuses it.  The Engine never moves
-data off the state's device on its own; the only device-to-host copies
-are the per-segment displacement, the rebuild flags and the thermo rows.
+Two loops apply the rule.  The device loop (run/device_loop.py; on a CUDA
+state by default, `Engine.fused_loop`) runs spans of up to 16 segments
+with the rebuild decided on the device: one CUDA graph per iteration, the
+rebuild under a conditional node, and one host read per span of the
+steps done, the rebuilds run and their max-merged flags.  An overflow
+flag discards the whole span, re-sizes the plan and runs it again.  The
+host loop (the CPU default, and every segment shorter than check_every)
+reads the segment's maximum displacement once per segment.  Both take the
+same decisions from the same numbers, so they give the same trajectory.
+A failed capture or replay raises: nothing falls back to the host loop.
+
+The on-device rebuild sizes its capacities from a plan, re-sizes on
+overflow flags, keeps a per-tier K high-water mark and quantizes K
+(`_quantize_k`).  A pair style whose `combine` is "react" gets the
+reaction-combine route tables: the first rebuild measures the route
+geometry, the plan then carries route capacities (high-water marked like
+K), and a geometry the gate refuses raises.  The host (numpy) build is
+kept for CPU parity tests, which clear `Engine.device_rebuild`; a CUDA
+state refuses it.  The Engine never moves data off the state's device on
+its own; the only device-to-host copies are the per-segment displacement
+or per-span control vector, the rebuild flags and the thermo rows.
 """
 
 from __future__ import annotations
@@ -37,8 +47,13 @@ from ..neighbor import device_build
 from ..neighbor.build import NeighborData, build_neighbor_data
 from ..ops.react import choose_react
 from ..potentials.base import PairStyle
+from .device_loop import DeviceLoop, device_seconds, tensors
 from .thermo import thermo_row
 from .timers import Timers
+
+#: segments per span of the device loop at most: a span that overflows is
+#: run again whole, so this bounds the redone work (JAX simulation.py:720)
+SPAN_SEGMENTS = 16
 
 
 def _quantize_k(target: int) -> int:
@@ -49,8 +64,12 @@ def _quantize_k(target: int) -> int:
     return -(-target // 16) * 16
 
 
+def _overflowed(flags) -> bool:
+    return any(v for k, v in flags.items() if "overflow" in k)
+
+
 class Engine:
-    """Owns the state, the neighbor data and the host loop."""
+    """Owns the state, the neighbor data and the loops."""
 
     def __init__(self, state: State, pair: PairStyle, fixes: Sequence[Fix],
                  units: UnitSystem, dt: float | None = None,
@@ -66,15 +85,27 @@ class Engine:
         self.nbr: NeighborData | None = None
         self.thermo_rows: List[dict] = []
         self.device_rebuild = True
+        #: the device loop: None = on for a CUDA state, off on the CPU;
+        #: True on the CPU runs its iteration eagerly (the parity tests)
+        self.fused_loop: bool | None = None
         self._f_valid = False
         self._k_hwm = {}               # per-tier high-water mark of kmax
+        # K headroom of the re-tightening target: widened to 10 once an
+        # overflow recovery has run (JAX simulation.py:89-94)
+        self._k_headroom = 2
+        self._recovering = False       # a span-overflow recovery in flight
         self._bnd_hwm = 0
         self._react = getattr(pair, "combine", None) == "react"
         self._react_gate = getattr(pair, "react_gate", True)
         self._react_hwm = [0, 0, 0]    # measured NW, KC, QR high-water
         self._plan = None
         self._plan_tightened = False
+        self._flag_names = None        # the flags of the plan's rebuild
+        self._pending_rebuild = False  # the rebuild rule's state (host side)
         self._seg_dprev = 0.0
+        self._loop = None
+        self._loop_key = None
+        self._rebuild_cost = None
         self.rebuilds = 0
         self.timers = Timers()
         pair.prepare(state.type.cpu().numpy())
@@ -89,6 +120,7 @@ class Engine:
     # -- neighbor maintenance ---------------------------------------------
     def rebuild_neighbors(self):
         self.rebuilds += 1
+        self._pending_rebuild = False
         if self.device_rebuild:
             self._rebuild_on_device()
             return
@@ -123,12 +155,13 @@ class Engine:
             self._plan, st.x, st.image, st.type, h, h_inv, lo,
             self.pair.neighbor_requests(), react=self._react)
         flags = device_build.flags_to_host(flags_t)
-        if any(v for k, v in flags.items() if "overflow" in k):
+        if _overflowed(flags):
             if _retry >= 6:
                 raise RuntimeError(f"device rebuild overflow persists: "
                                    f"{flags}")
             # re-size from the measured counts (which a too-small capacity
             # may itself truncate, hence a few rounds) and retry
+            self._k_headroom = 10
             self._resize_plan(flags, grow=1.5 * (1.3 ** _retry))
             return self._rebuild_on_device(_retry + 1)
         if not self._plan_tightened:
@@ -141,9 +174,30 @@ class Engine:
             if loose or (self._react and not self._plan.react_nw):
                 self._resize_plan(flags, grow=1.3)
                 return self._rebuild_on_device(_retry)
+        elif not self._recovering and self._k_slack(flags):
+            # a cap 32 or more above the target re-tightens; never while an
+            # overflow recovery is in flight, which grew the cap because
+            # kmax outgrew it (JAX simulation.py:264-290)
+            self._resize_plan(flags, grow=1.0)
+            return self._rebuild_on_device(_retry)
         self._note_k_counts(flags)
+        self._flag_names = sorted(flags)
         self.state = st.replace(x=xw, image=image)
         self.nbr = nbr
+
+    def _k_slack(self, flags) -> bool:
+        """True when some tier's K cap sits 32 or more above
+        _quantize_k(high-water kmax + _k_headroom)."""
+        self._note_k_counts(flags)
+        caps = dict(self._plan.k_caps)
+        for k, v in flags.items():
+            if k.startswith("count:k:") and int(v) > 0:
+                name = k.split(":", 2)[2]
+                target = _quantize_k(max(int(v), self._k_hwm.get(name, 0))
+                                     + self._k_headroom)
+                if caps[name] - target >= 32:
+                    return True
+        return False
 
     def _note_k_counts(self, flags):
         for k, v in flags.items():
@@ -176,7 +230,8 @@ class Engine:
 
         K = _quantize_k(high-water kmax + 2) whatever overflowed: the REBO
         kernel's cost grows as K^2, while a K overflow costs one more
-        rebuild.  `grow` pads the other capacities only."""
+        rebuild (or one discarded span).  `grow` pads the other capacities
+        only.  The K headroom widens the re-tightening target instead."""
         self._note_k_counts(flags)
         k_counts = {name: _quantize_k(m + 2)
                     for name, m in self._k_hwm.items()}
@@ -221,6 +276,113 @@ class Engine:
             d = state.x - nbr.x_build
             return state, float(torch.max(torch.sum(d * d, dim=-1)))
 
+    def _host_segment(self, nsteps: int) -> int:
+        """One iteration of the rebuild rule on the host; returns the steps
+        it advanced (0 for a discarded segment)."""
+        pending = self._pending_rebuild
+        if pending:
+            with self.timers.section("Neigh"):
+                self.rebuild_neighbors()
+        half2 = (0.5 * self.skin) ** 2
+        with self.timers.section("Pair"):
+            new_state, md = self._segment(self.state, self.nbr, nsteps)
+        tripped = md > half2
+        if pending or not tripped:
+            self.state = new_state
+        # a discarded segment re-runs from its start after the rebuild that
+        # `tripped` asks for; a fresh-list segment that trips is kept, and
+        # the next one rebuilds first
+        d = math.sqrt(md)
+        growth = max(d - self._seg_dprev, 0.0)
+        self._pending_rebuild = d + growth > 0.95 * math.sqrt(half2) \
+            or tripped
+        self._seg_dprev = d
+        return nsteps if pending or not tripped else 0
+
+    # -- the device loop ------------------------------------------------------
+    def _fused(self) -> bool:
+        fused = self.fused_loop
+        if fused is None:
+            fused = self.state.x.is_cuda
+        return bool(fused) and self.device_rebuild
+
+    def _device_loop(self) -> DeviceLoop:
+        """The loop of the current plan and configuration; a plan change,
+        another pair style, fix list, dt, skin or check_every, or new type
+        or box tensors discard the captured graph and capture anew."""
+        st = self.state
+        key = (self._plan, id(self.pair), tuple(map(id, self.fixes)),
+               self.ctx.dt, self.skin, self.check_every, id(st.type),
+               id(st.mass), id(st.box.h), self._react)
+        if self._loop is None or self._loop_key != key:
+            if self._loop is not None:
+                self._loop.close()
+                self._loop = None
+            self._loop = DeviceLoop(self, self._flag_names)
+            self._loop_key = key
+        return self._loop
+
+    def _run_span_device(self, nsteps: int, _retry: int = 0):
+        """Advance `nsteps` (a multiple of check_every): iterations of the
+        device loop, one host read of the control vector per batch of
+        them, more iterations while discarded segments leave steps to do.
+        An overflow flag discards the span, re-sizes the plan, rebuilds
+        and runs the span again (JAX simulation.py:503-557)."""
+        loop = self._device_loop()
+        step0 = self.state.step
+        self.state = loop.start(self.state, self.nbr, self._pending_rebuild,
+                                self._seg_dprev)
+        self.nbr = loop.nbr
+        reps = nsteps // self.check_every
+        while True:
+            loop.replay(reps)
+            res = loop.read()
+            if _overflowed(res.flags) or res.done >= nsteps:
+                break
+            reps = (nsteps - res.done) // self.check_every
+        if _overflowed(res.flags):
+            if _retry >= 6:
+                raise RuntimeError(f"device rebuild overflow persists: "
+                                   f"{res.flags}")
+            # a truncated list stepped physics: discard the whole span,
+            # re-size from the measured counts, rebuild, run it again
+            loop.restore()
+            self.state = self.state.replace(step=step0)
+            self._k_headroom = 10
+            self._resize_plan(res.flags, grow=1.5 * (1.3 ** _retry))
+            self._recovering = True
+            try:
+                self.rebuild_neighbors()
+                return self._run_span_device(nsteps, _retry + 1)
+            finally:
+                self._recovering = False
+        self.state = self.state.replace(step=step0 + res.done)
+        self._pending_rebuild, self._seg_dprev = res.pending, res.dprev
+        self._f_valid = True
+        self.rebuilds += res.n_rb
+        if res.n_rb:
+            # the span is booked under Pair: move its rebuilds to Neigh
+            self.timers.transfer("Pair", "Neigh",
+                                 res.n_rb * self._rebuild_cost_estimate())
+            if not self._recovering and self._k_slack(res.flags):
+                self._resize_plan(res.flags, grow=1.0)
+                self.rebuild_neighbors()
+
+    def _rebuild_cost_estimate(self) -> float:
+        """Device seconds of one rebuild, measured once (a standalone
+        rebuild at the current plan): the share of a span's time that the
+        timers move from Pair to Neigh per in-loop rebuild."""
+        if self._rebuild_cost is None:
+            h, h_inv, lo = self._box_dev
+            st = self.state
+            requests = self.pair.neighbor_requests()
+            self._rebuild_cost = device_seconds(
+                lambda: device_build.device_rebuild(
+                    self._plan, st.x, st.image, st.type, h, h_inv, lo,
+                    requests, react=self._react), st.x.device)
+        return self._rebuild_cost
+
+    # -- set-up and output --------------------------------------------------
     def _ensure_neighbors(self):
         if self.nbr is None:
             self.rebuild_neighbors()
@@ -256,10 +418,32 @@ class Engine:
                                         state.box.h)
         return thermo_row(state, pe, W, self.units)
 
+    def memory_usage(self) -> dict:
+        """Device MiB by subsystem, under the JAX Engine's keys (the
+        analogue of LAMMPS's per-rank 'Memory usage' line), plus graph_mb:
+        the device loop's own buffers and its captured graphs' pool."""
+
+        def mib(ts):
+            return sum(t.numel() * t.element_size() for t in ts) / 2 ** 20
+
+        st = self.state
+        out = {"state_mb": mib([st.x, st.v, st.f, st.type, st.q, st.image,
+                                st.mass]),
+               "neighbor_mb": mib(tensors(self.nbr)) if self.nbr else 0.0,
+               "pair_tables_mb": mib([v for v in vars(self.pair).values()
+                                      if torch.is_tensor(v)]),
+               "graph_mb": (self._loop.nbytes() / 2 ** 20 if self._loop
+                            else 0.0)}
+        out["total_mb"] = sum(out.values())
+        return out
+
     def run(self, nsteps: int, thermo_every: int = 0,
-            on_thermo: Callable[[dict], None] | None = None):
+            on_thermo: Callable[[dict], None] | None = None,
+            callbacks: Sequence[tuple] = ()):
         """Run `nsteps`; thermo rows every `thermo_every` steps, step 0
-        included (like LAMMPS)."""
+        included (like LAMMPS).  callbacks: (every, fn) pairs; fn(state)
+        runs at the start and whenever the step count reaches a multiple
+        of `every` (dumps, restarts)."""
         self.timers.start_run(self.state.natoms)
         self._setup_forces()
         rows = []
@@ -271,43 +455,37 @@ class Engine:
             if on_thermo:
                 on_thermo(row)
 
+        def boundaries(done):
+            if thermo_every and done % thermo_every == 0:
+                emit()
+            for every, fn in callbacks:
+                if done % every == 0:
+                    with self.timers.section("Output"):
+                        fn(self.state)
+
         if thermo_every:
             emit()
-        half_skin_sq = (0.5 * self.skin) ** 2
+        for every, fn in callbacks:
+            with self.timers.section("Output"):
+                fn(self.state)
         done = 0
         while done < nsteps:
             span = nsteps - done
             if thermo_every:
                 span = min(span, thermo_every - (done % thermo_every))
-            seg = min(self.check_every, span)
-            start_state = self.state
-            with self.timers.section("Pair"):
-                new_state, md = self._segment(self.state, self.nbr, seg)
-            if md > half_skin_sq:
-                # a mid-segment half-skin violation is possible: redo the
-                # segment from its start with fresh lists
-                self.state = start_state
-                with self.timers.section("Neigh"):
-                    self.rebuild_neighbors()
+            for every, _ in callbacks:
+                span = min(span, every - (done % every))
+            if self._fused() and span >= self.check_every:
+                m = min((span // self.check_every) * self.check_every,
+                        SPAN_SEGMENTS * self.check_every)
                 with self.timers.section("Pair"):
-                    new_state, md = self._segment(self.state, self.nbr, seg)
-                self.state = new_state
-                if md > half_skin_sq:
-                    with self.timers.section("Neigh"):
-                        self.rebuild_neighbors()
+                    self._run_span_device(m)
+                adv = m
             else:
-                self.state = new_state
-                # predictive rebuild: extrapolate one segment of growth
-                d_now = math.sqrt(md)
-                growth = max(d_now - self._seg_dprev, 0.0)
-                self._seg_dprev = d_now
-                if d_now + growth > 0.95 * math.sqrt(half_skin_sq):
-                    with self.timers.section("Neigh"):
-                        self.rebuild_neighbors()
-                    self._seg_dprev = 0.0
-            done += seg
-            if thermo_every and done % thermo_every == 0:
-                emit()
+                adv = self._host_segment(min(self.check_every, span))
+            if adv:
+                done += adv
+                boundaries(done)
         self.timers.end_run(nsteps)
         self.thermo_rows = rows
         return rows

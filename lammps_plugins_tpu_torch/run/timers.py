@@ -6,8 +6,10 @@ Modify, log.rebomos-bulk.1:62-70) and a performance line in ns/day,
 timesteps/s and katom-step/s (log.rebomos-bulk.1:59); this module
 reproduces both for the Engine's host loop:
 
-  * Pair   -> the step segments (force evaluation dominates)
-  * Neigh  -> neighbor rebuilds
+  * Pair   -> the step segments and device-loop spans (force evaluation
+              dominates)
+  * Neigh  -> neighbor rebuilds (in-loop ones moved out of Pair with
+              `transfer`)
   * Comm   -> zero on one device
   * Output -> thermo rows
   * Other  -> host orchestration
@@ -36,6 +38,13 @@ class Timers:
             yield
         finally:
             self.acc[name] = self.acc.get(name, 0.0) + time.perf_counter() - t0
+
+    def transfer(self, src: str, dst: str, seconds: float):
+        """Re-attribute time between sections (e.g. in-loop neighbor
+        rebuilds booked under a fused span's Pair time -> Neigh)."""
+        seconds = max(0.0, min(seconds, self.acc.get(src, 0.0)))
+        self.acc[src] = self.acc.get(src, 0.0) - seconds
+        self.acc[dst] = self.acc.get(dst, 0.0) + seconds
 
     def start_run(self, natoms: int, chips: int = 1):
         self._wall_start = time.perf_counter()

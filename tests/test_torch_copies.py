@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's framework-free modules
 against the originals, on the same inputs: the REBOMOS parameter reader,
-the unit systems, the timers' report and the native pair search."""
+the unit systems, the timers' report and transfer, and the native pair
+search."""
 
 import dataclasses
 
@@ -55,6 +56,18 @@ def test_timers_report_matches_jax():
         t.wall = 1.0
         reports.append(t.performance_summary(0.001))
     assert reports[0] == reports[1]
+
+
+@pytest.mark.parametrize("seconds", [0.1, 0.7, -0.2])
+def test_timers_transfer_matches_jax(seconds):
+    """Re-attribution from Pair to Neigh, clamped to [0, Pair's time]."""
+    accs = []
+    for cls in (Timers, JTimers):
+        t = cls()
+        t.acc.update(Pair=0.5, Neigh=0.25)
+        t.transfer("Pair", "Neigh", seconds)
+        accs.append(dict(t.acc))
+    assert accs[0] == accs[1]
 
 
 @pytest.mark.parametrize("seed,rcut", [(0, 3.0), (1, 5.5)])

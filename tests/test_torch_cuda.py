@@ -35,7 +35,14 @@ reruns bit-identically.  An Engine on the card, built with default
 arguments, launches the main path's four kernels (the rebuild's fused
 candidate selection, not the standalone select-k) and refuses the host
 build and the autograd force fallback; one per force configuration
-launches that configuration's kernels.
+launches that configuration's kernels.  Those runs go through the device
+loop's CUDA graphs (the default on the card), whose wrappers' counters
+count replays.  The graph loop is held against the eager loop
+(fused_loop=False) bit for bit (x, v, f, image, rebuild count) after 200
+steps on the sorted 2,304-atom scene at 600 K and on the 97,920-atom bench
+scene, also across a plan change that recaptures the graph; one span
+replays with PyTorch's sync debug mode set to raise, and each replay adds
+one segment's launches to the counters.
 """
 
 import dataclasses
@@ -574,16 +581,18 @@ def test_configuration_on_card_launches_its_kernels(cuda, config, mods):
     scale = float(f_def.abs().max())
     assert float((f_cfg - f_def).abs().max()) <= 3e-4 * scale
     rows = eng.run(20, thermo_every=10)
+    assert eng._loop is not None and eng._loop.exec is not None
     assert all(np.isfinite(r["etotal"]) for r in rows)
     assert all(m.launches > 0 for m in modules)
 
 
 def test_engine_on_card_launches_every_kernel(cuda):
     """A short f32 run of the 288-atom scene on the card, Engine built
-    with default arguments, goes through all four kernels of the main path
-    (REBO, mirror combine, LJ sweep, the rebuild's fused candidate
-    selection) and no standalone select_k, and stays within 1e-2 RMS(F) of
-    the f64 CPU forces."""
+    with default arguments, goes through the graph loop and all four
+    kernels of the main path (REBO, mirror combine, LJ sweep, the rebuild's
+    fused candidate selection; counted at each graph replay) and no
+    standalone select_k, and stays within 1e-2 RMS(F) of the f64 CPU
+    forces."""
     mods = (rebo, mirror, lj_cells, select_candidates)
     select_k.launches = 0
     for m in mods:
@@ -593,6 +602,8 @@ def test_engine_on_card_launches_every_kernel(cuda):
     eng = Engine(rebomos_bulk(dtype=torch.float32, device=cuda), pair,
                  [FixNVE()], units.METAL)
     rows = eng.run(20, thermo_every=10)
+    assert eng._loop is not None and eng._loop.exec is not None
+    assert rebo.launches >= 20             # one per step, counted at replay
     assert all(m.launches > 0 for m in mods)
     assert select_k.launches == 0
     assert all(np.isfinite(r["etotal"]) for r in rows)
@@ -623,3 +634,85 @@ def test_plain_paths_refused_on_card(cuda):
                                dtype=torch.float32, device=cuda)
     with pytest.raises(RuntimeError):
         pair.forces(st.x, st.type, host, st.box.h)
+
+
+def _hot_engine(dev, scene, fused):
+    """f32 Engine on the card: the sorted 2,304-atom scene at 600 K with
+    skin 0.4 (a rebuild every few segments), or chip_smoke's 97,920-atom
+    bench scene at 300 K with skin 0.8; fused None (graph) or False."""
+    from lammps_plugins_tpu_torch.fixes.velocity import velocity_create
+    if scene == "sorted2k":
+        st = rebomos_bulk_commensurate(12, 16, 2, dtype=torch.float32,
+                                       device=dev, sort=True)
+        temp, skin = 600.0, 0.4
+    else:
+        st = rebomos_bulk_commensurate(34, 48, 10, dtype=torch.float32,
+                                       device=dev)
+        temp, skin = 300.0, 0.8
+    st = velocity_create(st, units.METAL, temp, 12345)
+    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float32,
+                             device=dev)
+    eng = Engine(st, pair, [FixNVE()], units.METAL, skin=skin)
+    eng.fused_loop = fused
+    return eng
+
+
+def _assert_same_state(a, b):
+    assert a.state.step == b.state.step
+    assert a.rebuilds == b.rebuilds
+    for f in ("x", "v", "f", "image"):
+        assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f
+
+
+@pytest.mark.parametrize("scene", ["sorted2k", "bench"])
+def test_graph_loop_matches_eager_loop(cuda, scene):
+    """200 steps through at least three in-run rebuilds: the graph loop's
+    x, v, f and image equal the eager loop's bit for bit."""
+    graph, eager = (_hot_engine(cuda, scene, f) for f in (None, False))
+    graph.run(200)
+    eager.run(200)
+    assert graph._loop is not None and graph._loop.exec is not None
+    assert eager._loop is None
+    assert graph.rebuilds >= 4
+    _assert_same_state(graph, eager)
+
+
+def test_graph_recaptures_after_plan_change(cuda):
+    """A plan change between runs discards the captured graph; the new
+    capture continues the eager loop's trajectory bit for bit."""
+    import dataclasses
+    graph, eager = (_hot_engine(cuda, "sorted2k", f) for f in (None, False))
+    for eng in (graph, eager):
+        eng.run(50)
+    old = graph._loop
+    for eng in (graph, eager):
+        p = eng._plan
+        eng._plan = dataclasses.replace(
+            p, cand_capacity=p.cand_capacity + 8,
+            ghost_capacity=p.ghost_capacity + 64)
+        eng.rebuild_neighbors()
+        eng.run(100)
+    assert graph._loop is not old and graph._loop.plan == graph._plan
+    assert old.exec is None                       # released
+    _assert_same_state(graph, eager)
+
+
+def test_graph_span_replays_without_host_sync(cuda):
+    """One span of 16 iterations, its first with a rebuild, replayed with
+    PyTorch's sync debug mode set to raise: only the control vector's copy
+    (read) waits for the card.  Each replay adds one segment's launches."""
+    eng = _hot_engine(cuda, "sorted2k", None)
+    eng.run(20)
+    loop = eng._device_loop()
+    torch.cuda.synchronize()
+    before = (rebo.launches, select_candidates.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.state = loop.start(eng.state, eng.nbr, True, eng._seg_dprev)
+        loop.replay(16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    res = loop.read()
+    assert res.n_rb >= 1 and res.done >= 10
+    assert rebo.launches == before[0] + 16 * eng.check_every
+    assert select_candidates.launches == before[1] + res.n_rb

@@ -1,0 +1,160 @@
+#!/usr/bin/env python3
+"""Benchmark of the PyTorch/CUDA port: atom-steps/s of the 97,920-atom MoS2
+REBOMOS NVE bench scene on one NVIDIA GPU (f32) — the port's counterpart
+of bench.py, which stays the JAX package's.
+
+    python3 tools/torch_bench.py [--steps 1000] [--reps 5] [--eager]
+                                 [--drift-steps 2000]
+
+The scene and settings are bench.py's (bench.py:118-186):
+rebomos_bulk_commensurate(34, 48, 10), f32, 300 K from velocity_create(
+seed=12345), skin 0.8, displacement check every 10 steps; the parameters
+are tests/data/MoS.REBO.synthetic (bench.py reads the published set5b,
+which the repository does not hold).  The Engine runs its default loop on
+the card, the device loop's CUDA graphs; --eager runs the host loop
+(fused_loop=False) instead.  After a warm-up run (plan sizing, kernel
+build, capture), `--reps` timed windows of `--steps` steps each include
+their neighbor rebuilds.
+
+Prints one JSON line with bench.py's fields (bench.py:217-279): the
+metric, its value (the best window) and vs_baseline (against the
+reference's 34,223 atom-steps/s, log.rebomos-bulk.1:59), the NVE
+total-energy drift over at least `--drift-steps` steps and its 1e-6
+eV/step/atom bound, and max|F_f32 - F_f64| / RMS(F) on the 288-atom scene
+(f32 on the card against the port's f64 CPU twins) and its 1e-2 bound;
+beside them the median of the windows, every window, the rebuilds in
+each, the peak device memory, and the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REBO_FILE = os.path.join(REPO, "tests", "data", "MoS.REBO.synthetic")
+BASELINE = 34223.0          # log.rebomos-bulk.1:59, katom-step/s * 1000
+
+
+def f32_force_error(dev):
+    """(max |F_f32 - F_f64|, RMS(F)) on the 288-atom scene: the f32 path on
+    the card against the f64 twins on the CPU, on each one's own lists."""
+    import numpy as np
+    import torch
+    from lammps_plugins_tpu_torch.api.scenes import rebomos_bulk
+    from lammps_plugins_tpu_torch.core import units
+    from lammps_plugins_tpu_torch.fixes.nve import FixNVE
+    from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
+    from lammps_plugins_tpu_torch.run.simulation import Engine
+
+    def forces(dtype, device):
+        pair = REBOMoS.from_file(REBO_FILE, ["M", "S"], dtype=dtype,
+                                 device=device)
+        eng = Engine(rebomos_bulk(dtype=dtype, device=device), pair,
+                     [FixNVE()], units.METAL)
+        eng.rebuild_neighbors()
+        st = eng.state
+        with torch.no_grad():
+            f = pair.forces(st.x, st.type, eng.nbr, st.box.h)
+        return f.double().cpu().numpy()
+
+    f64 = forces(torch.float64, "cpu")
+    f32 = forces(torch.float32, dev)
+    return float(np.abs(f32 - f64).max()), float(np.sqrt(np.mean(f64 * f64)))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--steps", type=int, default=1000)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--drift-steps", type=int, default=2000)
+    ap.add_argument("--eager", action="store_true",
+                    help="the host loop instead of the graph loop")
+    args = ap.parse_args()
+    sys.path.insert(0, REPO)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_bench: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from lammps_plugins_tpu_torch.api.scenes import rebomos_bulk_commensurate
+    from lammps_plugins_tpu_torch.core import units
+    from lammps_plugins_tpu_torch.fixes.nve import FixNVE
+    from lammps_plugins_tpu_torch.fixes.velocity import velocity_create
+    from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
+    from lammps_plugins_tpu_torch.run.simulation import Engine
+
+    dev = torch.device("cuda:0")
+    state = rebomos_bulk_commensurate(34, 48, 10, dtype=torch.float32,
+                                      device=dev)
+    state = velocity_create(state, units.METAL, 300.0, 12345)
+    pair = REBOMoS.from_file(REBO_FILE, ["M", "S"], dtype=torch.float32,
+                             device=dev)
+    eng = Engine(state, pair, [FixNVE()], units.METAL, check_every=10,
+                 skin=0.8)
+    if args.eager:
+        eng.fused_loop = False
+    natoms = eng.state.natoms
+    loop = "eager" if args.eager else "graph"
+    result = {"metric": f"atom-steps/s (MoS2 REBOMOS NVE, {natoms} atoms, "
+                        f"f32, {loop} loop)",
+              "value": 0.0, "unit": "atom-steps/s", "vs_baseline": 0.0}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.run(100)
+    torch.cuda.synchronize()
+    print(f"# warm-up: 100 steps in {time.perf_counter() - t0:.2f} s "
+          f"(plan, kernel build, capture)", file=sys.stderr, flush=True)
+
+    def etotal():
+        return eng._thermo(eng.state)["etotal"]
+
+    e_start, s_start = etotal(), eng.state.step
+    rates, rebuilds = [], []
+    for _ in range(args.reps):
+        rb0 = eng.rebuilds
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(args.steps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rates.append(natoms * args.steps / dt)
+        rebuilds.append(eng.rebuilds - rb0)
+        print(f"# {args.steps} steps in {dt:.3f} s -> {rates[-1]:.6g} "
+              f"atom-steps/s, {rebuilds[-1]} rebuilds", file=sys.stderr,
+              flush=True)
+    best = max(rates)
+    result["value"] = best
+    result["vs_baseline"] = best / BASELINE
+    extra = max(0, args.drift_steps - (eng.state.step - s_start))
+    extra += -extra % eng.check_every
+    if extra:
+        eng.run(extra)
+    e_end = etotal()
+    horizon = eng.state.step - s_start
+    drift = abs(e_end - e_start) / horizon / natoms
+    err, rms = f32_force_error(dev)
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    result.update({
+        "median": statistics.median(rates), "windows": rates,
+        "window_steps": args.steps, "window_rebuilds": rebuilds,
+        "f32_etotal_drift_ev_per_step_atom": drift,
+        "f32_drift_horizon_steps": horizon,
+        "f32_drift_within_1e-6_bound": bool(drift < 1e-6),
+        "f32_max_force_err": err, "f32_force_rms": rms,
+        "f32_max_force_err_over_rms": err / rms,
+        "f32_force_within_1e-2_rms_bound": bool(err < 1e-2 * rms),
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "k_caps": dict(eng._plan.k_caps), "gpu": gpu})
+    print(json.dumps(result), flush=True)
+
+
+if __name__ == "__main__":
+    main()

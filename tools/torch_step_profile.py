@@ -4,7 +4,7 @@ one NVIDIA GPU.
 
     python3 tools/torch_step_profile.py [TREE] [--label NAME] [--trace PATH]
         [--lj full|half] [--combine mirror|rows|pin|pin2|react] [--sort]
-        [--no-react-gate]
+        [--no-react-gate] [--eager]
 
 TREE (default: this repository) holds chip_smoke.py and
 lammps_plugins_tpu_torch/; giving a second tree (for example a `git
@@ -12,7 +12,9 @@ archive` of the parent commit) compares two versions on one card.  The
 force configuration is REBOMoS's (lj=, combine=, react_gate=), the scene
 spatially sorted with --sort (combine=react needs it); the defaults are
 the main path, and a tree older than these options takes only the
-defaults.  After 100 warm-up steps of the 97,920-atom scene
+defaults.  Engine.run takes the Engine's default loop (on the card the
+device loop's CUDA graphs, for a tree that has them); --eager sets
+fused_loop = False (the host loop).  After 100 warm-up steps of the 97,920-atom scene
 (chip_smoke.bench_engine) it measures
 
   * atom-steps/s of 3 runs of 1,000 steps with their rebuild counts,
@@ -50,6 +52,7 @@ def main():
                     choices=("mirror", "rows", "pin", "pin2", "react"))
     ap.add_argument("--sort", action="store_true")
     ap.add_argument("--no-react-gate", action="store_true")
+    ap.add_argument("--eager", action="store_true")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -73,6 +76,8 @@ def main():
     if args.sort:
         config["sort"] = True
     eng = cs.bench_engine(dev, **config)
+    if args.eager:
+        eng.fused_loop = False
     natoms, seg = eng.state.natoms, eng.check_every
     eng.run(100)
     torch.cuda.synchronize()
@@ -133,6 +138,7 @@ def main():
                          text=True, timeout=60).stdout.strip()
     print("RESULT " + json.dumps(dict(
         label=args.label, config=config, natoms=natoms,
+        loop="eager" if args.eager else "default",
         k_caps=dict(eng._plan.k_caps),
         step_ms_no_rebuild=step_ms, rebuild_ms=rebuild_ms,
         rebuild_device_ms=sum(r[1] for r in rebuild_ops),
