@@ -54,8 +54,28 @@ Phases (any failure raises, so the script exits non-zero):
      NVE drift < 1e-6 eV/step/atom; then one timed 1,000-step run
   5. golden thermo rows of in.rebomos-bulk, only when --golden-rebo names
      the published MoS.REBO.set5b (not in the repository)
+  6. AEAM sample.in: pair_style aeam with fix nvt on the 32,000-atom Al-Si
+     scene of USER-AEAM/sample.in (alsi_sample(nc=20), f32, 863 K from
+     velocity_create(seed 4928459), FixNVT(863, 863, 0.1), skin 1.2, a
+     displacement check every 12 steps: benchmarks/bench_aeam.py's
+     settings).  The candidate selection D' on the AEAM rebuild's own
+     arguments at its K (past 128) and at K = 224 and 256, exact against its
+     twin, with its median time, bound and launches, and select-k on
+     synthetic rows of up to 256 hits at K = 224 and 256; f32 forces of the
+     jiggled nc=6 scene with 5 % Si on the card against the f64 CPU twin,
+     max|dF| < 1e-2 RMS(F), for the exact spline path and poly_mode; then
+     the main path: Engine.run through the graph loop with every launch
+     counter reset first (D' must launch, and no other kernel), finite
+     thermo, and after 288 steps x, v, f, image, the Nose-Hoover chain and
+     the rebuild count equal to an eager Engine's bit for bit; printed as
+     `AEAM {json}`: K, the NVT conserved quantity's drift (pe + ke +
+     FixNVT.energy, eV/step/atom), the mean T of the last 96 steps, three
+     timed windows each of the graph and the eager loop (atom-steps/s),
+     device ms and host launch calls per step from one profiled run, the
+     peak memory
 
-The parameters are the synthetic file tests/data/MoS.REBO.synthetic.
+The REBOMOS parameters are the synthetic file tests/data/MoS.REBO.synthetic,
+the AEAM ones tests/data/AlSi.synthetic.aeam.
 Output ends with a JSON line of per-kernel results, the card's name and
 power limit (nvidia-smi), and {"ok": true, "device": {...}}.
 """
@@ -76,6 +96,13 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 REBO_FILE = os.path.join(REPO, "tests", "data", "MoS.REBO.synthetic")
+AEAM_FILE = os.path.join(REPO, "tests", "data", "AlSi.synthetic.aeam")
+#: benchmarks/bench_aeam.py's settings (sample.in at nc=20: 32,000 atoms)
+AEAM = dict(nc=20, skin=1.2, check_every=12, temp=863.0, seed=4928459,
+            t_damp=0.1)
+AEAM_RUN_STEPS = (192, 96)      # then thermo every 12 over the last 96
+AEAM_TIMED_STEPS = 480
+AEAM_PROFILE_STEPS = 240
 BENCH = dict(nx=34, ny=48, nz=10, skin=0.8, check_every=10, temp=300.0,
              seed=12345)
 RUN_STEPS = 300        # at 300 K the list is rebuilt about every 43 steps
@@ -920,11 +947,14 @@ def eager_rebuild_ms(eng, reps=REBUILD_REPS):
     return out
 
 
-def loop_numbers(engines, gpu):
+def loop_numbers(engines, gpu, steps=TIMED_STEPS,
+                 profile_steps=PROFILE_STEPS, kernels=GRAPH_KERNELS):
     """The graph and the eager loop in turns on their own Engines (same
-    scene): three 1,000-step windows each, one profiled 1,000-step run each,
-    then host-clock ms per rebuild; idle share = 1 - device ms / wall ms
-    per step (device ms from the profile, wall from the windows)."""
+    scene): three `steps`-step windows each, one profiled run of
+    `profile_steps` each, then host-clock ms per rebuild; idle share = 1 -
+    device ms / wall ms per step (device ms from the profile, wall from
+    the windows).  `kernels` must show by name in the graph loop's
+    profile."""
     natoms = next(iter(engines.values())).state.natoms
     out = {name: dict(windows=[], wall_ms_per_step=[], rebuilds=[])
            for name in engines}
@@ -935,14 +965,14 @@ def loop_numbers(engines, gpu):
             rb0 = eng.rebuilds
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            eng.run(TIMED_STEPS)
+            eng.run(steps)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            o["windows"].append(natoms * TIMED_STEPS / dt)
-            o["wall_ms_per_step"].append(1e3 * dt / TIMED_STEPS)
+            o["windows"].append(natoms * steps / dt)
+            o["wall_ms_per_step"].append(1e3 * dt / steps)
             o["rebuilds"].append(eng.rebuilds - rb0)
     for name in names:
-        out[name].update(profile_run(engines[name], PROFILE_STEPS))
+        out[name].update(profile_run(engines[name], profile_steps))
     for name in names:
         o = out[name]
         o["idle_share"] = [1.0 - o["device_ms_per_step"] / w
@@ -964,10 +994,10 @@ def loop_numbers(engines, gpu):
               f"{o['graph_launches_per_step']:.3f}); host syncs per 1,000 "
               f"steps {o['syncs_per_1000_steps']:.1f}; host-clock ms per "
               f"rebuild {o['rebuild_host_ms']}")
-        print(f"  {name} host calls in {PROFILE_STEPS} steps: "
+        print(f"  {name} host calls in {profile_steps} steps: "
               f"{o['host_calls']}")
     graph_ops = out["graph"]["device_ops"]
-    seen = {k: any(k in op for op in graph_ops) for k in GRAPH_KERNELS}
+    seen = {k: any(k in op for op in graph_ops) for k in kernels}
     print(f"graph loop profile: kernels by name {seen}")
     if not all(seen.values()):
         raise AssertionError(f"kernels missing from the graph loop's "
@@ -1178,6 +1208,229 @@ def phase5_golden(dev, path):
             raise AssertionError(f"golden row {step} off: {row}")
 
 
+def aeam_engine(dev, fused=None, poly_mode=False):
+    """The sample.in scene on the card (f32) with its NVT velocities and
+    fix; no lists yet.  fused None: the Engine's default loop (the graph
+    loop on the card); False: the eager loop."""
+    from lammps_plugins_tpu_torch.api.scenes import alsi_sample
+    from lammps_plugins_tpu_torch.core import units
+    from lammps_plugins_tpu_torch.fixes.nvt import FixNVT
+    from lammps_plugins_tpu_torch.fixes.velocity import velocity_create
+    from lammps_plugins_tpu_torch.potentials.aeam import AEAM as Style
+    from lammps_plugins_tpu_torch.run.simulation import Engine
+    state = alsi_sample(nc=AEAM["nc"], dtype=torch.float32, device=dev)
+    state = velocity_create(state, units.METAL, AEAM["temp"], AEAM["seed"])
+    pair = Style.from_file(AEAM_FILE, ["Al", "Si"], dtype=torch.float32,
+                           device=dev, poly_mode=poly_mode)
+    eng = Engine(state, pair, [FixNVT(AEAM["temp"], AEAM["temp"],
+                                      AEAM["t_damp"])], units.METAL,
+                 check_every=AEAM["check_every"], skin=AEAM["skin"])
+    eng.fused_loop = fused
+    return eng
+
+
+def aeam_candidates(eng):
+    """D' on the AEAM rebuild's own arguments at the plan's K and at K =
+    224 and 256 (exact against its twin), its time, bound and the rows'
+    hits; select-k (D) on synthetic rows of up to 256 hits at K = 224 and
+    256, exact.  Returns D''s record at the plan's K."""
+    from lammps_plugins_tpu_torch.ops import select_candidates, select_k
+    args = capture_candidate_calls(eng)[-1]
+    K = args[5]
+    out = {}
+    for k in (K, 224, 256):
+        a = args[:5] + (k,)
+        ck = select_candidates.select_candidates(*a)
+        ct = select_candidates.select_candidates_ref(*a)
+        again = select_candidates.select_candidates(*a)
+        diff = max(float((x.long() - y.long()).abs().max())
+                   for x, y in zip(ck, ct))
+        if not all(torch.equal(x, y) and torch.equal(x, z)
+                   for x, y, z in zip(ck, ct, again)):
+            raise AssertionError(f"select_candidates at the AEAM shape, "
+                                 f"K={k}, differs from its twin: {diff}")
+        hits = ck[2].sum(dim=1)
+        print(f"AEAM select_candidates K={k}: exact against its twin, kmax "
+              f"{int(ck[3])}, hits per row mean "
+              f"{float(hits.float().mean()):.2f}")
+        out[k] = (diff, int(ck[3]))
+    n, Cf = args[2].shape[0], args[1].shape[1]
+    work = candidate_work(args)
+    b_ms, b_by = bound(*work[:2])
+    ms = timed_ms(lambda: select_candidates.select_candidates(*args), 20)
+    plain = timed_ms(lambda: select_candidates.select_candidates_ref(*args),
+                     3)
+    print(f"AEAM select_candidates: n={n} K={K} Cf={Cf} W={27 * Cf} "
+          f"fine cells {args[3]}, candidate pairs {work[2]:.0f}; kernel "
+          f"{ms:.4f} ms, twin {plain:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+          f"({work[0] / 1e6:.2f} MB, {work[1] / 1e9:.4f} GFLOP), share "
+          f"{b_ms / ms:.3f}")
+    for k, W, hits in ((224, 512, 200), (256, 1024, 256), (256, 1024, 300)):
+        g = torch.Generator(device=eng.state.x.device).manual_seed(k + hits)
+        dev = eng.state.x.device
+        keys = torch.full((4096, W), float("inf"), device=dev)
+        cols = torch.argsort(torch.rand((4096, W), generator=g, device=dev),
+                             dim=1)[:, :hits]
+        vals = torch.round(torch.rand((4096, hits), generator=g,
+                                      device=dev) * 256.0) / 16.0
+        keys.scatter_(1, cols, vals)
+        ids = torch.randint(0, 2 ** 24, (4096, W), generator=g,
+                            device=dev).float()
+        typ = torch.randint(1, 3, (4096, W), generator=g, device=dev).float()
+        sk = select_k.select_k(keys, k, payloads=(ids, typ))
+        st = select_k.select_k_ref(keys, k, payloads=(ids, typ))
+        if not all(torch.equal(a, b) for a, b in zip(sk, st)):
+            raise AssertionError(f"select_k differs from its twin at K={k}, "
+                                 f"{hits} hits a row")
+        print(f"select_k K={k} W={W}, {hits} hits a row: exact")
+    return dict(K=K, W=27 * Cf, Cf=Cf, n=n, kmax=out[K][1],
+                max_abs_err=max(d for d, _ in out.values()), ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                bytes=work[0], flops=work[1], candidate_pairs=work[2],
+                exact_at_k=sorted(out), library_ms=None)
+
+
+def aeam_f32_accuracy(dev):
+    """max|F32 - F64| / RMS(F) of the jiggled nc=6 scene with 5 % Si: the
+    f32 path on the card (its own device rebuild) against the f64 CPU
+    twin (its own), exact spline path and poly_mode; bar 1e-2."""
+    from lammps_plugins_tpu_torch.api.scenes import alsi_sample
+    from lammps_plugins_tpu_torch.core import units
+    from lammps_plugins_tpu_torch.core.box import Box
+    from lammps_plugins_tpu_torch.core.state import State
+    from lammps_plugins_tpu_torch.fixes.nvt import FixNVT
+    from lammps_plugins_tpu_torch.potentials.aeam import AEAM as Style
+    from lammps_plugins_tpu_torch.run.simulation import Engine
+    base = alsi_sample(nc=6, si_fraction=0.05, dtype=torch.float64,
+                       device="cpu")
+    rng = np.random.default_rng(AEAM["seed"])
+    pos = base.x.numpy() + rng.uniform(-0.1, 0.1, base.x.shape)
+    types = base.type.numpy()
+    out = {}
+    for poly in (False, True):
+        forces = []
+        for dtype, device in ((torch.float64, "cpu"), (torch.float32, dev)):
+            box = Box.orthogonal(base.box.h_np().diagonal(), dtype=dtype,
+                                 device=device)
+            pair = Style.from_file(AEAM_FILE, ["Al", "Si"], dtype=dtype,
+                                   device=device, poly_mode=poly)
+            st = State.create(x=pos, type=types, box=box, mass=pair.masses)
+            eng = Engine(st, pair, [FixNVT(863.0, 863.0, 0.1)],
+                         units.METAL, skin=AEAM["skin"])
+            eng.rebuild_neighbors()
+            with torch.no_grad():
+                f = pair.forces(eng.state.x, eng.state.type, eng.nbr,
+                                eng.state.box.h)
+            forces.append(f.double().cpu().numpy())
+        f64, f32 = forces
+        rms = float(np.sqrt(np.mean(f64 * f64)))
+        err = float(np.abs(f32 - f64).max())
+        name = "poly_mode" if poly else "exact"
+        print(f"AEAM nc=6 ({len(types)} atoms, {int((types == 2).sum())} Si) "
+              f"{name}: max|F32 - F64| = {err:.3e} eV/A, RMS(F) = "
+              f"{rms:.3e}, ratio {err / rms:.3e} (bar 1e-2)")
+        if not err < 1e-2 * rms:
+            raise AssertionError(f"AEAM {name} f32 forces outside 1e-2 "
+                                 "RMS(F)")
+        out[name] = err / rms
+    return out
+
+
+def aeam_run(eng):
+    """The main path's two runs (AEAM_RUN_STEPS): thermo rows with the NVT
+    conserved quantity pe + ke + FixNVT.energy beside each."""
+    fix = eng.fixes[0]
+    rows = []
+
+    def note(row):
+        row["conserved"] = row["pe"] + row["ke"] + float(
+            fix.energy(eng.state, eng.ctx))
+        rows.append(row)
+
+    first, last = AEAM_RUN_STEPS
+    eng.run(first, thermo_every=first // 2, on_thermo=note)
+    eng.run(last, thermo_every=AEAM["check_every"], on_thermo=note)
+    return rows
+
+
+def phase6_aeam(dev, modules):
+    """pair_style aeam + fix nvt on the sample.in scene: D' past K = 128,
+    f32 forces, the main path through the graph loop against the eager
+    loop, and both loops' numbers.  Returns D''s AEAM record."""
+    cand = aeam_candidates(aeam_engine(dev))
+    torch.cuda.empty_cache()
+    accuracy = aeam_f32_accuracy(dev)
+    eng = aeam_engine(dev)
+    natoms = eng.state.natoms
+    nsi = int((eng.state.type == 2).sum())
+    torch.cuda.reset_peak_memory_stats()
+    for m in modules.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    rows = aeam_run(eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: m.launches for name, m in modules.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = sum(AEAM_RUN_STEPS)
+    print(f"AEAM main run (graph loop): {natoms} atoms ({nsi} Si), {steps} "
+          f"steps in {wall:.2f} s (plan sizing, capture and thermo rows "
+          f"included), launches {launches}, rebuilds {eng.rebuilds}, K "
+          f"{dict(eng._plan.k_caps)}, peak memory {peak:.3f} GiB, "
+          f"memory_usage {eng.memory_usage()}")
+    if eng._loop is None or eng._loop.exec is None:
+        raise AssertionError("the AEAM main path did not run through the "
+                             "graph")
+    check_launches("AEAM main path", launches, ("select_candidates",))
+    for r in rows:
+        if not all(np.isfinite(v) for v in r.values()):
+            raise AssertionError(f"non-finite AEAM thermo row {r}")
+    if not torch.isfinite(eng.state.x).all() \
+            or not torch.isfinite(eng.state.f).all():
+        raise AssertionError("non-finite AEAM positions or forces")
+    for r in rows[::2] + rows[-1:]:
+        print(f"  step {r['step']} T {r['temp']:.4f} pe {r['pe']:.6f} "
+              f"conserved {r['conserved']:.6f} press {r['press']:.3f}")
+    drift = (abs(rows[-1]["conserved"] - rows[0]["conserved"])
+             / (rows[-1]["step"] - rows[0]["step"]) / natoms)
+    tail = [r["temp"] for r in rows if r["step"] > steps - AEAM_RUN_STEPS[1]]
+    mean_t = float(np.mean(tail))
+    print(f"AEAM NVT conserved-quantity drift {drift:.3e} eV/step/atom; mean "
+          f"T of the last {AEAM_RUN_STEPS[1]} steps ({len(tail)} rows) "
+          f"{mean_t:.2f} K")
+
+    ref = aeam_engine(dev, fused=False)
+    aeam_run(ref)
+    same = {a: bool(torch.equal(getattr(eng.state, a),
+                                getattr(ref.state, a)))
+            for a in ("x", "v", "f", "image")}
+    chain, rchain = eng.state.extras["nvt:nvt"], ref.state.extras["nvt:nvt"]
+    same.update({f"nvt {k}": bool(torch.equal(chain[k], rchain[k]))
+                 for k in ("eta", "eta_dot", "step")})
+    print(f"AEAM graph vs eager loop after {steps} steps: bit-identical "
+          f"{same}, rebuilds {eng.rebuilds} / {ref.rebuilds}")
+    if not all(same.values()) or eng.rebuilds != ref.rebuilds:
+        raise AssertionError("the AEAM graph loop's state differs from the "
+                             "eager loop's")
+    gpu = sh("nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader")
+    numbers = loop_numbers({"graph": eng, "eager": ref}, gpu,
+                           steps=AEAM_TIMED_STEPS,
+                           profile_steps=AEAM_PROFILE_STEPS,
+                           kernels=("select_candidates_kernel",))
+    print("AEAM " + json.dumps(dict(
+        gpu=gpu, natoms=natoms, si=nsi, k_caps=dict(eng._plan.k_caps),
+        cand_capacity=eng._plan.cand_capacity, rebuilds=eng.rebuilds,
+        nvt_drift_ev_per_step_atom=drift, mean_t_last_96=mean_t,
+        peak_gib=peak, capture_s=eng._loop.capture_s,
+        f32_force_err_over_rms=accuracy, select_candidates=cand,
+        **numbers)))
+    cand["launches"] = launches["select_candidates"]
+    del eng, ref
+    torch.cuda.empty_cache()
+    return cand
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--golden-rebo", default="",
@@ -1198,6 +1451,7 @@ def main():
     results["rebo_cotangents"]["at_run_k"] = at_run_k
     by_config = phase4_configurations(dev, modules)
     phase5_golden(dev, args.golden_rebo)
+    results["select_candidates"]["aeam"] = phase6_aeam(dev, modules)
     # each kernel's count from the runs of the paths that use it
     runs = [(MAIN_PATH, launches)] + [(used, by_config[name])
                                       for name, _, _, used in CONFIGS]

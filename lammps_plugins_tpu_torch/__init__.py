@@ -4,25 +4,29 @@ The JAX package beside it (``lammps_plugins_tpu``) is the reference; this
 package mirrors its module paths so each counterpart is easy to find:
 
   core/        State, triclinic Box, lattice fills, units, the device rule
-  api/         scene builders
+  api/         scene builders (REBOMOS bulk, AEAM sample.in)
   neighbor/    ghosts, padded [N, K] lists, host build, on-device rebuild
   potentials/  PairStyle base (autograd forces / strain virial), REBOMoS,
-               the REBOMOS parameter-file reader
+               AEAM, the REBOMOS and AEAM file readers, AEAM splines and
+               their piecewise-Chebyshev refits
   ops/         hand-written CUDA kernels (sources in csrc/) with their
                plain-PyTorch twins, the nvcc build and ctypes loader, and
                the g++-built native pair search of the host build
-  fixes/       nve, velocity create
-  run/         Engine (host loop, half-skin rebuild rule), thermo, timers
+  fixes/       nve, nvt (Nose-Hoover chain), velocity create, set
+               type/fraction
+  run/         Engine (device loop as CUDA graphs, host loop, half-skin
+               rebuild rule), thermo, timers
   convert.py   numpy bridge from the JAX package's objects
 
 The port imports torch, never jax, and nothing of the JAX package: it
 keeps its own copies of the framework-free modules it needs
-(core/units.py, potentials/tables.py, run/timers.py, ops/native.py with
+(core/units.py, potentials/tables.py, potentials/polyfit.py, the spline
+coefficients of potentials/spline.py, run/timers.py, ops/native.py with
 csrc/neighbor_native.cpp).  What it builds goes into build/ at the
 repository root.
 
-The entry points (scene functions, Box constructors, REBOMoS, the host
-neighbor build) run on the card unless the caller passes device="cpu"
+The entry points (scene functions, Box constructors, REBOMoS, AEAM, the
+host neighbor build) run on the card unless the caller passes device="cpu"
 (core/device.py); without a CUDA device they raise.
 
 Dispatch rule shared by every kernel wrapper: a CPU tensor takes the plain

@@ -1,8 +1,8 @@
-"""REBOMOS scenes (port of lammps_plugins_tpu/api/scenes.py).
+"""REBOMOS and AEAM scenes (port of lammps_plugins_tpu/api/scenes.py).
 
 Same constructions as the JAX package, so both packages build identical
-atom orders and positions from the same arguments.  The scenes are built
-on the card (float32) unless the caller passes device="cpu".
+atom orders, positions and types from the same arguments.  The scenes are
+built on the card (float32) unless the caller passes device="cpu".
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import torch
 from ..core.box import Box
 from ..core.lattice import Lattice, create_atoms_box
 from ..core.state import State
+from ..fixes.velocity import set_type_fraction
 
 #: MoS2 2H lattice from USER-REBOMOS/in.rebomos-bulk:3-12.
 MOS2_A1 = (3.1903157234, 0.0, 0.0)
@@ -45,6 +46,22 @@ def spatial_sort(pos: np.ndarray, types: np.ndarray, cell: float = 4.8):
     key = (c3[:, 2] * dims[1] + c3[:, 1]) * dims[0] + c3[:, 0]
     order = np.argsort(key, kind="stable")
     return pos[order], types[order]
+
+
+def alsi_sample(nc: int = 20, si_fraction: float = 0.0075,
+                seed: int = 7683797, a: float = 4.045, dtype=torch.float32,
+                device="cuda") -> State:
+    """The USER-AEAM/sample.in scene: an nc^3-cell fcc Al box with a
+    random Si substitution fraction (sample.in:8-19); nc=20 gives 32,000
+    atoms.  The Si sites come from set_type_fraction's coordinate hash, in
+    the scene's float type (statistically equivalent to LAMMPS `set
+    type/fraction`)."""
+    lat = Lattice.fcc(a)
+    box = Box.orthogonal([a * nc] * 3, dtype=dtype, device=device)
+    pos, types = create_atoms_box(lat, box, [1, 1, 1, 1])
+    mass = np.array([0.0, 27.0, 28.0])     # AlSi.aeam per-element masses
+    state = State.create(x=pos, type=types, box=box, mass=mass)
+    return set_type_fraction(state, 2, si_fraction, seed)
 
 
 def rebomos_bulk_commensurate(nx: int = 34, ny: int = 48, nz: int = 10,

@@ -18,6 +18,7 @@ from .core.state import State
 from .neighbor.build import CellData, NeighborData
 from .neighbor.device_build import RebuildPlan
 from .neighbor.neighbor import Ghosts, NeighborList
+from .potentials.aeam import AEAM
 from .potentials.rebomos import REBOMoS
 
 
@@ -85,3 +86,12 @@ def rebomos_from_tables(tables, typemap, dtype=torch.float64,
                         device="cpu") -> REBOMoS:
     """Port REBOMoS from parsed parameter tables (numpy already)."""
     return REBOMoS(tables, np.asarray(typemap), dtype=dtype, device=device)
+
+
+def aeam_from_tables(tables, typemap, dtype=torch.float64, device="cpu",
+                     poly_mode: bool = False) -> AEAM:
+    """Port AEAM from the JAX style's parsed tables (AEAMTables, numpy
+    already) and typemap, so both packages compute from the same
+    tables."""
+    return AEAM(tables, np.asarray(typemap), dtype=dtype, device=device,
+                poly_mode=poly_mode)

@@ -57,6 +57,13 @@ class Box:
                    h64=cls._master(h64), lo64=cls._master(lo64))
 
     @classmethod
+    def orthogonal(cls, lengths, lo=(0.0, 0.0, 0.0), periodic=(True,) * 3,
+                   dtype=torch.float32, device="cuda") -> "Box":
+        """Orthogonal box with edge lengths (lx, ly, lz)."""
+        return cls.from_numpy(np.diag(np.asarray(lengths, np.float64)), lo,
+                              periodic, dtype, device)
+
+    @classmethod
     def triclinic(cls, lx, ly, lz, xy=0.0, xz=0.0, yz=0.0,
                   lo=(0.0, 0.0, 0.0), periodic=(True,) * 3,
                   dtype=torch.float32, device="cuda") -> "Box":

@@ -1,7 +1,7 @@
 """Lattice fills — LAMMPS `lattice custom` / `create_atoms box`.
 
 Port of lammps_plugins_tpu/core/lattice.py, limited to what the REBOMOS
-scenes use.  Host-side numpy; see the JAX module for how `origin` was
+and AEAM scenes use (custom, fcc, bcc, sc).  Host-side numpy; see the JAX module for how `origin` was
 pinned against the golden log.
 """
 
@@ -31,6 +31,28 @@ class Lattice:
                    a3=np.asarray(a3, float) * scale,
                    basis=np.asarray(basis, float),
                    origin=np.asarray(origin, float), scale=scale)
+
+    @classmethod
+    def fcc(cls, a, origin=(0.0, 0.0, 0.0)):
+        basis = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.0],
+                          [0.5, 0.0, 0.5], [0.0, 0.5, 0.5]])
+        return cls(a1=np.array([a, 0.0, 0.0]), a2=np.array([0.0, a, 0.0]),
+                   a3=np.array([0.0, 0.0, a]), basis=basis,
+                   origin=np.asarray(origin, float), scale=a)
+
+    @classmethod
+    def bcc(cls, a, origin=(0.0, 0.0, 0.0)):
+        basis = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.5]])
+        return cls(a1=np.array([a, 0.0, 0.0]), a2=np.array([0.0, a, 0.0]),
+                   a3=np.array([0.0, 0.0, a]), basis=basis,
+                   origin=np.asarray(origin, float), scale=a)
+
+    @classmethod
+    def sc(cls, a, origin=(0.0, 0.0, 0.0)):
+        return cls(a1=np.array([a, 0.0, 0.0]), a2=np.array([0.0, a, 0.0]),
+                   a3=np.array([0.0, 0.0, a]),
+                   basis=np.zeros((1, 3)),
+                   origin=np.asarray(origin, float), scale=a)
 
     @property
     def primitive(self) -> np.ndarray:

@@ -17,17 +17,22 @@
 //
 // The selection core (select_row), shared: a warp counts the row's hits
 // (finite keys; for D' the candidates inside the cutoff window) with a
-// ballot per step and puts the first 32 into a 32-entry per-warp buffer at
-// their prefix popcount.  A row of at most 32 hits (every row of the bench
-// scene's rebuild: at most 12-20 of 432 candidates) is sorted by (key,
-// column) in one bitonic sort over the lanes' shuffles, and lane k writes
-// output k; a row of more takes K rounds of a warp argmin, each taking the
-// least pair after the previous round's from the row itself (D: the keys
-// still in registers; D': the staged candidates, recomputed), and round
-// k's column stays in lane k % 32.  Either way the lanes write their
-// outputs and read their payloads at once: the stores are coalesced and no
-// lane walks the K outputs alone.  No list of W entries is kept, so the
-// shared memory of a block is small and 16 blocks fit an SM.
+// ballot per step and puts the first kBuf = 256 into a per-warp buffer in
+// shared memory at their prefix popcount.  A row of at most 32 hits (every
+// row of the REBOMOS bench rebuild: at most 12-20 of 432 candidates) is
+// sorted by (key, column) in one bitonic sort over the lanes' shuffles, and
+// lane k writes output k.  A row of 33 to 256 hits (the AEAM rebuild: ~115
+// hits inside 7.7 A among ~1,000 staged candidates, K = 144) is sorted in
+// the buffer by one bitonic sort over the next power of two of its hit
+// count, the warp's lanes taking the compare-exchanges of each step, and
+// lane k % 32 writes output k.  A row of more hits than the buffer holds
+// (only when kmax > K, a rebuild the Engine discards) takes K rounds of a
+// warp argmin, each taking the least pair after the previous round's from
+// the row itself (D: the keys still in registers; D': the staged
+// candidates, recomputed), round k's column staying in lane k % 32.  Every
+// way, the lanes write their outputs and read their payloads at once: the
+// stores are coalesced and no lane walks the K outputs alone.  No list of W
+// entries is kept: a block's buffers take 8 KB of shared memory.
 //
 // D: one warp per row, each lane loading W/128 float4 of keys.  D': one
 // 128-thread block per fine cell; the real atoms among its 27 neighbour
@@ -53,7 +58,8 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;               // rows (D) or atoms (D') at once
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxK = 128;              // outputs per row: kMaxK / 32 a lane
+constexpr int kMaxK = 256;              // outputs per row: kMaxK / 32 a lane
+constexpr int kBuf = 256;               // per-warp buffer of a row's hits
 constexpr int kMaxTypes = 16;           // D': cutoff table (T + 1)^2
 
 // (a, ca) comes before (b, cb): by key, ties to the lower column
@@ -87,19 +93,44 @@ __device__ __forceinline__ void take_if_next(float v, int c, float lk,
   }
 }
 
+// Ascending bitonic sort of the n2 (a power of two, 64 <= n2 <= kBuf)
+// (key, tag) pairs of a warp's buffer: each step's n2 / 2 compare-exchanges
+// (i, i + stride) shared among the lanes, a __syncwarp between steps.
+__device__ __forceinline__ void bitonic_buffer(float* bk, int* bc, int n2,
+                                               int lane) {
+  for (int size = 2; size <= n2; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = lane; t < (n2 >> 1); t += 32) {
+        const int i = 2 * t - (t & (stride - 1));
+        const int j = i + stride;
+        const float ki = bk[i], kj = bk[j];
+        const int ci = bc[i], cj = bc[j];
+        if (before(kj, cj, ki, ci) == ((i & size) == 0)) {
+          bk[i] = kj;
+          bc[i] = cj;
+          bk[j] = ki;
+          bc[j] = ci;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
 // The K smallest (key, tag) pairs of a row in order: emit(k, tag) for
 // k < K, tag -1 once the row's hits are spent (tags distinct, >= 0).  nh:
-// the row's hit count; the warp's 32-entry buffer (bk, bc) holds its first
-// 32 hits.  nh <= 32: lane q takes entry q, one bitonic sort over the lanes
-// orders them and lane k emits output k.  Otherwise K rounds of a warp
-// argmin, each taking the least pair after the previous round's:
-// scan(lk, lc, best_k, best_c) folds the lane's share of the row's hits,
-// read again from the row, into (best_k, best_c); round k's tag stays in
-// lane k % 32, and the lanes emit together at the end.  Warp-uniform.
+// the row's hit count; the warp's kBuf-entry buffer (bk, bc) holds its
+// first kBuf hits.  nh <= 32: lane q takes entry q, one bitonic sort over
+// the lanes orders them and lane k emits output k.  nh <= kBuf: the buffer,
+// padded to a power of two, is sorted in place and lane k % 32 emits output
+// k.  Otherwise K rounds of a warp argmin, each taking the least pair after
+// the previous round's: scan(lk, lc, best_k, best_c) folds the lane's share
+// of the row's hits, read again from the row, into (best_k, best_c); round
+// k's tag stays in lane k % 32, and the lanes emit together at the end.
+// Warp-uniform; the buffer is free again when it returns.
 template <typename Scan, typename Emit>
-__device__ __forceinline__ void select_row(const float* bk, const int* bc,
-                                           int nh, int K, int lane,
-                                           Scan scan, Emit emit) {
+__device__ __forceinline__ void select_row(float* bk, int* bc, int nh, int K,
+                                           int lane, Scan scan, Emit emit) {
   if (nh <= 32) {
     float k = INFINITY;
     int c = INT_MAX;
@@ -109,6 +140,20 @@ __device__ __forceinline__ void select_row(const float* bk, const int* bc,
     }
     bitonic32(k, c, lane);
     for (int q = lane; q < K; q += 32) emit(q, q < nh ? c : -1);
+    __syncwarp();
+    return;
+  }
+  if (nh <= kBuf) {
+    int n2 = 64;
+    while (n2 < nh) n2 <<= 1;
+    for (int q = nh + lane; q < n2; q += 32) {
+      bk[q] = INFINITY;
+      bc[q] = INT_MAX;
+    }
+    __syncwarp();
+    bitonic_buffer(bk, bc, n2, lane);
+    for (int q = lane; q < K; q += 32) emit(q, q < nh ? bc[q] : -1);
+    __syncwarp();
     return;
   }
   int sel[kMaxK / 32];
@@ -141,7 +186,7 @@ __device__ __forceinline__ void select_row(const float* bk, const int* bc,
     if (s * 32 + lane < K) emit(s * 32 + lane, sel[s]);
 }
 
-// count this lane's hit and, among the row's first 32, put it in the
+// count this lane's hit and, among the row's first kBuf, put it in the
 // warp's buffer (ballot + prefix popcount)
 __device__ __forceinline__ void push_hit(bool hit, float key, int tag,
                                          float* bk, int* bc, int& nh,
@@ -149,7 +194,7 @@ __device__ __forceinline__ void push_hit(bool hit, float key, int tag,
   const unsigned m = __ballot_sync(kFull, hit);
   if (hit) {
     const int p = nh + __popc(m & lanes_below);
-    if (p < 32) {
+    if (p < kBuf) {
       bk[p] = key;
       bc[p] = tag;
     }
@@ -173,8 +218,8 @@ select_k_kernel(const float* __restrict__ keys,
                 int* __restrict__ pos, float* __restrict__ out0,
                 float* __restrict__ out1, int N, int K) {
   constexpr int W = 128 * V;
-  __shared__ float buf_k[kWarps][32];
-  __shared__ int buf_c[kWarps][32];
+  __shared__ float buf_k[kWarps][kBuf];
+  __shared__ int buf_c[kWarps][kBuf];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + warp;
@@ -261,8 +306,8 @@ select_candidates_kernel(const float4* __restrict__ xt,
                          bool* __restrict__ mask, int* __restrict__ cnt,
                          int d0, int d1, int d2, int Cf, int m_all, int K) {
   extern __shared__ float4 stage[];
-  __shared__ float buf_k[kWarps][32];
-  __shared__ int buf_c[kWarps][32];
+  __shared__ float buf_k[kWarps][kBuf];
+  __shared__ int buf_c[kWarps][kBuf];
   __shared__ int nreal;
   const int c = blockIdx.x;
   const int a0 = starts[c], a1 = starts[c + 1];
@@ -339,7 +384,6 @@ select_candidates_kernel(const float4* __restrict__ xt,
       mask[o] = tag >= 0;
     });
     if (lane == 0) cnt[i] = nh;
-    __syncwarp();                        // the next atom rewrites the buffer
   }
 }
 
@@ -387,7 +431,7 @@ extern "C" int lpt_select_candidates(const float* xt, const int* table,
                        (size_t)nt * nt * sizeof(float);
   static size_t allowed = 48 * 1024;     // the default dynamic limit
   if (bytes > allowed) {
-    if (bytes > 220 * 1024) return -1;   // beside the static buffers
+    if (bytes > 216 * 1024) return -1;   // beside the 8 KB static buffers
     const cudaError_t err = cudaFuncSetAttribute(
         select_candidates_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);

@@ -13,21 +13,33 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+import torch
+
 from ..core.state import State
 from ..core.units import UnitSystem
 
 
 @dataclasses.dataclass
 class StepContext:
-    """Static per-run parameters visible to every hook."""
+    """Static per-run parameters visible to every hook.
+
+    natoms_global: the global atom count for degrees of freedom where a
+    run spans devices (None on one device, as here)."""
 
     units: UnitSystem
     dt: float
+    natoms_global: "int | None" = None
 
     @property
     def dtf(self) -> float:
         """0.5 * dt * ftm2v — the half-kick prefactor."""
         return 0.5 * self.dt * self.units.ftm2v
+
+    def asum(self, value):
+        """Sum a per-device scalar across devices: the identity on one
+        device (the MPI_Allreduce analogue, fix_bfield.cpp:545)."""
+        return value
 
 
 class Fix:
@@ -39,6 +51,24 @@ class Fix:
 
     def setup(self, state: State, ctx: StepContext) -> State:
         return state
+
+    def group_sel(self, state: State):
+        """This fix's group as a bool [N] tensor on the state's device, or
+        None for 'all' (LAMMPS `fix ID <group> style`).  The mask is put on
+        the device once and kept (a hook may not copy from the host inside
+        a captured step)."""
+        gm = getattr(self, "group_mask", None)
+        if gm is None:
+            return None
+        if gm.shape[0] != state.x.shape[0]:
+            raise ValueError(f"group mask length {gm.shape[0]} does not "
+                             f"match state rows {state.x.shape[0]}")
+        cached = getattr(self, "_group_dev", None)
+        if cached is None or cached.device != state.x.device:
+            cached = torch.as_tensor(np.asarray(gm, bool),
+                                     device=state.x.device)
+            self._group_dev = cached
+        return cached
 
     def initial_integrate(self, state: State, ctx: StepContext) -> State:
         return state
@@ -54,3 +84,7 @@ class Fix:
 
     def end_of_step(self, state: State, ctx: StepContext) -> State:
         return state
+
+    def energy(self, state: State, ctx: StepContext):
+        """compute_scalar() analogue: the fix's contribution to thermo."""
+        return 0.0

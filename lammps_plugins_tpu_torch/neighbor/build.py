@@ -46,13 +46,17 @@ class CellData:
 
 @dataclasses.dataclass(frozen=True)
 class NeighborData:
-    """Everything an energy function needs, rebuilt together."""
+    """Everything an energy function needs, rebuilt together.
+    pair_tables: tensors a pair style builds from the lists at each
+    rebuild (its `rebuild_tables`), e.g. AEAM's angular reaction table."""
 
     ghosts: Ghosts
     lists: Dict[str, NeighborList]
     x_build: torch.Tensor     # positions at build time (rebuild trigger)
     skin: float
     cells: "CellData | None" = None
+    pair_tables: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
 
 
 def build_ghosts_np(x: np.ndarray, box: Box, cutoff: float):

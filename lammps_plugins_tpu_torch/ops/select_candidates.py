@@ -31,7 +31,7 @@ from .select_k import select_k_ref
 
 #: kernel launches (one per call that reached the CUDA kernel)
 launches = 0
-MAX_K = 128         # the selection core's outputs per row
+MAX_K = 256         # the selection core's outputs per row (8 a lane)
 MAX_TYPES = 16      # cutoff table [T + 1, T + 1] in shared memory
 
 #: the 27 neighbour-cell offsets, (a, b, c) lexicographic over {-1, 0, 1}

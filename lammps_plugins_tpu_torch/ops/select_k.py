@@ -16,7 +16,7 @@ from . import build
 #: kernel launches (one per call that reached the CUDA kernel)
 launches = 0
 MAX_W = 1024        # 8 float4 of keys per lane in registers
-MAX_K = 128         # 4 outputs per lane
+MAX_K = 256         # 8 outputs per lane
 
 
 def select_k_ref(keys, k, payloads=()):

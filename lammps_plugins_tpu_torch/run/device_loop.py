@@ -24,11 +24,19 @@ The decisions are made in float64 from the float32 md, as the host loop
 makes them with Python floats (float(md) is exact), so both loops take the
 same rebuilds and give the same trajectory bit for bit.
 
+The loop carries the state that a step changes: x, v, f and every tensor
+of state.extras (a fix's own state, e.g. fix nvt's chain and step count),
+in its buffers, its snapshot (restored when an overflow discards a span)
+and its accept/discard step; image, which the rebuild changes, in its
+buffers and snapshot.
+
 What the captured code may do: read and write device tensors only.  The
 kernel wrappers' `launches` counters tick once at capture; the loop puts
 them back and adds each graph's launches at every replay (the rebuild's
 n_rb times).  A fix whose hooks read a host value (`Fix.capturable`
-False), or that changes a State field other than x, v and f, is refused.
+False), a step that changes another State field, or one that changes the
+keys, shapes or types of state.extras (or keeps a non-tensor in it), is
+refused.
 """
 
 from __future__ import annotations
@@ -42,7 +50,6 @@ import time
 import numpy as np
 import torch
 
-from ..neighbor import device_build
 from ..ops import build
 
 #: the kernel wrapper modules of ops/ (each with a `launches` counter)
@@ -78,6 +85,34 @@ def tensors(obj):
     elif dataclasses.is_dataclass(obj):
         for f in dataclasses.fields(obj):
             yield from tensors(getattr(obj, f.name))
+
+
+def extras_items(extras, prefix=()):
+    """[(key path, tensor)] of every tensor of a (nested) state.extras
+    dict, in sorted key order; a leaf that is not a tensor raises."""
+    out = []
+    for k in sorted(extras):
+        path, v = prefix + (k,), extras[k]
+        if isinstance(v, dict):
+            out += extras_items(v, path)
+        elif torch.is_tensor(v):
+            out.append((path, v))
+        else:
+            raise RuntimeError(f"fused loop: state.extras{list(path)} is a "
+                               f"{type(v).__name__}; the loop carries "
+                               "tensors only")
+    return out
+
+
+def _nested(items):
+    """The extras dict of extras_items' (key path, tensor) pairs."""
+    out = {}
+    for path, t in items:
+        d = out
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = t
+    return out
 
 
 def _cloned(obj):
@@ -142,11 +177,14 @@ class DeviceLoop:
         dev = st.x.device
         self.cuda = st.x.is_cuda
         self.names = list(flag_names)
-        # the loop's state: x, v, f, image in place; type, mass, box as given
+        # the loop's state in place: x, v, f, image and the extras tensors
+        # (keyed by their key paths); type, mass, box as given
+        self.xpaths = [p for p, _ in extras_items(st.extras)]
         self.buf = {a: getattr(st, a).clone()
                     for a in _STATE_FIELDS + ("image",)}
+        self.buf.update((p, t.clone()) for p, t in extras_items(st.extras))
         self.snap = {a: t.clone() for a, t in self.buf.items()}
-        self.base = st.replace(**self.buf)
+        self.base = self._state(st)
         self.nbr = _cloned(eng.nbr)
         self.ctl = torch.zeros(len(_CTL) + len(self.names), dtype=torch.int64,
                                device=dev)
@@ -166,10 +204,9 @@ class DeviceLoop:
     # -- the iteration --------------------------------------------------------
     def _rebuild(self):
         """Rebuild into the loop's neighbor buffers; max-merge the flags."""
-        e, b = self.eng, self.buf
-        xw, image, nbr, flags = device_build.device_rebuild(
-            self.plan, b["x"], b["image"], self.base.type, *e._box_dev,
-            self.requests, react=e._react)
+        b = self.buf
+        xw, image, nbr, flags = self.eng.rebuild_lists(
+            self.plan, b["x"], b["image"], self.base.type, self.requests)
         if sorted(flags) != self.names:
             raise RuntimeError(f"fused loop: rebuild flags {sorted(flags)} "
                                f"are not the loop's {self.names}")
@@ -190,17 +227,23 @@ class DeviceLoop:
             for _ in range(self.check):
                 st = self.eng._one_step(st, self.nbr)
         moved = [f.name for f in dataclasses.fields(st)
-                 if f.name not in _STATE_FIELDS + ("step",)
+                 if f.name not in _STATE_FIELDS + ("step", "extras")
                  and getattr(st, f.name) is not getattr(self.base, f.name)]
+        new = dict(extras_items(st.extras))
+        if list(new) != self.xpaths or any(
+                t.shape != b[p].shape or t.dtype != b[p].dtype
+                for p, t in new.items()):
+            moved.append("the keys, shapes or types of extras")
         if moved:
             raise RuntimeError(f"fused loop: a step changed {moved}; the "
-                               "loop carries x, v and f only")
+                               "loop carries x, v, f and the extras tensors")
         dd = st.x - self.nbr.x_build
         md = torch.max(torch.sum(dd * dd, dim=-1)).double()
         tripped = md > self.half2
         accept = self.pending | ~tripped
-        for a in _STATE_FIELDS:
-            b[a].copy_(torch.where(accept, getattr(st, a), b[a]))
+        for a, t in [(a, getattr(st, a)) for a in _STATE_FIELDS] \
+                + list(new.items()):
+            b[a].copy_(torch.where(accept, t, b[a]))
         self.done.add_(accept.to(torch.int64) * self.check)
         d = torch.sqrt(md)
         growth = torch.clamp(d - self.dprev, min=0.0)
@@ -216,9 +259,8 @@ class DeviceLoop:
         segment, and join them under the conditional node."""
         e, b = self.eng, self.buf
         with torch.no_grad():
-            device_build.device_rebuild(self.plan, b["x"], b["image"],
-                                        self.base.type, *e._box_dev,
-                                        self.requests, react=e._react)
+            e.rebuild_lists(self.plan, b["x"], b["image"], self.base.type,
+                             self.requests)
             e.pair.forces(b["x"], self.base.type, self.nbr, self.base.box.h)
         lib = build.lib()
         t0 = time.perf_counter()
@@ -269,12 +311,22 @@ class DeviceLoop:
             pass
 
     # -- driving --------------------------------------------------------------
+    def _state(self, st):
+        """st with x, v, f, image and extras on the loop's buffers."""
+        return st.replace(
+            extras=_nested((p, self.buf[p]) for p in self.xpaths),
+            **{a: self.buf[a] for a in _STATE_FIELDS + ("image",)})
+
     def start(self, state, nbr, pending: bool, dprev: float):
         """Load the Engine's state and lists (copied where they are not the
         loop's own), the host's pending/dprev, and zero the counters.
         Returns the Engine's state on the loop's buffers."""
+        src_of = dict(extras_items(state.extras))
+        if list(src_of) != self.xpaths:
+            raise RuntimeError(f"fused loop: state.extras holds "
+                               f"{list(src_of)}, the loop {self.xpaths}")
         for a, t in self.buf.items():
-            src = getattr(state, a)
+            src = src_of[a] if a in src_of else getattr(state, a)
             if src is not t:
                 t.copy_(src)
             self.snap[a].copy_(t)
@@ -285,7 +337,7 @@ class DeviceLoop:
         self.dprev.fill_(float(dprev))
         self.ctl.zero_()
         self.step0 = state.step
-        return state.replace(**self.buf)
+        return self._state(state)
 
     def replay(self, n: int):
         """n iterations: n graph launches (CUDA), or n eager iterations."""
@@ -320,6 +372,7 @@ class DeviceLoop:
             t.copy_(self.snap[a])
 
     def nbytes(self) -> int:
-        """Device bytes of the loop's own: snapshot, control, graph pool."""
+        """Device bytes of the loop's own: snapshot (extras included),
+        control, graph pool."""
         return (sum(t.numel() * t.element_size() for t in self.snap.values())
                 + self.ctl.numel() * 8 + 9 + self.pool_bytes)

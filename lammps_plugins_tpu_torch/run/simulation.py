@@ -34,6 +34,7 @@ or per-span control vector, the rebuild flags and the thermo rows.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, List, Sequence
 
@@ -134,9 +135,25 @@ class Engine:
         self.state = st.replace(
             x=torch.as_tensor(xw, dtype=dtype, device=dev),
             image=torch.as_tensor(image, dtype=torch.int32, device=dev))
-        self.nbr = build_neighbor_data(
+        self.nbr = self._with_pair_tables(build_neighbor_data(
             xw, st.type.cpu().numpy(), st.box, self.pair.neighbor_requests(),
-            skin=self.skin, dtype=dtype, device=dev)
+            skin=self.skin, dtype=dtype, device=dev))
+
+    def _with_pair_tables(self, nbr: NeighborData) -> NeighborData:
+        """nbr with the pair style's rebuild-time tables attached
+        (`rebuild_tables`, when the style has one)."""
+        make = getattr(self.pair, "rebuild_tables", None)
+        return (dataclasses.replace(nbr, pair_tables=make(nbr)) if make
+                else nbr)
+
+    def rebuild_lists(self, plan, x, image, types, requests):
+        """device_build.device_rebuild with this Engine's box tensors and
+        route option, the pair style's rebuild-time tables attached: the
+        rebuild of rebuild_neighbors and of the device loop."""
+        xw, image, nbr, flags = device_build.device_rebuild(
+            plan, x, image, types, *self._box_dev, requests,
+            react=self._react)
+        return xw, image, self._with_pair_tables(nbr), flags
 
     def _make_plan_fast(self, slack: float = 1.25):
         """Density-based capacity estimate (no host neighbor build)."""
@@ -149,11 +166,10 @@ class Engine:
     def _rebuild_on_device(self, _retry: int = 0):
         if self._plan is None:
             self._make_plan_fast()
-        h, h_inv, lo = self._box_dev
         st = self.state
-        xw, image, nbr, flags_t = device_build.device_rebuild(
-            self._plan, st.x, st.image, st.type, h, h_inv, lo,
-            self.pair.neighbor_requests(), react=self._react)
+        xw, image, nbr, flags_t = self.rebuild_lists(
+            self._plan, st.x, st.image, st.type,
+            self.pair.neighbor_requests())
         flags = device_build.flags_to_host(flags_t)
         if _overflowed(flags):
             if _retry >= 6:
@@ -373,13 +389,11 @@ class Engine:
         rebuild at the current plan): the share of a span's time that the
         timers move from Pair to Neigh per in-loop rebuild."""
         if self._rebuild_cost is None:
-            h, h_inv, lo = self._box_dev
             st = self.state
             requests = self.pair.neighbor_requests()
             self._rebuild_cost = device_seconds(
-                lambda: device_build.device_rebuild(
-                    self._plan, st.x, st.image, st.type, h, h_inv, lo,
-                    requests, react=self._react), st.x.device)
+                lambda: self.rebuild_lists(self._plan, st.x, st.image,
+                                            st.type, requests), st.x.device)
         return self._rebuild_cost
 
     # -- set-up and output --------------------------------------------------

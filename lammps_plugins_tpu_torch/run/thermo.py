@@ -37,15 +37,18 @@ def pressure_tensor(state: State, virial_w, units: UnitSystem):
     return (kin + virial_w) / state.box.volume * units.nktv2p
 
 
-def thermo_row(state: State, pe, virial_w, units: UnitSystem) -> dict:
-    """Thermo row as Python numbers (one device-to-host copy)."""
+def thermo_row(state: State, pe, virial_w, units: UnitSystem,
+               fix_energy=0.0) -> dict:
+    """Thermo row as Python numbers (one device-to-host copy).
+    fix_energy (fix_modify energy yes) joins pe and etotal."""
     ke = kinetic_energy(state, units)
     pt = pressure_tensor(state, virial_w, units)
     h = state.box.h
     names = ("temp", "press", "pe", "ke", "etotal", "vol", "pxx", "pyy",
              "pzz", "pxy", "pxz", "pyz", "lx", "ly", "lz")
     vals = torch.stack([
-        temperature(state, units), torch.trace(pt) / 3.0, pe, ke, pe + ke,
+        temperature(state, units), torch.trace(pt) / 3.0, pe + fix_energy,
+        ke, pe + fix_energy + ke,
         state.box.volume, pt[0, 0], pt[1, 1], pt[2, 2],
         0.5 * (pt[0, 1] + pt[1, 0]), 0.5 * (pt[0, 2] + pt[2, 0]),
         0.5 * (pt[1, 2] + pt[2, 1]), h[0, 0], h[1, 1], h[2, 2]])

@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's framework-free modules
-against the originals, on the same inputs: the REBOMOS parameter reader,
-the unit systems, the timers' report and transfer, and the native pair
+against the originals, on the same inputs: the REBOMOS and AEAM parameter
+readers, the AEAM spline coefficients and piecewise-Chebyshev refits, the
+unit systems, the timers' report and transfer, and the native pair
 search."""
 
 import dataclasses
@@ -10,13 +11,15 @@ import pytest
 
 from lammps_plugins_tpu.core import units as jax_units
 from lammps_plugins_tpu.ops import native as jax_native
+from lammps_plugins_tpu.potentials import polyfit as jax_polyfit
+from lammps_plugins_tpu.potentials import spline as jax_spline
 from lammps_plugins_tpu.potentials import tables as jax_tables
 from lammps_plugins_tpu.run.timers import Timers as JTimers
 from lammps_plugins_tpu_torch.core import units
 from lammps_plugins_tpu_torch.ops import native
-from lammps_plugins_tpu_torch.potentials import tables
+from lammps_plugins_tpu_torch.potentials import polyfit, spline, tables
 from lammps_plugins_tpu_torch.run.timers import Timers
-from torch_parity import SYNTH_REBO
+from torch_parity import SYNTH_AEAM, SYNTH_AEAM_ASYM, SYNTH_REBO
 
 SYSTEMS = ("metal", "real", "lj", "si", "cgs", "electron", "micro", "nano")
 
@@ -26,6 +29,64 @@ def test_read_rebomos_matches_jax():
     for f in dataclasses.fields(jax_tables.REBOMoSTables):
         np.testing.assert_array_equal(getattr(a, f.name), getattr(b, f.name))
     assert a.cut3rebo == b.cut3rebo
+
+
+@pytest.mark.parametrize("path", [SYNTH_AEAM, SYNTH_AEAM_ASYM])
+def test_read_aeam_matches_jax(path):
+    a, b = tables.read_aeam(path), jax_tables.read_aeam(path)
+    assert (a.nelements, a.nnonangular, a.nangular, a.elements) == \
+        (b.nelements, b.nnonangular, b.nangular, b.elements) == \
+        (2, 1, 1, ["Al", "Si"])
+    for f in ("mass", "nrho", "drho", "nr", "dr", "cut"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    np.testing.assert_array_equal(a.cut, [[6.5, 4.18], [4.18, 5.28]])
+    for i in range(2):
+        np.testing.assert_array_equal(a.frho[i], b.frho[i])
+        for j in range(2):
+            np.testing.assert_array_equal(a.rhor[i][j], b.rhor[i][j])
+    assert a.z2r.keys() == b.z2r.keys()
+    for k in a.z2r:
+        np.testing.assert_array_equal(a.z2r[k], b.z2r[k])
+
+
+def test_read_aeam_rejects_a_truncated_file(tmp_path):
+    p = tmp_path / "short.aeam"
+    with open(SYNTH_AEAM) as fh:
+        p.write_text("".join(fh.readlines()[:40]))
+    with pytest.raises(ValueError):
+        tables.read_aeam(str(p))
+
+
+def test_synthetic_sisi_density_ends_at_cut_minus_cutdec():
+    t = tables.read_aeam(SYNTH_AEAM)
+    r = (np.arange(int(t.nr[1, 1]) + 1) - 1) * t.dr[1, 1]
+    shell = r >= t.cut[1, 1] - 1.5
+    assert (t.rhor[1][1][shell] == 0.0).all()
+    assert (t.rhor[1][1][1:][~shell[1:]] != 0.0).any()
+
+
+@pytest.mark.parametrize("table", ["frho0", "rhor01", "z2r11"])
+def test_make_spline_matches_jax(table):
+    t = tables.read_aeam(SYNTH_AEAM)
+    f, n, d = {"frho0": (t.frho[0], t.nrho[0], t.drho[0]),
+               "rhor01": (t.rhor[0][1], t.nr[0, 1], t.dr[0, 1]),
+               "z2r11": (t.z2r[(1, 1)], t.nr[1, 1], t.dr[1, 1])}[table]
+    np.testing.assert_array_equal(spline.make_spline(f, int(n), float(d)),
+                                  jax_spline.make_spline(f, int(n),
+                                                         float(d)))
+
+
+def test_fit_aeam_polys_matches_jax():
+    from lammps_plugins_tpu_torch.potentials.aeam import _pair_tables
+    t = tables.read_aeam(SYNTH_AEAM)
+    rhor, _, _, z2r, z2r_map = _pair_tables(2, t)[:5]
+    a = polyfit.fit_aeam_polys(t, rhor, z2r, z2r_map)
+    b = jax_polyfit.fit_aeam_polys(t, rhor, z2r, z2r_map)
+    np.testing.assert_array_equal(a.f_coef, b.f_coef)
+    np.testing.assert_array_equal(a.phi_coef, b.phi_coef)
+    assert a.err == b.err
+    assert (polyfit.U0, polyfit.NSEG, polyfit.DEG) == \
+        (jax_polyfit.U0, jax_polyfit.NSEG, jax_polyfit.DEG)
 
 
 def test_read_rebomos_rejects_a_short_file(tmp_path):

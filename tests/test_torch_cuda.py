@@ -43,6 +43,15 @@ steps on the sorted 2,304-atom scene at 600 K and on the 97,920-atom bench
 scene, also across a plan change that recaptures the graph; one span
 replays with PyTorch's sync debug mode set to raise, and each replay adds
 one segment's launches to the counters.
+
+The AEAM + fix nvt path (tests/data/AlSi.synthetic.aeam): the candidate
+selection exact against its twin at K = 144, 224 and 256 on the arguments
+of an Al-Si rebuild (select-k also on rows of up to 300 hits at those K);
+the graph loop bit for bit against the eager loop on the jiggled 5 %-Si
+nc=6 scene (x, v, f, image, the Nose-Hoover chain and its step count, the
+rebuild count), a discarded span that restores the chain, an in-loop
+overflow that the Engine recovers from, and a span under the sync debug
+mode.
 """
 
 import dataclasses
@@ -324,11 +333,14 @@ def test_select_k_kernel_matches_twin_exactly(cuda):
 @pytest.mark.parametrize("hits,K,W", [
     (0, 16, 512), (5, 16, 512), (32, 16, 512), (33, 16, 512),
     (200, 16, 512), (32, 40, 512), (100, 40, 1024), (300, 128, 384),
-    ("tied", 16, 512), ("tied", 40, 128), ("tied", 20, 1024)])
+    ("tied", 16, 512), ("tied", 40, 128), ("tied", 20, 1024),
+    (115, 144, 1024), (144, 144, 512), (200, 224, 1024), (256, 256, 512),
+    (257, 144, 512), (300, 256, 1024), ("tied", 144, 1024)])
 def test_select_k_kernel_by_hits_per_row(cuda, hits, K, W):
     """Rows with 0, fewer than K, exactly 32, more than 32 and all-tied
-    finite keys (the bitonic branch up to 32, the argmin rounds past it),
-    K above 32 too: positions and payloads exact, reruns identical."""
+    finite keys (the lanes' bitonic sort up to 32 hits, the buffer's up to
+    256, the argmin rounds past it), K above 32 and 128 too: positions and
+    payloads exact, reruns identical."""
     N = 67
     rng = np.random.default_rng(W + K)
     keys = np.full((N, W), np.inf, np.float32)
@@ -716,3 +728,149 @@ def test_graph_span_replays_without_host_sync(cuda):
     assert res.n_rb >= 1 and res.done >= 10
     assert rebo.launches == before[0] + 16 * eng.check_every
     assert select_candidates.launches == before[1] + res.n_rb
+
+
+# -- AEAM + fix nvt ---------------------------------------------------------
+
+def _aeam_call(K):
+    """The arguments of the select_candidates call of a float32 CPU
+    rebuild of the jiggled nc=5 Al-Si scene (skin 1.2) with K slots."""
+    from lammps_plugins_tpu_torch.api.scenes import alsi_sample
+    from lammps_plugins_tpu_torch.fixes.nvt import FixNVT
+    from lammps_plugins_tpu_torch.potentials.aeam import AEAM
+    from torch_parity import SYNTH_AEAM
+    cpu = dict(dtype=torch.float32, device="cpu")
+    st = alsi_sample(nc=5, si_fraction=0.05, **cpu)
+    rng = np.random.default_rng(8)
+    st = st.replace(x=st.x + torch.as_tensor(
+        rng.uniform(-0.15, 0.15, st.x.shape), dtype=torch.float32))
+    pair = AEAM.from_file(SYNTH_AEAM, ["Al", "Si"], **cpu)
+    eng = Engine(st, pair, [FixNVT(863.0, 863.0, 0.1)], units.METAL,
+                 skin=1.2)
+    eng.rebuild_neighbors()
+    plan = dataclasses.replace(eng._plan, k_caps=(("main", K),))
+    st = eng.state
+    (_, _, _, flags), calls = rebuild_with_spy(
+        plan, st.x, st.image, st.type, *eng._box_dev,
+        pair.neighbor_requests())
+    assert not bool(flags["k_overflow:main"])
+    return calls[0]
+
+
+@pytest.mark.parametrize("K", [144, 224, 256])
+def test_select_candidates_kernel_at_aeam_k(cuda, K):
+    """D' past K = 128 on an Al-Si rebuild (~115-135 hits a row): idx,
+    jtype, mask and kmax equal its twin's on the card and on the CPU."""
+    args, out_cpu = _aeam_call(K)
+    dargs = [a.to(cuda) if torch.is_tensor(a) else a for a in args]
+    before = select_candidates.launches
+    out_k = select_candidates.select_candidates(*dargs)
+    torch.cuda.synchronize()
+    assert select_candidates.launches == before + 1
+    out_t = select_candidates.select_candidates_ref(*dargs)
+    again = select_candidates.select_candidates(*dargs)
+    for a, b, c, d in zip(out_k, out_t, out_cpu, again):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c) \
+            and torch.equal(a, d)
+    assert 32 < int(out_k[3]) <= K
+
+
+def _aeam_engine(dev, fused, si=0.05, skin=0.6):
+    """f32 Engine on the card: alsi_sample(nc=6) with `si` Si, jiggled,
+    NVT 863 K from velocity_create(seed 4928459), check every 12 steps;
+    fused None (graph) or False (eager)."""
+    from lammps_plugins_tpu_torch.api.scenes import alsi_sample
+    from lammps_plugins_tpu_torch.fixes.nvt import FixNVT
+    from lammps_plugins_tpu_torch.fixes.velocity import velocity_create
+    from lammps_plugins_tpu_torch.potentials.aeam import AEAM
+    from torch_parity import SYNTH_AEAM
+    st = alsi_sample(nc=6, si_fraction=si, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(5)
+    st = st.replace(x=st.x + torch.as_tensor(
+        rng.uniform(-0.05, 0.05, st.x.shape), dtype=torch.float32,
+        device=dev))
+    st = velocity_create(st, units.METAL, 863.0, 4928459)
+    pair = AEAM.from_file(SYNTH_AEAM, ["Al", "Si"], dtype=torch.float32,
+                          device=dev)
+    eng = Engine(st, pair, [FixNVT(863.0, 863.0, 0.1)], units.METAL,
+                 skin=skin, check_every=12)
+    eng.fused_loop = fused
+    return eng
+
+
+def _assert_same_chain(a, b):
+    ca, cb = a.state.extras["nvt:nvt"], b.state.extras["nvt:nvt"]
+    for k in ("eta", "eta_dot", "step"):
+        assert torch.equal(ca[k], cb[k]), k
+
+
+def test_aeam_graph_loop_matches_eager_loop(cuda):
+    """192 NVT steps with in-run rebuilds: the graph loop's x, v, f, image,
+    chain state and rebuild count equal the eager loop's bit for bit, and
+    D' launched."""
+    select_candidates.launches = 0
+    graph, eager = (_aeam_engine(cuda, f) for f in (None, False))
+    graph.run(192)
+    eager.run(192)
+    assert graph._loop is not None and graph._loop.exec is not None
+    assert graph.rebuilds >= 3 and select_candidates.launches > 0
+    _assert_same_state(graph, eager)
+    _assert_same_chain(graph, eager)
+    assert int(graph.state.extras["nvt:nvt"]["step"]) == 192
+
+
+def test_aeam_discarded_span_restores_the_chain(cuda):
+    """restore() after replayed iterations puts x, v and the chain (and
+    its step count) back to what start() loaded."""
+    eng = _aeam_engine(cuda, None)
+    eng.run(24)
+    loop = eng._device_loop()
+    before = {k: v.clone() for k, v in eng.state.extras["nvt:nvt"].items()}
+    v0 = eng.state.v.clone()
+    st = loop.start(eng.state, eng.nbr, True, eng._seg_dprev)
+    loop.replay(3)
+    done = loop.read().done                # a tripped segment is not kept
+    assert done >= 12
+    assert int(st.extras["nvt:nvt"]["step"]) == int(before["step"]) + done
+    loop.restore()
+    for k, v in before.items():
+        assert torch.equal(st.extras["nvt:nvt"][k], v), k
+    assert torch.equal(st.v, v0)
+
+
+def test_aeam_in_loop_overflow_recovers(cuda):
+    """A fine-cell capacity too small for the in-loop rebuild: the span is
+    discarded (chain included), the plan re-sized, and the run ends at its
+    step count with the chain's own count beside it, close to the eager
+    loop's run (the re-sized plans differ, so the sums may round
+    differently)."""
+    graph, eager = (_aeam_engine(cuda, f) for f in (None, False))
+    eager.run(48)
+    graph.rebuild_neighbors()
+    graph._plan = dataclasses.replace(graph._plan, cand_capacity=2)
+    graph._pending_rebuild = True
+    graph.run(48)
+    assert graph._plan.cand_capacity > 2
+    assert graph.state.step == 48
+    assert int(graph.state.extras["nvt:nvt"]["step"]) == 48
+    vg, ve = graph.state.v.double(), eager.state.v.double()
+    assert float((vg - ve).abs().max()) <= 1e-4 * float(ve.abs().max())
+
+
+def test_aeam_graph_span_replays_without_host_sync(cuda):
+    """One span of 16 iterations under NVT, its first with a rebuild,
+    replayed with the sync debug mode set to raise."""
+    eng = _aeam_engine(cuda, None)
+    eng.run(24)
+    loop = eng._device_loop()
+    torch.cuda.synchronize()
+    before = select_candidates.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.state = loop.start(eng.state, eng.nbr, True, eng._seg_dprev)
+        loop.replay(16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    res = loop.read()
+    assert res.n_rb >= 1 and res.done >= 12
+    assert select_candidates.launches == before + res.n_rb

@@ -58,9 +58,10 @@ def _entry_points():
     from lammps_plugins_tpu_torch.api import scenes
     from lammps_plugins_tpu_torch.core.box import Box
     from lammps_plugins_tpu_torch.neighbor.build import build_neighbor_data
+    from lammps_plugins_tpu_torch.potentials.aeam import AEAM
     from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
     from lammps_plugins_tpu_torch.potentials.tables import read_rebomos
-    from torch_parity import SYNTH_REBO
+    from torch_parity import SYNTH_AEAM, SYNTH_REBO
     import numpy as np
     x = np.array([[0.0, 0.0, 0.0], [2.4, 0.0, 0.0]])
     box64 = Box.triclinic(10.0, 10.0, 10.0, dtype=torch.float64,
@@ -76,13 +77,17 @@ def _entry_points():
             lambda: REBOMoS.from_file(SYNTH_REBO, ["M", "S"]),
         "build_neighbor_data": lambda: build_neighbor_data(
             x, np.array([1, 2]), box64, {"rebo": 3.0}),
+        "alsi_sample": lambda: scenes.alsi_sample(nc=2),
+        "Box.orthogonal": lambda: Box.orthogonal([10.0, 10.0, 10.0]),
+        "AEAM.from_file": lambda: AEAM.from_file(SYNTH_AEAM, ["Al", "Si"]),
     }
 
 
 @pytest.mark.parametrize("name", ["rebomos_bulk", "rebomos_bulk_commensurate",
                                   "Box.triclinic", "Box.from_numpy",
                                   "REBOMoS", "REBOMoS.from_file",
-                                  "build_neighbor_data"])
+                                  "build_neighbor_data", "alsi_sample",
+                                  "Box.orthogonal", "AEAM.from_file"])
 def test_entry_point_without_device_raises_without_cuda(monkeypatch, name):
     """Called without `device`, an entry point asks for the card; with no
     CUDA device it raises a clear error instead of running on the CPU."""
@@ -97,10 +102,12 @@ def test_entry_point_defaults_are_the_card_in_float32():
     from lammps_plugins_tpu_torch.api import scenes
     from lammps_plugins_tpu_torch.core.box import Box
     from lammps_plugins_tpu_torch.neighbor.build import build_neighbor_data
+    from lammps_plugins_tpu_torch.potentials.aeam import AEAM
     from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
     for fn in (scenes.rebomos_bulk, scenes.rebomos_bulk_commensurate,
                Box.triclinic, Box.from_numpy, REBOMoS.__init__,
-               REBOMoS.from_file, build_neighbor_data):
+               REBOMoS.from_file, build_neighbor_data, scenes.alsi_sample,
+               Box.orthogonal, AEAM.__init__, AEAM.from_file):
         params = inspect.signature(fn).parameters
         assert params["device"].default == "cuda", fn
         assert params["dtype"].default is torch.float32, fn

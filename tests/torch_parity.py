@@ -13,8 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-SYNTH_REBO = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "data", "MoS.REBO.synthetic")
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+SYNTH_REBO = os.path.join(DATA, "MoS.REBO.synthetic")
+SYNTH_AEAM = os.path.join(DATA, "AlSi.synthetic.aeam")
+SYNTH_AEAM_ASYM = os.path.join(DATA, "AlSi.synthetic.asym.aeam")
 
 # The suite runs in several worker processes that share the machine's
 # cores; torch's default of one thread per core in every worker

@@ -24,6 +24,22 @@ eV/step/atom bound, and max|F_f32 - F_f64| / RMS(F) on the 288-atom scene
 (f32 on the card against the port's f64 CPU twins) and its 1e-2 bound;
 beside them the median of the windows, every window, the rebuilds in
 each, the peak device memory, and the card's name and power limit.
+
+    python3 tools/torch_bench.py --aeam [--poly] [--steps 480] [--reps 3]
+
+is the port's counterpart of benchmarks/bench_aeam.py: the
+USER-AEAM/sample.in workload, 32,000-atom fcc Al with 0.75 % Si
+(alsi_sample(nc=20)), f32, NVT at 863 K (FixNVT(863, 863, 0.1), velocities
+from velocity_create(seed=4928459)), skin 1.2, a check every 12 steps,
+pair_style aeam from tests/data/AlSi.synthetic.aeam on its exact
+table-spline path (--poly: the piecewise-Chebyshev refits, bench_aeam.py's
+default for the TPU, slower than the spline rows on the H100: PERF.md),
+a 288-step warm-up.  The graph loop and the eager loop each get their own Engine and
+run their timed windows in turns.  Prints bench_aeam.py's fields (metric,
+value = the best window, unit; PE/atom, K, the warm-up, the timers' split)
+for each loop, the median beside the best, the NVT conserved quantity's
+drift over the timed windows, the peak memory, and the card's name and
+power limit, as one JSON line.
 """
 
 from __future__ import annotations
@@ -38,6 +54,7 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REBO_FILE = os.path.join(REPO, "tests", "data", "MoS.REBO.synthetic")
+AEAM_FILE = os.path.join(REPO, "tests", "data", "AlSi.synthetic.aeam")
 BASELINE = 34223.0          # log.rebomos-bulk.1:59, katom-step/s * 1000
 
 
@@ -68,13 +85,96 @@ def f32_force_error(dev):
     return float(np.abs(f32 - f64).max()), float(np.sqrt(np.mean(f64 * f64)))
 
 
+def gpu_name() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+
+
+def aeam_main(args):
+    """bench_aeam.py's workload through both loops, windows in turns."""
+    import torch
+    from lammps_plugins_tpu_torch.api.scenes import alsi_sample
+    from lammps_plugins_tpu_torch.core import units
+    from lammps_plugins_tpu_torch.fixes.nvt import FixNVT
+    from lammps_plugins_tpu_torch.fixes.velocity import velocity_create
+    from lammps_plugins_tpu_torch.potentials.aeam import AEAM
+    from lammps_plugins_tpu_torch.run.simulation import Engine
+    dev = torch.device("cuda:0")
+
+    def engine(fused):
+        state = alsi_sample(nc=20, dtype=torch.float32, device=dev)
+        state = velocity_create(state, units.METAL, 863.0, seed=4928459)
+        pair = AEAM.from_file(AEAM_FILE, ["Al", "Si"], dtype=torch.float32,
+                              device=dev, poly_mode=args.poly)
+        eng = Engine(state, pair, [FixNVT(863.0, 863.0, 0.1)], units.METAL,
+                     check_every=12, skin=1.2)
+        eng.fused_loop = fused
+        return eng
+
+    def conserved(eng):
+        row = eng._thermo(eng.state)
+        return row["pe"] + row["ke"] + float(
+            eng.fixes[0].energy(eng.state, eng.ctx))
+
+    torch.cuda.reset_peak_memory_stats()
+    engines = {"graph": engine(None), "eager": engine(False)}
+    natoms = engines["graph"].state.natoms
+    out = {}
+    for name, eng in engines.items():
+        t0 = time.perf_counter()
+        eng.rebuild_neighbors()
+        pe, _ = eng.evaluate()
+        eng.run(288)
+        torch.cuda.synchronize()
+        out[name] = dict(
+            metric=f"atom-steps/sec/chip (AlSi AEAM NVT 863K, f32, {name} "
+                   f"loop)", unit="atom-steps/s", windows=[],
+            pe_per_atom=float(pe) / natoms,
+            warmup_s=time.perf_counter() - t0, e0=conserved(eng),
+            s0=eng.state.step)
+    names = list(engines)
+    for rep in range(args.reps):
+        for name in (names if rep % 2 == 0 else names[::-1]):
+            eng = engines[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run(args.steps)
+            torch.cuda.synchronize()
+            rate = natoms * args.steps / (time.perf_counter() - t0)
+            out[name]["windows"].append(rate)
+            print(f"# {name}: {rate:.6g} atom-steps/s", file=sys.stderr,
+                  flush=True)
+    for name, eng in engines.items():
+        o = out[name]
+        o["value"] = max(o["windows"])
+        o["median"] = statistics.median(o["windows"])
+        o["drift_ev_per_step_atom"] = abs(conserved(eng) - o.pop("e0")) / (
+            eng.state.step - o.pop("s0")) / natoms
+        o["K"] = dict(eng._plan.k_caps)
+        o["rebuilds"] = eng.rebuilds
+        secs = dict(eng.timers.acc)
+        tot = sum(secs.values()) or 1.0
+        o["timers"] = {k: [v, v / tot] for k, v in secs.items()}
+    print(json.dumps(dict(
+        natoms=natoms, poly_mode=args.poly, window_steps=args.steps,
+        loops=out, peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        gpu=gpu_name())), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--steps", type=int, default=1000)
-    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--steps", type=int, default=None,
+                    help="steps a window (1000; 480 with --aeam)")
+    ap.add_argument("--reps", type=int, default=None,
+                    help="windows (5; 3 each loop with --aeam)")
     ap.add_argument("--drift-steps", type=int, default=2000)
     ap.add_argument("--eager", action="store_true",
                     help="the host loop instead of the graph loop")
+    ap.add_argument("--aeam", action="store_true",
+                    help="benchmarks/bench_aeam.py's workload, both loops")
+    ap.add_argument("--poly", action="store_true",
+                    help="with --aeam: poly_mode, not the table splines")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import torch
@@ -82,6 +182,12 @@ def main():
         raise SystemExit("torch_bench: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.aeam:
+        args.steps = args.steps or 480
+        args.reps = args.reps or 3
+        return aeam_main(args)
+    args.steps = args.steps or 1000
+    args.reps = args.reps or 5
     from lammps_plugins_tpu_torch.api.scenes import rebomos_bulk_commensurate
     from lammps_plugins_tpu_torch.core import units
     from lammps_plugins_tpu_torch.fixes.nve import FixNVE
@@ -139,9 +245,7 @@ def main():
     horizon = eng.state.step - s_start
     drift = abs(e_end - e_start) / horizon / natoms
     err, rms = f32_force_error(dev)
-    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
+    gpu = gpu_name()
     result.update({
         "median": statistics.median(rates), "windows": rates,
         "window_steps": args.steps, "window_rebuilds": rebuilds,

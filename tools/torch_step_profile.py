@@ -4,7 +4,7 @@ one NVIDIA GPU.
 
     python3 tools/torch_step_profile.py [TREE] [--label NAME] [--trace PATH]
         [--lj full|half] [--combine mirror|rows|pin|pin2|react] [--sort]
-        [--no-react-gate] [--eager]
+        [--no-react-gate] [--eager] [--aeam [--poly]]
 
 TREE (default: this repository) holds chip_smoke.py and
 lammps_plugins_tpu_torch/; giving a second tree (for example a `git
@@ -14,8 +14,11 @@ spatially sorted with --sort (combine=react needs it); the defaults are
 the main path, and a tree older than these options takes only the
 defaults.  Engine.run takes the Engine's default loop (on the card the
 device loop's CUDA graphs, for a tree that has them); --eager sets
-fused_loop = False (the host loop).  After 100 warm-up steps of the 97,920-atom scene
-(chip_smoke.bench_engine) it measures
+fused_loop = False (the host loop).  --aeam profiles the AEAM sample.in
+step instead (chip_smoke.aeam_engine: 32,000 atoms, NVT 863 K, skin 1.2,
+check every 12; --poly for poly_mode), with a 288-step warm-up.  After
+100 warm-up steps of the 97,920-atom scene (chip_smoke.bench_engine) it
+measures
 
   * atom-steps/s of 3 runs of 1,000 steps with their rebuild counts,
   * host-clock ms per rebuild (5 reps), and torch.profiler over 3 more
@@ -24,8 +27,9 @@ fused_loop = False (the host loop).  After 100 warm-up steps of the 97,920-atom 
   * host-clock ms per step without a rebuild (3 reps of 10 segments of
     check_every steps), then torch.profiler device time per step over 10
     more such segments, and the idle share 1 - device / wall,
-  * torch.profiler over 200 steps of Engine.run: the kernels by device
-    time (printed table; Chrome trace to --trace when given),
+  * torch.profiler over 200 steps (240 with --aeam) of Engine.run: the
+    kernels by device time (printed table and, per step, in the RESULT
+    line; Chrome trace to --trace when given),
 
 and prints one line `RESULT {json}` with the card's name and power limit.
 """
@@ -53,6 +57,8 @@ def main():
     ap.add_argument("--sort", action="store_true")
     ap.add_argument("--no-react-gate", action="store_true")
     ap.add_argument("--eager", action="store_true")
+    ap.add_argument("--aeam", action="store_true")
+    ap.add_argument("--poly", action="store_true")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -75,11 +81,15 @@ def main():
         config["react_gate"] = False
     if args.sort:
         config["sort"] = True
-    eng = cs.bench_engine(dev, **config)
+    if args.aeam:
+        config = dict(aeam=True, poly_mode=args.poly)
+        eng = cs.aeam_engine(dev, poly_mode=args.poly)
+    else:
+        eng = cs.bench_engine(dev, **config)
     if args.eager:
         eng.fused_loop = False
     natoms, seg = eng.state.natoms, eng.check_every
-    eng.run(100)
+    eng.run(288 if args.aeam else 100)
     torch.cuda.synchronize()
 
     def clock(fn, reps):
@@ -93,11 +103,13 @@ def main():
     def segment():
         eng._segment(eng.state, eng.nbr, seg)
 
+    profiled = 240 if args.aeam else 200
     runs = []
+    window = 1008 if args.aeam else 1000       # a multiple of check_every
     for _ in range(3):
         rb0 = eng.rebuilds
-        ms = clock(lambda: eng.run(1000), 1)
-        runs.append((natoms * 1000 / (ms * 1e-3), eng.rebuilds - rb0))
+        ms = clock(lambda: eng.run(window), 1)
+        runs.append((natoms * window / (ms * 1e-3), eng.rebuilds - rb0))
     rebuild_ms = [clock(eng.rebuild_neighbors, 1) for _ in range(5)]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
@@ -122,7 +134,7 @@ def main():
     rb0 = eng.rebuilds
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng.run(200)
+        eng.run(profiled)
         torch.cuda.synchronize()
     ka = prof.key_averages()
     print(ka.table(sort_by="self_cuda_time_total", row_limit=25,
@@ -150,9 +162,14 @@ def main():
         run1000_median=statistics.median(r for r, _ in runs),
         device_ms_per_step_no_rebuild=dev_ms,
         idle_share_no_rebuild=[1 - dev_ms / s for s in step_ms],
-        profiled_200_steps=dict(rebuilds=eng.rebuilds - rb0,
-                                device_events=kernels,
-                                device_events_per_step=kernels / 200),
+        profiled_steps=dict(steps=profiled, rebuilds=eng.rebuilds - rb0,
+                            device_events=kernels,
+                            device_events_per_step=kernels / profiled),
+        step_kernels_ms_per_step=[
+            [e.key[:120], e.self_device_time_total / profiled / 1e3,
+             e.count / profiled]
+            for e in sorted(ka, key=lambda e: -e.self_device_time_total)
+            if e.self_device_time_total > 0][:30],
         gpu=gpu)))
 
 
