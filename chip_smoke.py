@@ -39,7 +39,7 @@ Phases (any failure raises, so the script exits non-zero):
      300 steps equal an eager Engine's (fused_loop=False) from the same
      start bit for bit; then the graph and the eager loop in turns: three
      timed 1,000-step windows each (atom-steps/s, wall ms per step), one
-     torch.profiler run of 1,000 steps each (device ops, host launch calls
+     torch.profiler run of 300 steps each (device ops, host launch calls
      and host syncs, device ms per step, hence the idle share; A, B, C and
      D' must show by name in the graph loop's profile), host-clock ms per
      rebuild, the peak memory (line `LOOPS {json}`); then the REBO kernel
@@ -73,6 +73,34 @@ Phases (any failure raises, so the script exits non-zero):
      timed windows each of the graph and the eager loop (atom-steps/s),
      device ms and host launch calls per step from one profiled run, the
      peak memory
+  7. config 2 and the LJ styles (`BFIELD {json}`): the cyclotron oracle of
+     tests/test_fixes.py in f32 through the graph loop (4,096 free ions,
+     pair_style none, fix bfield 0 0 1000 T, one period of 2,000 steps;
+     every ion back within the oracle's bars, D' the only kernel, then D'
+     on a rebuild of the run, whose rows have no hits, exact against its
+     twin); f32 forces of the jiggled charged_melt(6) and
+     lj_melt(6) on the card against the f64 CPU path, max|dF| < 1e-2
+     RMS(F); then two main paths, the 65,536-ion charged melt
+     (tests/test_ljcut.py's CHARGED_MELT deck at n = 32: lj/cut/coul/cut 6
+     / 8, fix bfield 0 0 200 T, fix nve, skin 1.0) and LAMMPS's bench/in.lj
+     (lj_melt(20), 32,000 atoms): 300 steps through the graph loop with the
+     counters reset (D' must launch, no other kernel), finite thermo and
+     bfield output, x, v, f, image, every extras tensor and the rebuild
+     count equal to an eager Engine's bit for bit, both loops' numbers in
+     turns (three 300-step windows each, one profiled run), the NVE drift
+     (reported, no bar: the Coulomb cut at 8 A and the unshifted LJ cut are
+     energy steps), the forces' device time on the run's lists, and D' on
+     a rebuild of the run against its twin
+  8. config 4, the MoS2 monolayer (`MONOLAYER {json}`): 1,000,518 atoms
+     (rebomos_monolayer(577, 578)), REBOMOS NVT 300 K from seed 12345,
+     skin 0.8, check every 10: 100 steps through the graph loop with the
+     counters reset (A, B, C and D' must launch), the NVT conserved
+     quantity's drift < 1e-6 eV/step/atom, A and B against their twins on
+     the run's own lists at its K, C against its twin on the run's own cell
+     grid (mostly empty in z), the state equal to an eager Engine's
+     bit for bit (the chain included), both loops' numbers (three 100-step
+     windows each), the peak memory, K and the ghost count, D' against its
+     twin and the rebuild's device time at this size
 
 The REBOMOS parameters are the synthetic file tests/data/MoS.REBO.synthetic,
 the AEAM ones tests/data/AlSi.synthetic.aeam.
@@ -84,6 +112,8 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import gc
 import json
 import os
 import statistics
@@ -102,7 +132,7 @@ AEAM = dict(nc=20, skin=1.2, check_every=12, temp=863.0, seed=4928459,
             t_damp=0.1)
 AEAM_RUN_STEPS = (192, 96)      # then thermo every 12 over the last 96
 AEAM_TIMED_STEPS = 480
-AEAM_PROFILE_STEPS = 240
+AEAM_PROFILE_STEPS = 96
 BENCH = dict(nx=34, ny=48, nz=10, skin=0.8, check_every=10, temp=300.0,
              seed=12345)
 RUN_STEPS = 300        # at 300 K the list is rebuilt about every 43 steps
@@ -224,6 +254,15 @@ def interleaved_ms(fns, reps):
 def timed_ms(fn, reps=10) -> float:
     """Median device time of fn() in ms."""
     return interleaved_ms({"fn": fn}, reps)["fn"]
+
+
+@contextlib.contextmanager
+def timed(label):
+    """Print the wall seconds that the block took (the card synchronised)."""
+    t0 = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    print(f"== {label}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def phase0_environment():
@@ -875,7 +914,7 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cudaGraphLaunch")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize")
-PROFILE_STEPS = 1000
+PROFILE_STEPS = 300
 REBUILD_REPS = 10
 
 
@@ -1229,45 +1268,58 @@ def aeam_engine(dev, fused=None, poly_mode=False):
     return eng
 
 
-def aeam_candidates(eng):
-    """D' on the AEAM rebuild's own arguments at the plan's K and at K =
-    224 and 256 (exact against its twin), its time, bound and the rows'
-    hits; select-k (D) on synthetic rows of up to 256 hits at K = 224 and
-    256, exact.  Returns D''s record at the plan's K."""
-    from lammps_plugins_tpu_torch.ops import select_candidates, select_k
+def candidates_record(eng, label, ks=()):
+    """D' on the arguments of a rebuild of `eng` (eng.rebuild_neighbors())
+    at the plan's K and at each K of `ks`, exact against its twin; at the
+    plan's K its median time, the twin's, the bound and the rows' hits."""
+    from lammps_plugins_tpu_torch.ops import select_candidates
     args = capture_candidate_calls(eng)[-1]
     K = args[5]
-    out = {}
-    for k in (K, 224, 256):
+    diffs, hits = [], None
+    for k in (K, *ks):
         a = args[:5] + (k,)
         ck = select_candidates.select_candidates(*a)
         ct = select_candidates.select_candidates_ref(*a)
         again = select_candidates.select_candidates(*a)
-        diff = max(float((x.long() - y.long()).abs().max())
-                   for x, y in zip(ck, ct))
+        diffs.append(max(float((x.long() - y.long()).abs().max())
+                         for x, y in zip(ck, ct)))
         if not all(torch.equal(x, y) and torch.equal(x, z)
                    for x, y, z in zip(ck, ct, again)):
-            raise AssertionError(f"select_candidates at the AEAM shape, "
-                                 f"K={k}, differs from its twin: {diff}")
-        hits = ck[2].sum(dim=1)
-        print(f"AEAM select_candidates K={k}: exact against its twin, kmax "
-              f"{int(ck[3])}, hits per row mean "
-              f"{float(hits.float().mean()):.2f}")
-        out[k] = (diff, int(ck[3]))
+            raise AssertionError(f"select_candidates of the {label} rebuild, "
+                                 f"K={k}, differs from its twin: {diffs[-1]}")
+        if hits is None:
+            hits, kmax = ck[2].sum(dim=1), int(ck[3])
+        print(f"{label} select_candidates K={k}: exact against its twin, "
+              f"kmax {int(ck[3])}")
     n, Cf = args[2].shape[0], args[1].shape[1]
     work = candidate_work(args)
     b_ms, b_by = bound(*work[:2])
     ms = timed_ms(lambda: select_candidates.select_candidates(*args), 20)
     plain = timed_ms(lambda: select_candidates.select_candidates_ref(*args),
                      3)
-    print(f"AEAM select_candidates: n={n} K={K} Cf={Cf} W={27 * Cf} "
-          f"fine cells {args[3]}, candidate pairs {work[2]:.0f}; kernel "
-          f"{ms:.4f} ms, twin {plain:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
-          f"({work[0] / 1e6:.2f} MB, {work[1] / 1e9:.4f} GFLOP), share "
-          f"{b_ms / ms:.3f}")
+    out = dict(K=K, W=27 * Cf, Cf=Cf, n=n, kmax=kmax,
+               rows_without_hits=int((hits == 0).sum()),
+               mean_hits=float(hits.float().mean()), max_abs_err=max(diffs),
+               ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+               bytes=work[0], flops=work[1], candidate_pairs=work[2],
+               exact_at_k=[K, *ks], library_ms=None)
+    print(f"{label} select_candidates: n={n} K={K} Cf={Cf} fine cells "
+          f"{args[3]}, hits a row mean {out['mean_hits']:.2f}, rows without "
+          f"hits {out['rows_without_hits']}, candidate pairs {work[2]:.0f}; "
+          f"kernel {ms:.4f} ms, twin {plain:.4f} ms, bound {b_ms:.4f} ms by "
+          f"{b_by} ({work[0] / 1e6:.2f} MB), share {b_ms / ms:.3f}")
+    return out
+
+
+def aeam_candidates(eng):
+    """D' on the AEAM rebuild at the plan's K and at K = 224 and 256
+    (candidates_record); select-k (D) on synthetic rows of up to 300 hits
+    at K = 224 and 256, exact.  Returns D''s record."""
+    from lammps_plugins_tpu_torch.ops import select_k
+    out = candidates_record(eng, "AEAM", ks=(224, 256))
+    dev = eng.state.x.device
     for k, W, hits in ((224, 512, 200), (256, 1024, 256), (256, 1024, 300)):
-        g = torch.Generator(device=eng.state.x.device).manual_seed(k + hits)
-        dev = eng.state.x.device
+        g = torch.Generator(device=dev).manual_seed(k + hits)
         keys = torch.full((4096, W), float("inf"), device=dev)
         cols = torch.argsort(torch.rand((4096, W), generator=g, device=dev),
                              dim=1)[:, :hits]
@@ -1283,11 +1335,7 @@ def aeam_candidates(eng):
             raise AssertionError(f"select_k differs from its twin at K={k}, "
                                  f"{hits} hits a row")
         print(f"select_k K={k} W={W}, {hits} hits a row: exact")
-    return dict(K=K, W=27 * Cf, Cf=Cf, n=n, kmax=out[K][1],
-                max_abs_err=max(d for d, _ in out.values()), ms=ms,
-                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                bytes=work[0], flops=work[1], candidate_pairs=work[2],
-                exact_at_k=sorted(out), library_ms=None)
+    return out
 
 
 def aeam_f32_accuracy(dev):
@@ -1336,8 +1384,8 @@ def aeam_f32_accuracy(dev):
     return out
 
 
-def aeam_run(eng):
-    """The main path's two runs (AEAM_RUN_STEPS): thermo rows with the NVT
+def nvt_run(eng, steps, every):
+    """eng.run(steps), thermo rows every `every` steps with the NVT
     conserved quantity pe + ke + FixNVT.energy beside each."""
     fix = eng.fixes[0]
     rows = []
@@ -1347,10 +1395,15 @@ def aeam_run(eng):
             fix.energy(eng.state, eng.ctx))
         rows.append(row)
 
-    first, last = AEAM_RUN_STEPS
-    eng.run(first, thermo_every=first // 2, on_thermo=note)
-    eng.run(last, thermo_every=AEAM["check_every"], on_thermo=note)
+    eng.run(steps, thermo_every=every, on_thermo=note)
     return rows
+
+
+def aeam_run(eng):
+    """The main path's two runs (AEAM_RUN_STEPS), nvt_run's rows."""
+    first, last = AEAM_RUN_STEPS
+    return (nvt_run(eng, first, first // 2)
+            + nvt_run(eng, last, AEAM["check_every"]))
 
 
 def phase6_aeam(dev, modules):
@@ -1431,6 +1484,483 @@ def phase6_aeam(dev, modules):
     return cand
 
 
+def free_card(label):
+    """Collect what the finished phases left and empty the allocator's
+    cache; print what stays allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before {label}: {torch.cuda.memory_allocated() / 2 ** 30:.3f} "
+          f"GiB allocated, {torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB "
+          f"reserved")
+
+
+def same_state(a, b):
+    """{field: bit-identical} of two Engines' x, v, f, image and every
+    state.extras tensor, and their rebuild counts."""
+    from lammps_plugins_tpu_torch.run.device_loop import extras_items
+    same = {f: bool(torch.equal(getattr(a.state, f), getattr(b.state, f)))
+            for f in ("x", "v", "f", "image")}
+    ea, eb = (dict(extras_items(e.state.extras)) for e in (a, b))
+    if list(ea) != list(eb):
+        raise AssertionError(f"extras differ in keys: {list(ea)} {list(eb)}")
+    same.update({":".join(p): bool(torch.equal(t, eb[p]))
+                 for p, t in ea.items()})
+    same["rebuilds"] = a.rebuilds == b.rebuilds
+    return same
+
+
+#: the cyclotron oracle of tests/test_fixes.py:17-66 on the card in f32:
+#: n^3 free ions (m = 1, q = 1) `spacing` apart, each at v0 in a seeded
+#: direction of the xy plane, B along z.  With qBm2f = e / amu / 1e12 =
+#: 9.649e-5 (metal units, fix_bfield.cpp:186-188), 1000 T gives omega =
+#: 0.0965 rad/ps, a radius of 5.18 A and a period of 65.1 ps; dt = period /
+#: 2000 is a step of 0.0163 A (~2,100 f32 ulps at 80 A), omega dt 3.1e-3
+CYCLO = dict(n=16, spacing=10.0, bz=1000.0, v0=0.5, seed=2024)
+#: config 2 (BASELINE.json configs[1]): tests/test_ljcut.py's CHARGED_MELT
+#: deck at n = 32 (65,536 ions, 134.4 A box) with the deck's 200 T (omega
+#: dt = 8.4e-7 for Na+, inside the weak-field bound 2 pi 0.001); and
+#: LAMMPS's bench/in.lj, the LJ_MELT deck at n = 20 (32,000 atoms)
+DECKS = dict(melt=32, lj=20)
+DECK_RUN_STEPS = 300
+DECK_PROFILE_STEPS = 100
+MELT_BZ = 200.0
+
+
+def cyclotron_oracle(dev, modules):
+    """Free ions in a uniform Bz for one period through the graph loop
+    (pair_style none, cutoff 1 A: most rows of the lists have no hit);
+    every ion must be back: |x - x0| < 5e-3 v0 period, each velocity
+    component within 5e-3 v0 of its start, the speed within 1e-3 v0."""
+    from lammps_plugins_tpu_torch.core import units
+    from lammps_plugins_tpu_torch.core.box import Box
+    from lammps_plugins_tpu_torch.core.state import State
+    from lammps_plugins_tpu_torch.fixes.bfield import FixBfield
+    from lammps_plugins_tpu_torch.fixes.nve import FixNVE
+    from lammps_plugins_tpu_torch.potentials.none import PairNone
+    from lammps_plugins_tpu_torch.run.simulation import Engine
+    u = units.METAL
+    n, a, bz, v0 = (CYCLO[k] for k in ("n", "spacing", "bz", "v0"))
+    g = (np.arange(n) + 0.5) * a
+    x0 = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    phi = np.random.default_rng(CYCLO["seed"]).uniform(0.0, 2 * np.pi,
+                                                        len(x0))
+    vel0 = v0 * np.stack([np.cos(phi), np.sin(phi), np.zeros_like(phi)], 1)
+    box = Box.orthogonal([n * a] * 3, dtype=torch.float32, device=dev)
+    st = State.create(x=x0, type=np.ones(len(x0), np.int64), box=box,
+                      mass=np.array([0.0, 1.0]), v=vel0, q=np.ones(len(x0)))
+    period = 2 * np.pi / (u.qBm2f * bz)
+    eng = Engine(st, PairNone(1.0), [FixBfield(0.0, 0.0, bz), FixNVE()], u,
+                 dt=period / 2000)
+    for m in modules.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    eng.run(2000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: m.launches for name, m in modules.items()}
+    if eng._loop is None or eng._loop.exec is None:
+        raise AssertionError("the cyclotron run did not use the graph loop")
+    check_launches("cyclotron", launches, ("select_candidates",))
+    s = eng.state
+    x = s.box.unmap(s.x, s.image).double().cpu().numpy()
+    v = s.v.double().cpu().numpy()
+    out = dict(ions=len(x0), bz=bz, v0=v0, period_ps=period,
+               dt_ps=period / 2000, steps=2000, wall_s=wall,
+               rebuilds=eng.rebuilds, K=dict(eng._plan.k_caps),
+               rows_without_hits_last_list=int(
+                   (~eng.nbr.lists["main"].mask.any(dim=1)).sum()),
+               max_dx=float(np.linalg.norm(x - x0, axis=1).max()),
+               max_dv=float(np.abs(v - vel0).max()),
+               max_dspeed=float(np.abs(np.linalg.norm(v, axis=1) - v0).max()),
+               bars=[5e-3 * v0 * period, 5e-3 * v0, 1e-3 * v0],
+               launches=launches["select_candidates"])
+    print(f"cyclotron oracle ({len(x0)} ions, B {bz} T, f32, graph loop): "
+          f"one period in {wall:.2f} s, {eng.rebuilds} rebuilds, max|dx| "
+          f"{out['max_dx']:.3e} A (bar {out['bars'][0]:.3e}), max|dv| "
+          f"{out['max_dv']:.3e} (bar {out['bars'][1]:.3e}), max||v| - v0| "
+          f"{out['max_dspeed']:.3e} (bar {out['bars'][2]:.3e}), rows "
+          f"without hits {out['rows_without_hits_last_list']}")
+    if not (out["max_dx"] < out["bars"][0] and out["max_dv"] < out["bars"][1]
+            and out["max_dspeed"] < out["bars"][2]):
+        raise AssertionError("the cyclotron oracle failed on the card")
+    # D' on this run's rows without hits, exact against its twin
+    out["select_candidates"] = candidates_record(eng, "cyclotron")
+    return out
+
+
+def deck_engine(dev, name, fused=None, dtype=torch.float32, device=None,
+                state=None):
+    """The Engine of the deck `name` ("melt": charged_melt, "lj": lj_melt)
+    at its DECKS size; fused as in aeam_engine; state: another state of the
+    deck's atoms in place of the scene's."""
+    from lammps_plugins_tpu_torch.api.scenes import charged_melt, lj_melt
+    device = dev if device is None else device
+    deck = (charged_melt(DECKS["melt"], bz=MELT_BZ, dtype=dtype,
+                         device=device) if name == "melt"
+            else lj_melt(DECKS["lj"], dtype=dtype, device=device))
+    if state is not None:
+        deck.state = state
+    eng = deck.engine()
+    eng.fused_loop = fused
+    return eng
+
+
+def ljcut_f32_accuracy(dev):
+    """max|F_f32 - F_f64| / RMS(F) of the jiggled charged_melt(6) (432
+    ions) and lj_melt(6) (864 atoms): the f32 path on the card against the
+    f64 path on the CPU, each on its own device rebuild's lists, the same
+    positions, types and charges (the f64 scene's); bar 1e-2."""
+    from lammps_plugins_tpu_torch.api.scenes import charged_melt, lj_melt
+    out = {}
+    for name, make, jiggle in (("charged_melt", charged_melt, 0.1),
+                               ("lj_melt", lj_melt, 0.05)):
+        base = make(6, dtype=torch.float64, device="cpu").state
+        rng = np.random.default_rng(AEAM["seed"])
+        pos = base.x.numpy() + rng.uniform(-jiggle, jiggle, base.x.shape)
+        forces = []
+        for dtype, device in ((torch.float64, "cpu"), (torch.float32, dev)):
+            deck = make(6, dtype=dtype, device=device)
+            deck.state = deck.state.replace(
+                x=torch.as_tensor(pos, dtype=dtype, device=device),
+                type=base.type.to(device),
+                q=base.q.to(device=device, dtype=dtype))
+            eng = deck.engine()
+            eng.rebuild_neighbors()
+            st = eng.state
+            with torch.no_grad():
+                f = eng.pair.forces(st.x, st.type, eng.nbr, st.box.h)
+            forces.append(f.double().cpu().numpy())
+        f64, f32 = forces
+        rms = float(np.sqrt(np.mean(f64 * f64)))
+        err = float(np.abs(f32 - f64).max())
+        print(f"{name}(6) ({len(pos)} atoms): max|F32 - F64| = {err:.3e}, "
+              f"RMS(F) = {rms:.3e}, ratio {err / rms:.3e} (bar 1e-2)")
+        if not err < 1e-2 * rms:
+            raise AssertionError(f"{name} f32 forces outside 1e-2 RMS(F)")
+        out[name] = err / rms
+    return out
+
+
+def deck_run(eng, steps):
+    """eng.run(steps), thermo every 100 steps; each row with fix bfield's
+    energy() and vector() where the deck has the fix."""
+    bfield = [f for f in eng.fixes if type(f).__name__ == "FixBfield"]
+    rows = []
+
+    def note(row):
+        for fix in bfield:
+            row["bfield_energy"] = float(fix.energy(eng.state, eng.ctx))
+            row["bfield_vector"] = [float(v) for v in fix.vector(eng.state)]
+        rows.append(row)
+
+    eng.run(steps, thermo_every=100, on_thermo=note)
+    return rows
+
+
+def deck_path(dev, modules, name, gpu):
+    """One deck's main path: DECK_RUN_STEPS through the graph loop with the
+    counters reset (D' must launch, and no other kernel), finite thermo and
+    bfield output, the state against an eager Engine's bit for bit (fix
+    bfield's extras included), both loops' numbers in turns, the forces'
+    device time on the run's lists, D' on a rebuild of the run."""
+    eng = deck_engine(dev, name)
+    natoms = eng.state.natoms
+    torch.cuda.reset_peak_memory_stats()
+    for m in modules.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    rows = deck_run(eng, DECK_RUN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {m: mod.launches for m, mod in modules.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rebuilds = eng.rebuilds
+    print(f"{name} main run (graph loop): {natoms} atoms, {DECK_RUN_STEPS} "
+          f"steps in {wall:.2f} s (plan sizing, capture and thermo rows "
+          f"included), launches {launches}, rebuilds {eng.rebuilds}, K "
+          f"{dict(eng._plan.k_caps)}, peak memory {peak:.3f} GiB")
+    if eng._loop is None or eng._loop.exec is None:
+        raise AssertionError(f"the {name} main path did not run through the "
+                             "graph")
+    check_launches(f"{name} main path", launches, ("select_candidates",))
+    for r in rows:
+        vals = [v for k, v in r.items() if k != "bfield_vector"] \
+            + r.get("bfield_vector", [])
+        if not all(np.isfinite(v) for v in vals):
+            raise AssertionError(f"non-finite {name} thermo row {r}")
+        print(f"  step {r['step']} T {r['temp']:.6f} pe {r['pe']:.6f} "
+              f"etotal {r['etotal']:.6f} press {r['press']:.4f}"
+              + (f" bfield {r['bfield_energy']:.6e} {r['bfield_vector']}"
+                 if "bfield_energy" in r else ""))
+    if not torch.isfinite(eng.state.x).all() \
+            or not torch.isfinite(eng.state.f).all():
+        raise AssertionError(f"non-finite {name} positions or forces")
+    drift = (abs(rows[-1]["etotal"] - rows[0]["etotal"])
+             / (rows[-1]["step"] - rows[0]["step"]) / natoms)
+    print(f"{name} NVE drift {drift:.3e} energy units/step/atom (reported, "
+          f"no bar)")
+    ref = deck_engine(dev, name, fused=False)
+    deck_run(ref, DECK_RUN_STEPS)
+    same = same_state(eng, ref)
+    print(f"{name} graph vs eager loop after {DECK_RUN_STEPS} steps: "
+          f"bit-identical {same}, rebuilds {eng.rebuilds} / {ref.rebuilds}")
+    if not all(same.values()):
+        raise AssertionError(f"the {name} graph loop's state differs from the "
+                             "eager loop's")
+    numbers = loop_numbers({"graph": eng, "eager": ref}, gpu,
+                           steps=DECK_RUN_STEPS,
+                           profile_steps=DECK_PROFILE_STEPS,
+                           kernels=("select_candidates_kernel",))
+    st = eng.state
+    forces_ms = timed_ms(lambda: eng.pair.forces(st.x, st.type, eng.nbr,
+                                                 st.box.h), reps=20)
+    rebuild_ms = 1e3 * eng._rebuild_cost_estimate()
+    print(f"{name} forces (the [N, K] edge sweep and mirror combine, torch "
+          f"ops) {forces_ms:.4f} ms on the run's lists; a rebuild "
+          f"{rebuild_ms:.4f} ms of device time")
+    out = dict(natoms=natoms, k_caps=dict(eng._plan.k_caps),
+               ghosts=eng.nbr.ghosts.count, rebuilds_main_run=rebuilds,
+               drift_per_step_atom=drift, peak_gib=peak,
+               capture_s=eng._loop.capture_s, forces_ms=forces_ms,
+               rebuild_device_ms=rebuild_ms,
+               launches=launches["select_candidates"],
+               thermo=[{k: r[k] for k in ("step", "temp", "pe", "etotal")}
+                       | ({"bfield": [r["bfield_energy"]]
+                           + r["bfield_vector"]} if "bfield_energy" in r
+                          else {}) for r in rows],
+               **numbers)
+    del ref
+    torch.cuda.empty_cache()
+    out["select_candidates"] = candidates_record(eng, name)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase7_bfield(dev, modules):
+    """Config 2 and the LJ styles: the cyclotron oracle, f32 forces of both
+    LJ styles, the charged melt and in.lj main paths.  Returns D''s
+    records of the two decks and the oracle (launches included)."""
+    gpu = sh("nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader")
+    free_card("phase 7")
+    with timed("phase 7 cyclotron oracle"):
+        cyclotron = cyclotron_oracle(dev, modules)
+    with timed("phase 7 f32 forces"):
+        accuracy = ljcut_f32_accuracy(dev)
+    paths = {}
+    for name in DECKS:
+        with timed(f"phase 7 {name}"):
+            paths[name] = deck_path(dev, modules, name, gpu)
+    print("BFIELD " + json.dumps(dict(gpu=gpu, cyclotron=cyclotron,
+                                      f32_force_err_over_rms=accuracy,
+                                      **paths)))
+    paths["cyclotron"] = cyclotron
+    return {name: dict(p["select_candidates"], launches=p["launches"])
+            for name, p in paths.items()}
+
+
+#: config 4 (BASELINE.json configs[3]): the MoS2 monolayer at 1,000,518
+#: atoms, REBOMOS NVT (benchmarks/bench_monolayer.py:68-80; skin from
+#: BENCH_monolayer.json), 300 K from seed 12345, a check every 10 steps
+MONO = dict(nx=577, ny=578, skin=0.8, check_every=10, temp=300.0,
+            seed=12345, t_damp=0.1)
+MONO_RUN_STEPS = 100
+
+
+def mono_engine(dev, fused=None):
+    """The monolayer on the card (f32) with its NVT velocities and fix; no
+    lists yet; fused as in aeam_engine."""
+    from lammps_plugins_tpu_torch.api.scenes import rebomos_monolayer
+    from lammps_plugins_tpu_torch.core import units
+    from lammps_plugins_tpu_torch.fixes.nvt import FixNVT
+    from lammps_plugins_tpu_torch.fixes.velocity import velocity_create
+    from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
+    from lammps_plugins_tpu_torch.run.simulation import Engine
+    state = rebomos_monolayer(MONO["nx"], MONO["ny"], dtype=torch.float32,
+                              device=dev)
+    state = velocity_create(state, units.METAL, MONO["temp"], MONO["seed"])
+    pair = REBOMoS.from_file(REBO_FILE, ["M", "S"], dtype=torch.float32,
+                             device=dev)
+    eng = Engine(state, pair, [FixNVT(MONO["temp"], MONO["temp"],
+                                      MONO["t_damp"])], units.METAL,
+                 check_every=MONO["check_every"], skin=MONO["skin"])
+    eng.fused_loop = fused
+    return eng
+
+
+def mirror_at_run_k(eng):
+    """Kernel B against its twin on the REBO cotangents of the run's own
+    lists (bar 1e-5 x scale), its time and bound."""
+    from lammps_plugins_tpu_torch.ops import mirror, rebo
+    pair, st, nbr = eng.pair, eng.state, eng.nbr
+    rl = nbr.lists["rebo"]
+    planes = pair._rebo_planes(st.x, pair.el_of_type[st.type], nbr.ghosts,
+                               rl, st.box.h)
+    gk = rebo.rebo_cotangents(*planes, pair._rebo_consts)
+    del planes
+    mv = rl.mirvT.float()
+    fk = mirror.mirror_combine(*gk, rl.mirT, mv)
+    ft = mirror.mirror_combine_ref(*gk, rl.mirT, mv)
+    err = float((fk - ft).abs().max())
+    K, Np = rl.mirT.shape
+    b_ms, b_by = bound(4 * 5 * K * Np + 4 * fk.numel(), 6 * K * Np)
+    out = dict(K=K, Np=Np, max_abs_err=err, bar=1e-5 * float(ft.abs().max()),
+               ms=timed_ms(lambda: mirror.mirror_combine(*gk, rl.mirT, mv)),
+               plain_ms=timed_ms(lambda: mirror.mirror_combine_ref(
+                   *gk, rl.mirT, mv), reps=3), bound_ms=b_ms, bound_by=b_by,
+               max_mirror_index=int(rl.mirT.max()))
+    print(f"mirror_combine at the run's K={K}, Np={Np}: max_abs_err={err:.3e} "
+          f"(bar {out['bar']:.3e}) kernel {out['ms']:.4f} ms, twin "
+          f"{out['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
+          f"largest mirror index {out['max_mirror_index']} (int32)")
+    if not err <= out["bar"]:
+        raise AssertionError("mirror_combine disagrees with its twin at the "
+                             "monolayer's size")
+    return out
+
+
+#: bytes of the LJ twin's [cells, C, C] temporaries (~16 floats a slot
+#: pair) allowed for one slab of A cells along x
+LJ_TWIN_SLAB_BYTES = 2 ** 32
+
+
+def lj_cells_at_run(eng):
+    """Kernel C against its twin on the run's own cell planes (forces 2e-4
+    x scale, energy 2e-5 relative; reruns bit-identical), its time and
+    bound.  The twin runs slab by slab of A cells along x (same sums, less
+    memory); the A cells without an owned atom are counted."""
+    from lammps_plugins_tpu_torch.ops import lj_cells
+    pair, st, nbr = eng.pair, eng.state, eng.nbr
+    P = pair._cell_planes(st.x, nbr.ghosts, nbr.cells, st.box.h)
+    ar, lc = nbr.cells.a_range, pair._lj_consts
+    (x0, x1), ay, az = ar
+    C = P.shape[-1]
+    per_x = (ay[1] - ay[0]) * (az[1] - az[0]) * C * C * 4 * 16
+    step = max(1, LJ_TWIN_SLAB_BYTES // per_x)
+    slabs = [((a, min(a + step, x1)), ay, az) for a in range(x0, x1, step)]
+    ok = lj_cells.lj_cell_forces(P, lc, ar, with_energy=True)
+    if not torch.equal(ok, lj_cells.lj_cell_forces(P, lc, ar,
+                                                   with_energy=True)):
+        raise AssertionError("lj_cell_forces reruns differ at the run's size")
+    err = scale = et = 0.0
+    npairs = 0
+    for s in slabs:
+        ot = lj_cells.lj_cell_forces_ref(P, lc, s, with_energy=True)
+        ks = ok[s[0][0] - x0:s[0][1] - x0]
+        err = max(err, float((ks[..., :3, :] - ot[..., :3, :]).abs().max()))
+        scale = max(scale, float(ot[..., :3, :].abs().max()))
+        et += float(ot[..., 3, :].double().sum())
+        npairs += lj_window_pairs(P, lc, s)
+        del ot, ks
+    ek = float(ok[..., 3, :].double().sum())
+    A = P[x0:x1, ay[0]:ay[1], az[0]:az[1]]
+    empty = int((~(A[..., 4, :] > 0).any(dim=-1)).sum())
+    b_ms, b_by = bound(4 * (P.numel() + ok.numel()), 30 * npairs)
+    out = dict(dims=list(P.shape[:3]), a_range=[list(r) for r in ar], C=C,
+               a_cells_without_owned_atoms=empty,
+               a_cells=int(np.prod(A.shape[:3])), twin_slabs=len(slabs),
+               max_abs_err=err, bar=2e-4 * scale,
+               energy_rel_err=abs(ek - et) / abs(et), energy_bar=2e-5,
+               window_pairs=npairs,
+               ms=timed_ms(lambda: lj_cells.lj_cell_forces(P, lc, ar),
+                           reps=20),
+               plain_ms=timed_ms(lambda: [lj_cells.lj_cell_forces_ref(
+                   P, lc, s) for s in slabs], reps=3),
+               bound_ms=b_ms, bound_by=b_by, reruns_bit_identical=True)
+    print(f"lj_cell_forces on the run's cells {out['dims']} (C={C}, "
+          f"{empty} of {out['a_cells']} A cells without an owned atom): "
+          f"max_abs_err={err:.3e} (bar {out['bar']:.3e}), energy rel "
+          f"{out['energy_rel_err']:.3e} (bar 2e-5), kernel {out['ms']:.4f} "
+          f"ms, twin {out['plain_ms']:.4f} ms ({len(slabs)} slabs), bound "
+          f"{b_ms:.4f} ms by {b_by}, window pairs {npairs}")
+    if not (err <= out["bar"] and out["energy_rel_err"] <= 2e-5):
+        raise AssertionError("lj_cell_forces disagrees with its twin at the "
+                             "monolayer's size")
+    return out
+
+
+def phase8_monolayer(dev, modules):
+    """The 1,000,518-atom monolayer, REBOMOS NVT: the main path through the
+    graph loop (A, B, C and D' must launch), the NVT conserved quantity's
+    drift, the state against an eager Engine's bit for bit, A, B and C
+    against their twins on the run's lists and cells, D' exact against its
+    twin and the rebuild at this size, both
+    loops' numbers.  Returns ({kernel module: launches}, {record})."""
+    gpu = sh("nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader")
+    free_card("phase 8")
+    t0 = time.perf_counter()
+    eng = mono_engine(dev)
+    natoms = eng.state.natoms
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    for m in modules.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    rows = nvt_run(eng, MONO_RUN_STEPS, MONO_RUN_STEPS // 2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: m.launches for name, m in modules.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rebuilds = eng.rebuilds
+    print(f"monolayer main run (graph loop): {natoms} atoms (scene and "
+          f"Engine {setup_s:.2f} s), {MONO_RUN_STEPS} steps in {wall:.2f} s "
+          f"(the first rebuild, plan sizing, capture and thermo rows "
+          f"included), launches {launches}, rebuilds {eng.rebuilds}, K "
+          f"{dict(eng._plan.k_caps)}, ghosts {eng.nbr.ghosts.count}, peak "
+          f"memory {peak:.3f} GiB, memory_usage {eng.memory_usage()}")
+    if eng._loop is None or eng._loop.exec is None:
+        raise AssertionError("the monolayer did not run through the graph")
+    check_launches("monolayer", launches, MAIN_PATH)
+    for r in rows:
+        if not all(np.isfinite(v) for v in r.values()):
+            raise AssertionError(f"non-finite monolayer thermo row {r}")
+        print(f"  step {r['step']} T {r['temp']:.4f} pe {r['pe']:.6f} "
+              f"conserved {r['conserved']:.6f} press {r['press']:.3f}")
+    drift = (abs(rows[-1]["conserved"] - rows[0]["conserved"])
+             / (rows[-1]["step"] - rows[0]["step"]) / natoms)
+    print(f"monolayer NVT conserved-quantity drift {drift:.3e} eV/step/atom "
+          f"(bar 1e-6)")
+    if not drift < 1e-6:
+        raise AssertionError("monolayer NVT drift above 1e-6 eV/step/atom")
+    rebo_k = rebo_at_run_k(eng)
+    mirror_k = mirror_at_run_k(eng)
+    torch.cuda.empty_cache()
+    lj_run = lj_cells_at_run(eng)
+    torch.cuda.empty_cache()
+    ref = mono_engine(dev, fused=False)
+    nvt_run(ref, MONO_RUN_STEPS, MONO_RUN_STEPS // 2)
+    same = same_state(eng, ref)
+    print(f"monolayer graph vs eager loop after {MONO_RUN_STEPS} steps: "
+          f"bit-identical {same}, rebuilds {eng.rebuilds} / {ref.rebuilds}")
+    if not all(same.values()):
+        raise AssertionError("the monolayer graph loop's state differs from "
+                             "the eager loop's")
+    numbers = loop_numbers({"graph": eng, "eager": ref}, gpu,
+                           steps=MONO_RUN_STEPS, profile_steps=MONO_RUN_STEPS)
+    peak_both = torch.cuda.max_memory_allocated() / 2 ** 30
+    del ref
+    torch.cuda.empty_cache()
+    rebuild_ms = 1e3 * eng._rebuild_cost_estimate()
+    cand = candidates_record(eng, "monolayer")
+    print(f"monolayer: a rebuild {rebuild_ms:.3f} ms of device time, D' "
+          f"{cand['ms']:.4f} ms of it")
+    out = dict(gpu=gpu, natoms=natoms, k_caps=dict(eng._plan.k_caps),
+               ghosts=eng.nbr.ghosts.count, rebuilds_main_run=rebuilds,
+               nvt_drift_ev_per_step_atom=drift, peak_gib_graph_run=peak,
+               peak_gib_both_loops=peak_both, capture_s=eng._loop.capture_s,
+               rebuild_device_ms=rebuild_ms, rebo_at_run_k=rebo_k,
+               mirror_at_run_k=mirror_k, lj_cells_at_run=lj_run,
+               select_candidates=cand,
+               launches={KERNEL_NAMES[m]: launches[m] for m in MAIN_PATH},
+               **numbers)
+    print("MONOLAYER " + json.dumps(out))
+    del eng
+    torch.cuda.empty_cache()
+    return launches, out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--golden-rebo", default="",
@@ -1444,15 +1974,33 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device")
     dev = torch.device("cuda:0")
     modules = ops_modules()
-    phase0_environment()
-    results = phase1_kernels(dev, args.prev_tree)
-    phase2_f32_accuracy(dev)
-    launches, at_run_k = phase3_main_path(dev, modules)
+    with timed("phase 0"):
+        phase0_environment()
+    with timed("phase 1"):
+        results = phase1_kernels(dev, args.prev_tree)
+    with timed("phase 2"):
+        phase2_f32_accuracy(dev)
+    with timed("phase 3"):
+        launches, at_run_k = phase3_main_path(dev, modules)
     results["rebo_cotangents"]["at_run_k"] = at_run_k
-    by_config = phase4_configurations(dev, modules)
+    with timed("phase 4"):
+        by_config = phase4_configurations(dev, modules)
     phase5_golden(dev, args.golden_rebo)
-    results["select_candidates"]["aeam"] = phase6_aeam(dev, modules)
-    # each kernel's count from the runs of the paths that use it
+    with timed("phase 6"):
+        results["select_candidates"]["aeam"] = phase6_aeam(dev, modules)
+    with timed("phase 7"):
+        results["select_candidates"].update(phase7_bfield(dev, modules))
+    with timed("phase 8"):
+        mono_launches, mono = phase8_monolayer(dev, modules)
+    for m in MAIN_PATH:
+        results[KERNEL_NAMES[m]]["monolayer"] = dict(
+            {"rebo": mono["rebo_at_run_k"], "mirror": mono["mirror_at_run_k"],
+             "lj_cells": mono["lj_cells_at_run"],
+             "select_candidates": mono["select_candidates"]}[m],
+            launches=mono_launches[m])
+    # each kernel's count from the runs of the paths that use it: the main
+    # path's for its kernels, else the configurations' (the AEAM, deck and
+    # monolayer paths' counts stand in each kernel's record of that path)
     runs = [(MAIN_PATH, launches)] + [(used, by_config[name])
                                       for name, _, _, used in CONFIGS]
     kernels = []

@@ -3,17 +3,20 @@
 The JAX package beside it (``lammps_plugins_tpu``) is the reference; this
 package mirrors its module paths so each counterpart is easy to find:
 
-  core/        State, triclinic Box, lattice fills, units, the device rule
-  api/         scene builders (REBOMOS bulk, AEAM sample.in)
+  core/        State, triclinic Box, lattice fills, units, regions, the
+               device rule
+  api/         scene builders (REBOMOS bulk and monolayer, AEAM sample.in,
+               the LJ melt decks of bench/in.lj and config 2)
   neighbor/    ghosts, padded [N, K] lists, host build, on-device rebuild
   potentials/  PairStyle base (autograd forces / strain virial), REBOMoS,
-               AEAM, the REBOMOS and AEAM file readers, AEAM splines and
-               their piecewise-Chebyshev refits
+               AEAM, lj/cut, lj/cut/coul/cut, none, the REBOMOS and AEAM
+               file readers, AEAM splines and their piecewise-Chebyshev
+               refits
   ops/         hand-written CUDA kernels (sources in csrc/) with their
                plain-PyTorch twins, the nvcc build and ctypes loader, and
                the g++-built native pair search of the host build
-  fixes/       nve, nvt (Nose-Hoover chain), velocity create, set
-               type/fraction
+  fixes/       nve, nvt (Nose-Hoover chain), bfield (Lorentz force),
+               velocity create, set type/fraction
   run/         Engine (device loop as CUDA graphs, host loop, half-skin
                rebuild rule), thermo, timers
   convert.py   numpy bridge from the JAX package's objects
@@ -26,7 +29,7 @@ csrc/neighbor_native.cpp).  What it builds goes into build/ at the
 repository root.
 
 The entry points (scene functions, Box constructors, REBOMoS, AEAM, the
-host neighbor build) run on the card unless the caller passes device="cpu"
+LJ styles, the host neighbor build) run on the card unless the caller passes device="cpu"
 (core/device.py); without a CUDA device they raise.
 
 Dispatch rule shared by every kernel wrapper: a CPU tensor takes the plain

@@ -19,6 +19,7 @@ from .neighbor.build import CellData, NeighborData
 from .neighbor.device_build import RebuildPlan
 from .neighbor.neighbor import Ghosts, NeighborList
 from .potentials.aeam import AEAM
+from .potentials.ljcut import PairLJCut, PairLJCutCoulCut
 from .potentials.rebomos import REBOMoS
 
 
@@ -95,3 +96,26 @@ def aeam_from_tables(tables, typemap, dtype=torch.float64, device="cpu",
     tables."""
     return AEAM(tables, np.asarray(typemap), dtype=dtype, device=device,
                 poly_mode=poly_mode)
+
+
+def ljcut_from_fields(eps, sig, cut, isset, cut_global: float,
+                      cut_coul: float | None = None, qqr2e: float = 1.0,
+                      dtype=torch.float64, device="cpu") -> PairLJCut:
+    """Port lj/cut (lj/cut/coul/cut when a Coulomb cutoff is given) from a
+    JAX style's coefficient tables: [T+1, T+1] eps, sigma, cutoff and
+    is-set arrays (numpy already), its global LJ cutoff and, for the
+    charged style, its Coulomb cutoff and qqr2e; so both packages compute
+    from the same coefficients."""
+    eps = np.array(eps, np.float64)
+    ntypes = eps.shape[0] - 1
+    if cut_coul is not None:
+        pair = PairLJCutCoulCut(cut_global, cut_coul, ntypes=ntypes,
+                                qqr2e=qqr2e, dtype=dtype, device=device)
+    else:
+        pair = PairLJCut(cut_global, ntypes=ntypes, dtype=dtype,
+                         device=device)
+    pair._eps = eps
+    pair._sig = np.array(sig, np.float64)
+    pair._cut = np.array(cut, np.float64)
+    pair._isset = np.array(isset, bool)
+    return pair

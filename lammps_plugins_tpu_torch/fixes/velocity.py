@@ -85,19 +85,23 @@ def velocity_create(state: State, units: UnitSystem, t_target: float,
 
 
 def set_type_fraction(state: State, newtype: int, fraction: float,
-                      seed: int) -> State:
+                      seed: int, region=None) -> State:
     """`set ... type/fraction newtype fraction seed` (sample.in:19).
 
     Deterministic per-atom decision from a hash of (seed, position), so
     the result is decomposition-independent like LAMMPS's
     coordinate-seeded RanPark reset in Set::selection (a statistically
-    equivalent stream)."""
+    equivalent stream).  region: only atoms inside it (core/region.py,
+    LAMMPS `set region ID type/fraction`)."""
     x = _np(state.x)
     # coordinate hash -> uniform [0, 1)
     h = np.abs(np.sin(x[:, 0] * 12.9898 + x[:, 1] * 78.233
                       + x[:, 2] * 37.719 + seed * 0.0001) * 43758.5453)
     u = h - np.floor(h)
+    sel = u < fraction
+    if region is not None:
+        sel &= _np(region.inside(state.x))
     types = _np(state.type).copy()
-    types[u < fraction] = newtype
+    types[sel] = newtype
     return state.replace(type=torch.as_tensor(types, dtype=torch.int64,
                                               device=state.x.device))

@@ -324,8 +324,10 @@ def _mirror_table(idx, mask, owner, ghost_valid, sidx_ghost, inv_t, n, K):
     """[N, K] flat slot (row*K + col) of each edge's mirror edge, -1 if
     none.  Edge (i, j): the mirror is the unique edge (owner(j), image of
     i under the negated shift of j), found through the ghost inverse
-    table ginv[(owner, shift slot)] -> ghost id and a compare against the
-    mirror row's index list, one neighbor slot at a time.  inv_t: the
+    table ginv[(owner, shift slot)] -> ghost id, then looked up in the
+    lists: the keys row * M + idx of all N*K slots sorted stably, and each
+    edge's key (mirror row, target) searched among them, so that the
+    lowest slot of the mirror row holding the target wins.  inv_t: the
     device form of _inverse_shift_perm."""
     dev = idx.device
     Mg = owner.shape[0]
@@ -341,12 +343,16 @@ def _mirror_table(idx, mask, owner, ghost_valid, sidx_ghost, inv_t, n, K):
     gown = torch.where(ghost_valid, owner, torch.full_like(owner, n))
     ginv[gown, sidx_ghost] = n + torch.arange(Mg, device=dev)
     tgt = torch.gather(ginv[:n], 1, inv_sj)           # [N, K]
-    colp = torch.full_like(idx, K)
-    for kk in range(K - 1, -1, -1):                   # lowest matching slot
-        hit = (idx[:, kk][o] == tgt) & (tgt >= 0)
-        colp = torch.where(hit, torch.full_like(colp, kk), colp)
-    return torch.where(mask & (colp < K), o * K + colp,
-                       torch.full_like(idx, -1))
+    # idx < M (the pad row n + Mg included), so key equality is row and
+    # index equality; the stable sort keeps equal keys in slot order
+    M = n + Mg + 1
+    skeys, slot = torch.sort((ar_n[:, None] * M + idx).reshape(-1),
+                             stable=True)
+    query = (o * M + tgt).reshape(-1)
+    pos = torch.clamp(torch.searchsorted(skeys, query), max=n * K - 1)
+    hit = ((skeys[pos] == query) & (tgt.reshape(-1) >= 0)).reshape(n, K)
+    colp = slot[pos].reshape(n, K) % K
+    return torch.where(mask & hit, o * K + colp, torch.full_like(idx, -1))
 
 
 _OFFS14 = np.array(

@@ -20,6 +20,17 @@ class PairStyle:
     """Base class: subclasses implement neighbor_requests() and energy()."""
 
     name: str = "none"
+    #: the style reads per-atom charges (the Engine binds state.q at setup)
+    needs_charges: bool = False
+
+    def bind_charges(self, q) -> None:
+        """Receive the system's static per-atom charges (a no-op for a
+        charge-free style)."""
+
+    def with_charges(self, q) -> "PairStyle":
+        """This style bound to the charge array `q` (itself for a
+        charge-free style)."""
+        return self
 
     def neighbor_requests(self) -> Mapping[str, np.ndarray]:
         """name -> cutoff (scalar or [T+1, T+1] per-type-pair matrix)."""

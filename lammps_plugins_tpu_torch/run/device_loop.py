@@ -27,8 +27,9 @@ same rebuilds and give the same trajectory bit for bit.
 The loop carries the state that a step changes: x, v, f and every tensor
 of state.extras (a fix's own state, e.g. fix nvt's chain and step count),
 in its buffers, its snapshot (restored when an overflow discards a span)
-and its accept/discard step; image, which the rebuild changes, in its
-buffers and snapshot.
+and its accept/discard step; image, which the rebuild changes, and the
+inputs (x, image) of the last rebuild (`rb_in`, which the Engine re-lists
+from after a re-size), in its buffers and snapshot.
 
 What the captured code may do: read and write device tensors only.  The
 kernel wrappers' `launches` counters tick once at capture; the loop puts
@@ -57,6 +58,7 @@ KERNEL_MODULES = ("rebo", "mirror", "lj_cells", "select_k",
                   "select_candidates", "lj_half", "mirror_rows", "react",
                   "pin")
 _STATE_FIELDS = ("x", "v", "f")
+_RB_IN = ("rb_x", "rb_image")                   # the last rebuild's inputs
 _CTL = ("done", "pending", "n_rb", "dprev")     # ctl[0:4]; flags follow
 
 
@@ -182,6 +184,7 @@ class DeviceLoop:
         self.xpaths = [p for p, _ in extras_items(st.extras)]
         self.buf = {a: getattr(st, a).clone()
                     for a in _STATE_FIELDS + ("image",)}
+        self.buf.update(zip(_RB_IN, (t.clone() for t in eng._rb_in)))
         self.buf.update((p, t.clone()) for p, t in extras_items(st.extras))
         self.snap = {a: t.clone() for a, t in self.buf.items()}
         self.base = self._state(st)
@@ -210,6 +213,8 @@ class DeviceLoop:
         if sorted(flags) != self.names:
             raise RuntimeError(f"fused loop: rebuild flags {sorted(flags)} "
                                f"are not the loop's {self.names}")
+        b["rb_x"].copy_(b["x"])
+        b["rb_image"].copy_(b["image"])
         b["x"].copy_(xw)
         b["image"].copy_(image)
         for dst, src in zip(tensors(self.nbr), tensors(nbr), strict=True):
@@ -325,6 +330,7 @@ class DeviceLoop:
         if list(src_of) != self.xpaths:
             raise RuntimeError(f"fused loop: state.extras holds "
                                f"{list(src_of)}, the loop {self.xpaths}")
+        src_of.update(zip(_RB_IN, self.eng._rb_in))
         for a, t in self.buf.items():
             src = src_of[a] if a in src_of else getattr(state, a)
             if src is not t:
@@ -338,6 +344,11 @@ class DeviceLoop:
         self.ctl.zero_()
         self.step0 = state.step
         return self._state(state)
+
+    @property
+    def rb_in(self):
+        """(x, image) that the last rebuild of the loop's state took."""
+        return self.buf["rb_x"], self.buf["rb_image"]
 
     def replay(self, n: int):
         """n iterations: n graph launches (CUDA), or n eager iterations."""

@@ -22,10 +22,18 @@ A failed capture or replay raises: nothing falls back to the host loop.
 
 The on-device rebuild sizes its capacities from a plan, re-sizes on
 overflow flags, keeps a per-tier K high-water mark and quantizes K
-(`_quantize_k`).  A pair style whose `combine` is "react" gets the
-reaction-combine route tables: the first rebuild measures the route
-geometry, the plan then carries route capacities (high-water marked like
-K), and a geometry the gate refuses raises.  The host (numpy) build is
+(`_quantize_k`).  A re-size that the device loop decides after a span
+(an overflow that discards it, or a K cap to tighten) re-lists: it runs
+the last rebuild again on that rebuild's own inputs at the new plan
+(`_rb_in`), so the lists hold the same entries in the new shapes and the
+decision state (x_build, pending, dprev) is the one the host loop has at
+that point; the host loop re-sizes within its rebuild on the same
+inputs.  Both loops therefore count the same rebuilds and, where the
+force path sums padded slots as zeros, give the same bits.  A pair style
+whose `combine` is "react" gets the reaction-combine route tables: the
+first rebuild measures the route geometry, the plan then carries route
+capacities (high-water marked like K), and a geometry the gate refuses
+raises.  The host (numpy) build is
 kept for CPU parity tests, which clear `Engine.device_rebuild`; a CUDA
 state refuses it.  The Engine never moves data off the state's device on
 its own; the only device-to-host copies are the per-segment displacement
@@ -107,9 +115,11 @@ class Engine:
         self._loop = None
         self._loop_key = None
         self._rebuild_cost = None
+        self._rb_in = None             # (x, image) the last rebuild took
         self.rebuilds = 0
         self.timers = Timers()
         pair.prepare(state.type.cpu().numpy())
+        pair.bind_charges(state.q)
         for fix in self.fixes:
             self.state = fix.setup(self.state, self.ctx)
         box = self.state.box
@@ -163,12 +173,16 @@ class Engine:
             cell_tiers=getattr(self.pair, "cell_tiers", ()),
             mirror_tiers=getattr(self.pair, "mirror_tiers", ()))
 
-    def _rebuild_on_device(self, _retry: int = 0):
+    def _rebuild_on_device(self, _retry: int = 0, relist: bool = False):
+        """A rebuild at the state's positions; relist=True runs the last
+        rebuild again on its own inputs (`_rb_in`) at the current plan and
+        keeps the state as it is (a re-size, not a new rebuild)."""
         if self._plan is None:
             self._make_plan_fast()
         st = self.state
+        x_in, image_in = self._rb_in if relist else (st.x, st.image)
         xw, image, nbr, flags_t = self.rebuild_lists(
-            self._plan, st.x, st.image, st.type,
+            self._plan, x_in, image_in, st.type,
             self.pair.neighbor_requests())
         flags = device_build.flags_to_host(flags_t)
         if _overflowed(flags):
@@ -179,7 +193,7 @@ class Engine:
             # may itself truncate, hence a few rounds) and retry
             self._k_headroom = 10
             self._resize_plan(flags, grow=1.5 * (1.3 ** _retry))
-            return self._rebuild_on_device(_retry + 1)
+            return self._rebuild_on_device(_retry + 1, relist)
         if not self._plan_tightened:
             # the density estimate over-pads K: re-size once to the counts
             self._plan_tightened = True
@@ -189,16 +203,20 @@ class Engine:
             # the route tables need capacities from a measured rebuild
             if loose or (self._react and not self._plan.react_nw):
                 self._resize_plan(flags, grow=1.3)
-                return self._rebuild_on_device(_retry)
+                return self._rebuild_on_device(_retry, relist)
         elif not self._recovering and self._k_slack(flags):
             # a cap 32 or more above the target re-tightens; never while an
             # overflow recovery is in flight, which grew the cap because
             # kmax outgrew it (JAX simulation.py:264-290)
             self._resize_plan(flags, grow=1.0)
-            return self._rebuild_on_device(_retry)
+            return self._rebuild_on_device(_retry, relist)
         self._note_k_counts(flags)
         self._flag_names = sorted(flags)
-        self.state = st.replace(x=xw, image=image)
+        if not relist:
+            # the inputs, kept for a later re-list (copies: the state's
+            # tensors may be the device loop's buffers)
+            self._rb_in = (x_in.clone(), image_in.clone())
+            self.state = st.replace(x=xw, image=image)
         self.nbr = nbr
 
     def _k_slack(self, flags) -> bool:
@@ -349,6 +367,8 @@ class Engine:
         self.state = loop.start(self.state, self.nbr, self._pending_rebuild,
                                 self._seg_dprev)
         self.nbr = loop.nbr
+        # the last rebuild's inputs follow the loop's (restore() included)
+        self._rb_in = loop.rb_in
         reps = nsteps // self.check_every
         while True:
             loop.replay(reps)
@@ -361,14 +381,15 @@ class Engine:
                 raise RuntimeError(f"device rebuild overflow persists: "
                                    f"{res.flags}")
             # a truncated list stepped physics: discard the whole span,
-            # re-size from the measured counts, rebuild, run it again
+            # re-size from the measured counts, re-list the last rebuild
+            # before the span, run it again
             loop.restore()
             self.state = self.state.replace(step=step0)
             self._k_headroom = 10
             self._resize_plan(res.flags, grow=1.5 * (1.3 ** _retry))
             self._recovering = True
             try:
-                self.rebuild_neighbors()
+                self._rebuild_on_device(relist=True)
                 return self._run_span_device(nsteps, _retry + 1)
             finally:
                 self._recovering = False
@@ -382,7 +403,7 @@ class Engine:
                                  res.n_rb * self._rebuild_cost_estimate())
             if not self._recovering and self._k_slack(res.flags):
                 self._resize_plan(res.flags, grow=1.0)
-                self.rebuild_neighbors()
+                self._rebuild_on_device(relist=True)
 
     def _rebuild_cost_estimate(self) -> float:
         """Device seconds of one rebuild, measured once (a standalone

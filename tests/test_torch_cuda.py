@@ -52,6 +52,17 @@ nc=6 scene (x, v, f, image, the Nose-Hoover chain and its step count, the
 rebuild count), a discarded span that restores the chain, an in-loop
 overflow that the Engine recovers from, and a span under the sync debug
 mode.
+
+Config 2 (lj/cut/coul/cut, fix bfield, pair_style none): the 1,024-ion
+charged melt deck's graph loop bit for bit against its eager loop over 300
+steps (x, v, f, image, fix bfield's extras, the rebuild count), with the
+deck's 200 T field and with a time-varying Bz, a Bx and a region; D' the
+only kernel; forces that rerun bit-identically.  The candidate selection
+exact against its twin on free ions whose rows have no hit (all of them,
+or all but those of 64 close pairs).  The cyclotron oracle in f32 (512
+free ions, Bz 1000 T, one period of 2,000 steps).  The f32
+lj/cut and lj/cut/coul/cut forces on the card within 1e-2 RMS(F) of the
+f64 CPU path.
 """
 
 import dataclasses
@@ -874,3 +885,159 @@ def test_aeam_graph_span_replays_without_host_sync(cuda):
     res = loop.read()
     assert res.n_rb >= 1 and res.done >= 12
     assert select_candidates.launches == before + res.n_rb
+
+
+# -- config 2: lj/cut/coul/cut, fix bfield, pair_style none -----------------
+
+def _melt_engine(dev, fused, varying=False):
+    """f32 Engine of the charged melt deck at n = 8 (1,024 ions, 200 T) on
+    the card; varying: fix bfield with a time-varying Bz, a Bx and a
+    region instead; fused None (graph) or False (eager)."""
+    from lammps_plugins_tpu_torch.api.scenes import charged_melt
+    from lammps_plugins_tpu_torch.core.region import Block
+    from lammps_plugins_tpu_torch.fixes.bfield import FixBfield
+    deck = charged_melt(8, dtype=torch.float32, device=dev)
+    if varying:
+        deck.fixes[0] = FixBfield(
+            0.5, 0.0, lambda t: 200.0 + 50.0 * torch.cos(300.0 * t),
+            region=Block(lo=(-1e30, 10.0, -1e30), hi=(20.0, 1e30, 1e30)))
+    eng = deck.engine()
+    eng.fused_loop = fused
+    return eng
+
+
+@pytest.mark.parametrize("varying", [False, True])
+def test_charged_melt_graph_loop_matches_eager_loop(cuda, varying):
+    """300 steps of the charged melt through in-run rebuilds: the graph
+    loop's x, v, f, image, fix bfield's extras (v0, B, fsum and, for a
+    time-varying field, its step count) and rebuild count equal the eager
+    loop's bit for bit; D' is the only kernel that launches; the forces
+    rerun bit-identically (no float atomics)."""
+    from lammps_plugins_tpu_torch.run.device_loop import (extras_items,
+                                                          kernel_modules)
+    for m in kernel_modules():
+        m.launches = 0
+    graph, eager = (_melt_engine(cuda, f, varying) for f in (None, False))
+    graph.run(300)
+    assert {m.__name__.split(".")[-1]: m.launches for m in kernel_modules()
+            if m.launches} == {"select_candidates": select_candidates.launches}
+    assert select_candidates.launches > 0
+    eager.run(300)
+    assert graph._loop is not None and graph._loop.exec is not None
+    assert graph.rebuilds >= 2
+    _assert_same_state(graph, eager)
+    ge, ee = (dict(extras_items(e.state.extras)) for e in (graph, eager))
+    assert list(ge) == list(ee) and len(ge) == (4 if varying else 3)
+    for p, t in ge.items():
+        assert torch.equal(t, ee[p]), p
+    st, nbr = graph.state, graph.nbr
+    assert nbr.lists["main"].mirror is not None
+    f1 = graph.pair.forces(st.x, st.type, nbr, st.box.h)
+    f2 = graph.pair.forces(st.x, st.type, nbr, st.box.h)
+    assert torch.equal(f1, f2) and torch.isfinite(f1).all()
+
+
+def _sparse_call(partners):
+    """The arguments and CPU (twin) result of the select_candidates call of
+    a float32 CPU rebuild of 512 free ions 10 A apart (pair_style none,
+    cutoff 1 A), with a partner ion 0.9 A off each of the first `partners`
+    ions: every other row of the lists has no hit."""
+    from lammps_plugins_tpu_torch.core.box import Box
+    from lammps_plugins_tpu_torch.core.state import State
+    from lammps_plugins_tpu_torch.fixes.bfield import FixBfield
+    from lammps_plugins_tpu_torch.potentials.none import PairNone
+    n, a = 8, 10.0
+    g = (np.arange(n) + 0.5) * a
+    x = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    x = np.concatenate([x, x[:partners] + np.array([0.9, 0.0, 0.0])])
+    box = Box.orthogonal([n * a] * 3, dtype=torch.float32, device="cpu")
+    st = State.create(x=x, type=np.ones(len(x), np.int64), box=box,
+                      mass=np.array([0.0, 1.0]), v=np.zeros_like(x),
+                      q=np.ones(len(x)))
+    eng = Engine(st, PairNone(1.0), [FixBfield(0.0, 0.0, 1000.0), FixNVE()],
+                 units.METAL)
+    eng.rebuild_neighbors()
+    st = eng.state
+    _, calls = rebuild_with_spy(eng._plan, st.x, st.image, st.type,
+                                *eng._box_dev, eng.pair.neighbor_requests())
+    return calls[0]
+
+
+@pytest.mark.parametrize("partners", [0, 64])
+def test_select_candidates_kernel_on_rows_without_hits(cuda, partners):
+    """D' on free ions (the cyclotron oracle's lists): rows without a hit
+    (all of them, or all but the 128 of the close pairs) give mask False,
+    idx and jtype equal to its twin's on the card and on the CPU; kmax is
+    0 or 1; reruns identical."""
+    args, out_cpu = _sparse_call(partners)
+    dargs = [a.to(cuda) if torch.is_tensor(a) else a for a in args]
+    before = select_candidates.launches
+    out_k = select_candidates.select_candidates(*dargs)
+    torch.cuda.synchronize()
+    assert select_candidates.launches == before + 1
+    out_t = select_candidates.select_candidates_ref(*dargs)
+    again = select_candidates.select_candidates(*dargs)
+    for a, b, c, d in zip(out_k, out_t, out_cpu, again):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c) \
+            and torch.equal(a, d)
+    hits = out_k[2].sum(dim=1)
+    assert int((hits == 0).sum()) == 512 + partners - 2 * partners
+    assert int(out_k[3]) == (1 if partners else 0)
+
+
+def test_cyclotron_oracle_in_float32(cuda):
+    """tests/test_fixes.py's oracle on the card in f32 with parameters f32
+    resolves: 512 free ions (m = 1, q = 1) 10 A apart at v0 = 0.5 A/ps in
+    seeded xy directions, Bz = 1000 T (radius 5.18 A, period 65.1 ps), dt =
+    period / 2000, pair_style none (most rows of the lists have no hit).
+    After one period every ion is back within the JAX test's bars."""
+    from lammps_plugins_tpu_torch.core.box import Box
+    from lammps_plugins_tpu_torch.core.state import State
+    from lammps_plugins_tpu_torch.fixes.bfield import FixBfield
+    from lammps_plugins_tpu_torch.potentials.none import PairNone
+    u, n, a, bz, v0 = units.METAL, 8, 10.0, 1000.0, 0.5
+    g = (np.arange(n) + 0.5) * a
+    x0 = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    phi = np.random.default_rng(6).uniform(0.0, 2 * np.pi, len(x0))
+    vel0 = v0 * np.stack([np.cos(phi), np.sin(phi), np.zeros_like(phi)], 1)
+    box = Box.orthogonal([n * a] * 3, dtype=torch.float32, device=cuda)
+    st = State.create(x=x0, type=np.ones(len(x0), np.int64), box=box,
+                      mass=np.array([0.0, 1.0]), v=vel0, q=np.ones(len(x0)))
+    period = 2 * np.pi / (u.qBm2f * bz)
+    eng = Engine(st, PairNone(1.0), [FixBfield(0.0, 0.0, bz), FixNVE()], u,
+                 dt=period / 2000)
+    eng.run(2000)
+    assert eng._loop is not None and eng._loop.exec is not None
+    assert eng.rebuilds > 10
+    assert int((~eng.nbr.lists["main"].mask.any(dim=1)).sum()) > 0
+    s = eng.state
+    x = s.box.unmap(s.x, s.image).double().cpu().numpy()
+    v = s.v.double().cpu().numpy()
+    assert np.linalg.norm(x - x0, axis=1).max() < 5e-3 * v0 * period
+    assert np.abs(v - vel0).max() < 5e-3 * v0
+    assert np.abs(np.linalg.norm(v, axis=1) - v0).max() < 1e-3 * v0
+
+
+@pytest.mark.parametrize("deck", ["charged_melt", "lj_melt"])
+def test_ljcut_f32_forces_on_card_match_f64(cuda, deck):
+    """The f32 lj/cut(/coul/cut) forces on the card (its own device
+    rebuild, the mirror combine) within 1e-2 RMS(F) of the f64 CPU path on
+    the jiggled n = 4 deck (the f64 scene's types and charges)."""
+    from lammps_plugins_tpu_torch.api import scenes
+    make = getattr(scenes, deck)
+    base = make(4, dtype=torch.float64, device="cpu").state
+    pos = base.x.numpy() + np.random.default_rng(2).uniform(
+        -0.05, 0.05, base.x.shape)
+    out = []
+    for dtype, dev in ((torch.float64, "cpu"), (torch.float32, cuda)):
+        d = make(4, dtype=dtype, device=dev)
+        d.state = d.state.replace(
+            x=torch.as_tensor(pos, dtype=dtype, device=dev),
+            type=base.type.to(dev), q=base.q.to(device=dev, dtype=dtype))
+        eng = d.engine()
+        eng.rebuild_neighbors()
+        st = eng.state
+        out.append(eng.pair.forces(st.x, st.type, eng.nbr,
+                                   st.box.h).double().cpu().numpy())
+    f64, f32 = out
+    assert np.abs(f32 - f64).max() < 1e-2 * np.sqrt(np.mean(f64 * f64))

@@ -1,8 +1,10 @@
 """The port loads neither JAX nor the JAX package: every module of
-lammps_plugins_tpu_torch and chip_smoke.py's imports are loaded, and one
-Engine.evaluate runs on the CPU, in a fresh interpreter that must end with
-no `jax` and no `lammps_plugins_tpu` module in sys.modules.  The entry
-points default to the card and raise without one."""
+lammps_plugins_tpu_torch (core/region.py, potentials/ljcut.py and none.py,
+fixes/bfield.py among them) and chip_smoke.py's imports are loaded, and
+one Engine.evaluate runs on the CPU, and a step of the charged melt with
+fix bfield, in a fresh interpreter that must end with no `jax` and no
+`lammps_plugins_tpu` module in sys.modules.  The entry points default to
+the card and raise without one."""
 
 import os
 import subprocess
@@ -34,6 +36,12 @@ eng = Engine(rebomos_bulk(**f64),
 eng.device_rebuild = False           # the host build: the native pair search
 pe, _ = eng.evaluate()
 assert abs(float(pe) / 288 + 3.5787) < 1e-3, float(pe)
+from lammps_plugins_tpu_torch.api.scenes import charged_melt
+for m in ("core.region", "potentials.ljcut", "potentials.none",
+          "fixes.bfield"):
+    assert "lammps_plugins_tpu_torch." + m in names, m
+melt = charged_melt(2, **f64).engine()
+melt.run(2)
 build = os.path.join(os.path.dirname(os.path.dirname(pkg.__file__)), "build")
 assert native.LIB_PATH.startswith(build + os.sep), native.LIB_PATH
 bad = sorted(m for m in sys.modules
@@ -59,6 +67,8 @@ def _entry_points():
     from lammps_plugins_tpu_torch.core.box import Box
     from lammps_plugins_tpu_torch.neighbor.build import build_neighbor_data
     from lammps_plugins_tpu_torch.potentials.aeam import AEAM
+    from lammps_plugins_tpu_torch.potentials.ljcut import (PairLJCut,
+                                                           PairLJCutCoulCut)
     from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
     from lammps_plugins_tpu_torch.potentials.tables import read_rebomos
     from torch_parity import SYNTH_AEAM, SYNTH_REBO
@@ -80,6 +90,11 @@ def _entry_points():
         "alsi_sample": lambda: scenes.alsi_sample(nc=2),
         "Box.orthogonal": lambda: Box.orthogonal([10.0, 10.0, 10.0]),
         "AEAM.from_file": lambda: AEAM.from_file(SYNTH_AEAM, ["Al", "Si"]),
+        "lj_melt": lambda: scenes.lj_melt(2),
+        "charged_melt": lambda: scenes.charged_melt(2),
+        "rebomos_monolayer": lambda: scenes.rebomos_monolayer(2, 2),
+        "PairLJCut": lambda: PairLJCut(2.5),
+        "PairLJCutCoulCut": lambda: PairLJCutCoulCut(6.0, 8.0),
     }
 
 
@@ -87,7 +102,10 @@ def _entry_points():
                                   "Box.triclinic", "Box.from_numpy",
                                   "REBOMoS", "REBOMoS.from_file",
                                   "build_neighbor_data", "alsi_sample",
-                                  "Box.orthogonal", "AEAM.from_file"])
+                                  "Box.orthogonal", "AEAM.from_file",
+                                  "lj_melt", "charged_melt",
+                                  "rebomos_monolayer", "PairLJCut",
+                                  "PairLJCutCoulCut"])
 def test_entry_point_without_device_raises_without_cuda(monkeypatch, name):
     """Called without `device`, an entry point asks for the card; with no
     CUDA device it raises a clear error instead of running on the CPU."""
@@ -103,11 +121,16 @@ def test_entry_point_defaults_are_the_card_in_float32():
     from lammps_plugins_tpu_torch.core.box import Box
     from lammps_plugins_tpu_torch.neighbor.build import build_neighbor_data
     from lammps_plugins_tpu_torch.potentials.aeam import AEAM
+    from lammps_plugins_tpu_torch.potentials.ljcut import (PairLJCut,
+                                                           PairLJCutCoulCut)
     from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
     for fn in (scenes.rebomos_bulk, scenes.rebomos_bulk_commensurate,
                Box.triclinic, Box.from_numpy, REBOMoS.__init__,
                REBOMoS.from_file, build_neighbor_data, scenes.alsi_sample,
-               Box.orthogonal, AEAM.__init__, AEAM.from_file):
+               Box.orthogonal, AEAM.__init__, AEAM.from_file,
+               scenes.lj_melt, scenes.charged_melt,
+               scenes.rebomos_monolayer, PairLJCut.__init__,
+               PairLJCutCoulCut.__init__):
         params = inspect.signature(fn).parameters
         assert params["device"].default == "cuda", fn
         assert params["dtype"].default is torch.float32, fn

@@ -304,3 +304,57 @@ def test_rebuild_orders_lj_cells_by_subcell(monkeypatch):
     grid = table[:Dx * Dy * Dz].reshape(Dx, Dy, Dz, -1)[x0:x1, y0:y1, z0:z1]
     np.testing.assert_array_equal(grid.reshape(-1)[cells.aslot].numpy(),
                                   np.arange(cells.n_owned))
+
+
+def _mirror_table_by_slots(idx, mask, owner, ghost_valid, sidx_ghost, inv_t,
+                           n, K):
+    """The mirror table by a compare against the mirror row's index list,
+    one neighbor slot at a time (the lowest matching slot wins): the
+    reference for device_build's sort-and-search form."""
+    Mg = owner.shape[0]
+    ar_n = torch.arange(n)
+    o_all = torch.cat([ar_n, owner])
+    inv_all = torch.cat([torch.zeros_like(ar_n), inv_t[sidx_ghost]])
+    safe = torch.where(mask, idx, torch.zeros_like(idx))
+    o, inv_sj = o_all[safe], inv_all[safe]
+    ginv = torch.full((n + 1, inv_t.shape[0]), -1, dtype=torch.int64)
+    ginv[ar_n, 0] = ar_n
+    gown = torch.where(ghost_valid, owner, torch.full_like(owner, n))
+    ginv[gown, sidx_ghost] = n + torch.arange(Mg)
+    tgt = torch.gather(ginv[:n], 1, inv_sj)
+    colp = torch.full_like(idx, K)
+    for kk in range(K - 1, -1, -1):
+        hit = (idx[:, kk][o] == tgt) & (tgt >= 0)
+        colp = torch.where(hit, torch.full_like(colp, kk), colp)
+    return torch.where(mask & (colp < K), o * K + colp,
+                       torch.full_like(idx, -1))
+
+
+@pytest.mark.parametrize("deck", ["charged_melt", "lj_melt", "rebomos"])
+def test_mirror_table_equals_the_slot_by_slot_search(monkeypatch, deck):
+    """Every rebuild of a 40-step run (K 28 for REBOMOS, 96 for the LJ
+    decks; f32) makes the same mirror table as the slot-by-slot search."""
+    from lammps_plugins_tpu_torch.api import scenes
+    from lammps_plugins_tpu_torch.core import units
+    from lammps_plugins_tpu_torch.fixes.nve import FixNVE
+    from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
+    from lammps_plugins_tpu_torch.run.simulation import Engine
+    from torch_parity import SYNTH_REBO
+    f32 = dict(dtype=torch.float32, device="cpu")
+    same = []
+    real = pdb._mirror_table
+
+    def spy(*args):
+        out = real(*args)
+        same.append(torch.equal(out, _mirror_table_by_slots(*args)))
+        return out
+
+    monkeypatch.setattr(pdb, "_mirror_table", spy)
+    if deck == "rebomos":
+        eng = Engine(scenes.rebomos_bulk_commensurate(4, 4, 2, **f32),
+                     REBOMoS.from_file(SYNTH_REBO, ["M", "S"], **f32),
+                     [FixNVE()], units.METAL)
+    else:
+        eng = getattr(scenes, deck)(5, **f32).engine()
+    eng.run(40)
+    assert len(same) >= 2 and all(same)

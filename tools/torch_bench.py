@@ -40,6 +40,22 @@ value = the best window, unit; PE/atom, K, the warm-up, the timers' split)
 for each loop, the median beside the best, the NVT conserved quantity's
 drift over the timed windows, the peak memory, and the card's name and
 power limit, as one JSON line.
+
+    python3 tools/torch_bench.py --melt | --lj | --monolayer [--steps N]
+                                 [--reps R]
+
+run the same two-loop measurement on the other workloads: --melt, config
+2, tests/test_ljcut.py's charged LJ/Coulomb melt at n = 32 (65,536 ions,
+lj/cut/coul/cut 6 / 8, fix bfield 0 0 200 T, fix nve, skin 1.0; 300-step
+windows); --lj, LAMMPS's bench/in.lj (lj_melt(20), 32,000 atoms, lj/cut
+2.5, skin 0.3; 500-step windows); --monolayer, config 4, the 1,000,518-atom
+MoS2 monolayer (rebomos_monolayer(577, 578), REBOMOS NVT 300 K from seed
+12345, skin 0.8, check every 10; 100-step windows).  The decks watch the
+NVE total energy's drift, the NVT workloads the conserved quantity's.
+
+Every Engine comes from chip_smoke.py (bench_engine, aeam_engine,
+deck_engine, mono_engine), so the bench times the cells that the smoke
+script checks.
 """
 
 from __future__ import annotations
@@ -54,7 +70,6 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REBO_FILE = os.path.join(REPO, "tests", "data", "MoS.REBO.synthetic")
-AEAM_FILE = os.path.join(REPO, "tests", "data", "AlSi.synthetic.aeam")
 BASELINE = 34223.0          # log.rebomos-bulk.1:59, katom-step/s * 1000
 
 
@@ -91,88 +106,103 @@ def gpu_name() -> str:
                           text=True, timeout=60).stdout.strip()
 
 
-def aeam_main(args):
-    """bench_aeam.py's workload through both loops, windows in turns."""
-    import torch
-    from lammps_plugins_tpu_torch.api.scenes import alsi_sample
-    from lammps_plugins_tpu_torch.core import units
-    from lammps_plugins_tpu_torch.fixes.nvt import FixNVT
-    from lammps_plugins_tpu_torch.fixes.velocity import velocity_create
-    from lammps_plugins_tpu_torch.potentials.aeam import AEAM
-    from lammps_plugins_tpu_torch.run.simulation import Engine
-    dev = torch.device("cuda:0")
+#: the workloads that run both loops: steps a window, windows each loop,
+#: warm-up steps, and whether a thermostat's energy joins the conserved
+#: quantity (pe + ke + FixNVT.energy) or the NVE total energy is watched
+WORKLOADS = {
+    "aeam": dict(steps=480, reps=3, warmup=288, nvt=True,
+                 metric="AlSi AEAM NVT 863K, f32"),
+    "melt": dict(steps=300, reps=3, warmup=300, nvt=False,
+                 metric="charged LJ/Coulomb melt + fix bfield 200 T, NVE, "
+                        "f32"),
+    "lj": dict(steps=500, reps=3, warmup=300, nvt=False,
+               metric="LJ melt bench/in.lj, NVE, f32"),
+    "monolayer": dict(steps=100, reps=3, warmup=100, nvt=True,
+                      metric="MoS2 monolayer REBOMOS NVT 300K, f32"),
+}
 
-    def engine(fused):
-        state = alsi_sample(nc=20, dtype=torch.float32, device=dev)
-        state = velocity_create(state, units.METAL, 863.0, seed=4928459)
-        pair = AEAM.from_file(AEAM_FILE, ["Al", "Si"], dtype=torch.float32,
-                              device=dev, poly_mode=args.poly)
-        eng = Engine(state, pair, [FixNVT(863.0, 863.0, 0.1)], units.METAL,
-                     check_every=12, skin=1.2)
-        eng.fused_loop = fused
-        return eng
+
+def loops_main(args, name):
+    """The workload through both loops, each on its own Engine, windows in
+    turns."""
+    import torch
+    w = WORKLOADS[name]
+    dev = torch.device("cuda:0")
 
     def conserved(eng):
         row = eng._thermo(eng.state)
-        return row["pe"] + row["ke"] + float(
-            eng.fixes[0].energy(eng.state, eng.ctx))
+        e = row["pe"] + row["ke"]
+        if w["nvt"]:
+            e += float(eng.fixes[0].energy(eng.state, eng.ctx))
+        return e
 
+    import chip_smoke as cs
+    make = {"aeam": lambda f: cs.aeam_engine(dev, f, poly_mode=args.poly),
+            "melt": lambda f: cs.deck_engine(dev, "melt", f),
+            "lj": lambda f: cs.deck_engine(dev, "lj", f),
+            "monolayer": lambda f: cs.mono_engine(dev, f)}[name]
     torch.cuda.reset_peak_memory_stats()
-    engines = {"graph": engine(None), "eager": engine(False)}
+    engines = {"graph": make(None), "eager": make(False)}
     natoms = engines["graph"].state.natoms
     out = {}
-    for name, eng in engines.items():
+    for loop, eng in engines.items():
         t0 = time.perf_counter()
         eng.rebuild_neighbors()
         pe, _ = eng.evaluate()
-        eng.run(288)
+        eng.run(w["warmup"])
         torch.cuda.synchronize()
-        out[name] = dict(
-            metric=f"atom-steps/sec/chip (AlSi AEAM NVT 863K, f32, {name} "
-                   f"loop)", unit="atom-steps/s", windows=[],
-            pe_per_atom=float(pe) / natoms,
+        out[loop] = dict(
+            metric=f"atom-steps/sec/chip ({w['metric']}, {loop} loop)",
+            unit="atom-steps/s", windows=[], pe_per_atom=float(pe) / natoms,
             warmup_s=time.perf_counter() - t0, e0=conserved(eng),
             s0=eng.state.step)
     names = list(engines)
     for rep in range(args.reps):
-        for name in (names if rep % 2 == 0 else names[::-1]):
-            eng = engines[name]
+        for loop in (names if rep % 2 == 0 else names[::-1]):
+            eng = engines[loop]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             eng.run(args.steps)
             torch.cuda.synchronize()
             rate = natoms * args.steps / (time.perf_counter() - t0)
-            out[name]["windows"].append(rate)
-            print(f"# {name}: {rate:.6g} atom-steps/s", file=sys.stderr,
+            out[loop]["windows"].append(rate)
+            print(f"# {loop}: {rate:.6g} atom-steps/s", file=sys.stderr,
                   flush=True)
-    for name, eng in engines.items():
-        o = out[name]
+    for loop, eng in engines.items():
+        o = out[loop]
         o["value"] = max(o["windows"])
         o["median"] = statistics.median(o["windows"])
-        o["drift_ev_per_step_atom"] = abs(conserved(eng) - o.pop("e0")) / (
+        o["drift_per_step_atom"] = abs(conserved(eng) - o.pop("e0")) / (
             eng.state.step - o.pop("s0")) / natoms
         o["K"] = dict(eng._plan.k_caps)
+        o["ghosts"] = eng.nbr.ghosts.count
         o["rebuilds"] = eng.rebuilds
         secs = dict(eng.timers.acc)
         tot = sum(secs.values()) or 1.0
         o["timers"] = {k: [v, v / tot] for k, v in secs.items()}
     print(json.dumps(dict(
-        natoms=natoms, poly_mode=args.poly, window_steps=args.steps,
-        loops=out, peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        workload=name, natoms=natoms, poly_mode=args.poly,
+        window_steps=args.steps, loops=out,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         gpu=gpu_name())), flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=None,
-                    help="steps a window (1000; 480 with --aeam)")
+                    help="steps a window (1000; the workloads' own below)")
     ap.add_argument("--reps", type=int, default=None,
-                    help="windows (5; 3 each loop with --aeam)")
+                    help="windows (5; 3 each loop for the workloads)")
     ap.add_argument("--drift-steps", type=int, default=2000)
     ap.add_argument("--eager", action="store_true",
                     help="the host loop instead of the graph loop")
-    ap.add_argument("--aeam", action="store_true",
-                    help="benchmarks/bench_aeam.py's workload, both loops")
+    for name, what in (("aeam", "benchmarks/bench_aeam.py's workload"),
+                       ("melt", "config 2, the 65,536-ion charged melt"),
+                       ("lj", "LAMMPS's bench/in.lj, 32,000 atoms"),
+                       ("monolayer", "config 4, the 1,000,518-atom "
+                                     "monolayer")):
+        ap.add_argument(f"--{name}", action="store_true",
+                        help=f"{what}, both loops")
     ap.add_argument("--poly", action="store_true",
                     help="with --aeam: poly_mode, not the table splines")
     args = ap.parse_args()
@@ -182,27 +212,16 @@ def main():
         raise SystemExit("torch_bench: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.aeam:
-        args.steps = args.steps or 480
-        args.reps = args.reps or 3
-        return aeam_main(args)
+    for name, w in WORKLOADS.items():
+        if getattr(args, name):
+            args.steps = args.steps or w["steps"]
+            args.reps = args.reps or w["reps"]
+            return loops_main(args, name)
     args.steps = args.steps or 1000
     args.reps = args.reps or 5
-    from lammps_plugins_tpu_torch.api.scenes import rebomos_bulk_commensurate
-    from lammps_plugins_tpu_torch.core import units
-    from lammps_plugins_tpu_torch.fixes.nve import FixNVE
-    from lammps_plugins_tpu_torch.fixes.velocity import velocity_create
-    from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
-    from lammps_plugins_tpu_torch.run.simulation import Engine
-
+    import chip_smoke as cs
     dev = torch.device("cuda:0")
-    state = rebomos_bulk_commensurate(34, 48, 10, dtype=torch.float32,
-                                      device=dev)
-    state = velocity_create(state, units.METAL, 300.0, 12345)
-    pair = REBOMoS.from_file(REBO_FILE, ["M", "S"], dtype=torch.float32,
-                             device=dev)
-    eng = Engine(state, pair, [FixNVE()], units.METAL, check_every=10,
-                 skin=0.8)
+    eng = cs.bench_engine(dev)
     if args.eager:
         eng.fused_loop = False
     natoms = eng.state.natoms

@@ -5,6 +5,7 @@ one NVIDIA GPU.
     python3 tools/torch_step_profile.py [TREE] [--label NAME] [--trace PATH]
         [--lj full|half] [--combine mirror|rows|pin|pin2|react] [--sort]
         [--no-react-gate] [--eager] [--aeam [--poly]]
+        [--deck melt|lj|monolayer]
 
 TREE (default: this repository) holds chip_smoke.py and
 lammps_plugins_tpu_torch/; giving a second tree (for example a `git
@@ -16,7 +17,11 @@ defaults.  Engine.run takes the Engine's default loop (on the card the
 device loop's CUDA graphs, for a tree that has them); --eager sets
 fused_loop = False (the host loop).  --aeam profiles the AEAM sample.in
 step instead (chip_smoke.aeam_engine: 32,000 atoms, NVT 863 K, skin 1.2,
-check every 12; --poly for poly_mode), with a 288-step warm-up.  After
+check every 12; --poly for poly_mode), with a 288-step warm-up.  --deck
+profiles another main path of chip_smoke.py: melt (phase 7, the
+65,536-ion charged melt with fix bfield), lj (phase 7, bench/in.lj,
+32,000 atoms) or monolayer (phase 8, 1,000,518 atoms; 100-step windows).
+After
 100 warm-up steps of the 97,920-atom scene (chip_smoke.bench_engine) it
 measures
 
@@ -59,6 +64,8 @@ def main():
     ap.add_argument("--eager", action="store_true")
     ap.add_argument("--aeam", action="store_true")
     ap.add_argument("--poly", action="store_true")
+    ap.add_argument("--deck", default="",
+                    choices=("", "melt", "lj", "monolayer"))
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -84,6 +91,10 @@ def main():
     if args.aeam:
         config = dict(aeam=True, poly_mode=args.poly)
         eng = cs.aeam_engine(dev, poly_mode=args.poly)
+    elif args.deck:
+        config = dict(deck=args.deck)
+        eng = (cs.mono_engine(dev) if args.deck == "monolayer"
+               else cs.deck_engine(dev, args.deck))
     else:
         eng = cs.bench_engine(dev, **config)
     if args.eager:
@@ -105,7 +116,8 @@ def main():
 
     profiled = 240 if args.aeam else 200
     runs = []
-    window = 1008 if args.aeam else 1000       # a multiple of check_every
+    # a multiple of check_every
+    window = 1008 if args.aeam else 100 if args.deck == "monolayer" else 1000
     for _ in range(3):
         rb0 = eng.rebuilds
         ms = clock(lambda: eng.run(window), 1)
