@@ -102,6 +102,38 @@ Phases (any failure raises, so the script exits non-zero):
      windows each), the peak memory, K and the ghost count, D' against its
      twin and the rebuild's device time at this size
 
+  9. decks through the port's input-script interpreter (`SCRIPT {json}`),
+     api/script.py's Script on the card with its defaults:
+     (a) the in.rebomos-bulk deck text (lattice custom with $(...) basis,
+     the tilted prism) replicated 17 4 5 to 97,920 atoms, 300 K from seed
+     12345, skin 0.8, with compute pe/atom and stress/atom NULL, a custom
+     dump every 250 steps and a restart file every 500, run 1000 through
+     the graph loop with the counters reset (A, B, C and D' must launch;
+     C's energy row once in each frame's pe/atom): Σ pe/atom within 1e-5
+     of the frame's pe, the pressure of Σ vatom within 5e-5 of the
+     pressure tensor's scale (PRESS_BAR), pe/atom and the six stress/atom
+     columns atom by atom within 1e-4 and 5e-4 of their scale of the same
+     code run on the frame's card tensors with A, B and C swapped for
+     their twins (plain_kernels), a second run writing the same
+     dump bytes and thermo rows, the same deck without its output lines
+     giving the same thermo rows bit for bit, read_restart of the step-500 file plus 10
+     steps within 1e-3 A of the uninterrupted run; atom-steps/s with and
+     without the outputs, ms per dump frame (per-atom computes, host
+     copy, text), peak memory; (b) sample.in at full width (32,000 atoms,
+     phase 6's settings through `neigh_modify every 12`): 96 steps equal to
+     phase 6's Engine bit for bit (D' must launch); then the deck with
+     `fix nvt temp 863 900 0.1` run twice for 96 steps: the end points
+     stay, each run re-anchors the window, the second window recaptures
+     the graph, and the state equals the eager loop's bit for bit; (c)
+     bench/in.lj (32,000
+     atoms) read from a data file of the lattice moved by 0.05 sigma: FIRE
+     on the card (MinResult, ms per iteration), then fix langevin + fix
+     nve for 300 steps, graph loop = eager loop bit for bit, the noise
+     drawn on the card at three steps = the CPU draw, D' launched; then
+     the Langevin step's graph loop in turns with in.lj's plain NVE step
+     (three 500-step windows each, capture excluded) and the device time
+     of one noise draw replayed alone in a graph
+
 The REBOMOS parameters are the synthetic file tests/data/MoS.REBO.synthetic,
 the AEAM ones tests/data/AlSi.synthetic.aeam.
 Output ends with a JSON line of per-kernel results, the card's name and
@@ -692,16 +724,26 @@ def phase1_kernels(dev, prev_tree=""):
                          prev and prev["lj_cell_forces"])
     ek, et = float(ok[..., 3, :].double().sum()), \
         float(ot[..., 3, :].double().sum())
+    # the energy row atom by atom (read at aslot, as pe/atom reads it)
+    row_k = ok[..., 3, :].reshape(-1)[nbr.cells.aslot]
+    row_t = ot[..., 3, :].reshape(-1)[nbr.cells.aslot]
+    erre, scale_e = float((row_k - row_t).abs().max()), \
+        float(row_t.abs().max())
     print(f"lj energy: kernel {ek:.8e} twin {et:.8e} "
-          f"rel {abs(ek - et) / abs(et):.3e} (bar 2e-5)")
+          f"rel {abs(ek - et) / abs(et):.3e} (bar 2e-5); per atom max "
+          f"|err| {erre:.3e} (bar {1e-4 * scale_e:.3e}, 1e-4 x scale)")
     if not abs(ek - et) <= 2e-5 * abs(et):
         raise AssertionError("lj_cell_forces energy row disagrees")
+    if not erre <= 1e-4 * scale_e:
+        raise AssertionError("lj_cell_forces energy row disagrees atom by "
+                             "atom")
     record("lj_cell_forces", errf,
            2e-4 * float(ot[..., :3, :].abs().max()), c_ms,
            timed_ms(lambda: lj_cells.lj_cell_forces_ref(P, lc, ar), reps=3),
            "lammps_plugins_tpu_torch/csrc/lj_cells.cu",
            "lammps_plugins_tpu/ops/lj_cells_pallas.py:204",
            (4 * (P.numel() + ok.numel()), 30 * npairs),
+           energy_row_max_abs_err=erre, energy_row_bar=1e-4 * scale_e,
            window_pairs=npairs, candidate_pairs=tested * per_group,
            candidate_pairs_prev_design=ncand_prev, tested_groups=tested,
            live_groups=live, reruns_bit_identical=True,
@@ -1961,6 +2003,596 @@ def phase8_monolayer(dev, modules):
     return launches, out
 
 
+# -- phase 9: decks through the port's input-script interpreter ------------
+
+#: the in.rebomos-bulk deck text (lattice custom with $(...) basis, the
+#: tilted prism, the masses of in.rebomos-bulk:24-25; api/scenes.py's
+#: MOS2_* constants) with the synthetic parameters; `replicate 17 4 5`
+#: makes 340 x 288 = 97,920 atoms, the bench scene's count
+REBO_DECK = """
+units           metal
+atom_style      atomic
+boundary        p p p
+lattice custom 1.0 a1 3.1903157234 0.0 0.0 a2 -1.5964590311 2.7651481541 0.0 &
+        a3 0.0 0.0 13.9827680588 &
+        basis 0.0 0.0 $(3.0/4.0) basis 0.0 0.0 $(1.0/4.0) &
+        basis $(2.0/3.0) $(1.0/3.0) 0.862008989 &
+        basis $(1.0/3.0) $(2.0/3.0) 0.137990996 &
+        basis $(1.0/3.0) $(2.0/3.0) 0.362008989 &
+        basis $(2.0/3.0) $(1.0/3.0) 0.637991011 origin 0.1 0.1 0.1
+region          box prism 0 4 0 8 0 1 -2.0 0 0
+create_box      2 box
+create_atoms    1 box basis 1 1 basis 2 1 basis 3 2 basis 4 2 basis 5 2 basis 6 2
+replicate       17 4 5
+mass            1 95.95
+mass            2 32.065
+pair_style      rebomos
+pair_coeff      * * {rebo} M S
+neighbor        0.8 bin
+velocity        all create 300.0 12345
+fix             1 all nve
+{outputs}thermo          100
+"""
+REBO_OUTPUTS = """compute         pe all pe/atom
+compute         s all stress/atom NULL
+dump            1 all custom {dump_every} {dir}/mos.dump.{tag} id type x y z c_pe c_s[1] c_s[2] c_s[3] c_s[4] c_s[5] c_s[6]
+restart         {restart_every} {dir}/mos.restart.*
+"""
+REBO_RESTART_DECK = """
+units           metal
+atom_style      atomic
+boundary        p p p
+read_restart    {path}
+pair_style      rebomos
+pair_coeff      * * {rebo} M S
+neighbor        0.8 bin
+fix             1 all nve
+thermo          10
+run             10
+"""
+#: USER-AEAM/sample.in at full width (32,000 atoms; scenes.alsi_sample and
+#: benchmarks/bench_aeam.py, phase 6's settings: skin 1.2, a check every
+#: 12 steps, 863 K from seed 4928459, the masses of alsi_sample)
+SAMPLE_DECK = """
+units           metal
+atom_style      atomic
+boundary        p p p
+lattice         fcc 4.045
+region          box block 0 20 0 20 0 20
+create_box      2 box
+create_atoms    1 box
+set             group all type/fraction 2 0.0075 7683797
+mass            1 27.0
+mass            2 28.0
+pair_style      aeam
+pair_coeff      * * {aeam} Al Si
+velocity        all create 863.0 4928459
+neighbor        1.2 bin
+neigh_modify    every 12 delay 0 check yes
+timestep        0.001
+fix             1 all nvt temp 863.0 {t_stop} 0.1
+thermo          12
+"""
+SAMPLE_STEPS = 96
+#: the ramped deck's end point (phase 9 (b): two runs of SAMPLE_STEPS)
+SAMPLE_RAMP_T = 900.0
+#: LAMMPS bench/in.lj (32,000 atoms) from a data file of the lattice with
+#: every atom moved by 0.05 sigma (normal, numpy seed 7), so that FIRE has
+#: work to do; fix langevin and fix nve are defined before minimize (FIRE
+#: ignores them) and drive the run after it
+LJ_DECK = """
+units           lj
+atom_style      atomic
+read_data       {path}
+pair_style      lj/cut 2.5
+pair_coeff      1 1 1.0 1.0 2.5
+neighbor        0.3 bin
+fix             1 all langevin 1.44 1.44 0.1 48279
+fix             2 all nve
+thermo          100
+min_style       fire
+"""
+LJ_MINIMIZE = "minimize 0.0 1e-4 200 2000"
+LJ_RUN_STEPS = 300
+#: the Langevin step's timed windows (graph loop, capture excluded), in
+#: turns with in.lj's plain NVE step (phase 7's Engine)
+LJ_TIMED_STEPS, LJ_TIMED_REPS = 500, 3
+#: the REBOMOS deck's run, dump and restart intervals (phase 9 (a))
+REBO_STEPS, REBO_DUMP_EVERY, REBO_RESTART_EVERY = 1000, 250, 500
+#: |pressure of Σ vatom - thermo press| over the pressure tensor's largest
+#: component, f32 on the card: at most 7.0e-6 (frame 250) on an NVIDIA
+#: H100 80GB HBM3 at 700.00 W, in each of two runs of this script; the bar
+#: leaves a factor of ~7
+PRESS_BAR = 5e-5
+SCRIPT_DIR = os.path.join(REPO, "build", "chip_smoke_script")
+
+
+def check_graph(label, eng):
+    """The Engine ran through the device loop's captured graph."""
+    if eng._loop is None or eng._loop.exec is None:
+        raise AssertionError(f"{label} did not run through the graph loop")
+
+
+def card_script(text, fused=None):
+    """The port's Script on the card (float32, its defaults) after `text`;
+    fused sets its Engine's loop (None: the graph loop) once one exists."""
+    from lammps_plugins_tpu_torch.api.script import Script
+    s = Script(log=lambda _: None)
+    s.run_text(text)
+    if s.engine is not None:
+        s.engine.fused_loop = fused
+    return s
+
+
+def run_counted(s, steps, modules):
+    """(rows, launches by module, wall s) of the Script's `run steps`,
+    every counter set to 0 just before it."""
+    for m in modules.values():
+        m.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = s.cmd_run([str(steps)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return rows, {name: m.launches for name, m in modules.items()}, wall
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Kernels A, B and C swapped for their plain-PyTorch twins where the
+    REBOMoS per-atom tallies call them (potentials/rebomos.py, base.py), so
+    that the same code runs on the same card tensors with no kernel."""
+    from lammps_plugins_tpu_torch.ops import lj_cells, mirror, rebo
+    from lammps_plugins_tpu_torch.potentials import base, rebomos
+    swaps = [(rebomos, "rebo_cotangents", rebo.rebo_cotangents_ref),
+             (rebomos, "lj_cell_forces", lj_cells.lj_cell_forces_ref),
+             (base, "mirror_combine", mirror.mirror_combine_ref)]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
+    for m, name, fn in swaps:
+        setattr(m, name, fn)
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def plain_peratom(s, state, modules):
+    """(eatom, the stress/atom columns) of the frame's state through the
+    kernels' twins (plain_kernels), on the same card tensors; no kernel
+    may launch."""
+    from lammps_plugins_tpu_torch.potentials.base import VIRIAL_PAIRS
+    eng = s.engine
+    before = {name: m.launches for name, m in modules.items()}
+    with plain_kernels(), torch.no_grad():
+        e = eng.pair.energy_peratom(state.x, state.type, eng.nbr,
+                                    state.box.h)
+        vat = eng.pair.virial_peratom(state.x, state.type, eng.nbr,
+                                      state.box.h)
+    torch.cuda.synchronize()
+    if {name: m.launches for name, m in modules.items()} != before:
+        raise AssertionError("a kernel launched in the plain per-atom path")
+    m, v, u = state.per_atom_mass, state.v, s.units
+    kin = u.mvv2e * torch.stack([m * v[:, a] * v[:, b]
+                                 for a, b in VIRIAL_PAIRS], dim=1)
+    return e, -(kin + vat) * u.nktv2p
+
+
+def watch_frames(s, modules):
+    """Wrap the deck's pe/atom and stress/atom providers: at each dump
+    frame record the step, Σ pe/atom against the frame's pe (float64 sum
+    of the f32 values; pe from the pair style's energy), the pressure of
+    Σ vatom against the thermo row's, kernel C's launches inside the
+    frame's pe/atom, and pe/atom and the six stress/atom columns atom by
+    atom against the kernels' twins on the same state (plain_peratom:
+    bars 1e-4 and 5e-4 of their scale, the card test's)."""
+    from lammps_plugins_tpu_torch.run.dump import DumpWriter
+    writer = [w for _, w in s.dumps if isinstance(w, DumpWriter)][0]
+    frames, pending = [], {}
+    pe_fn, s1_fn = writer.providers["c_pe"], writer.providers["c_s[1]"]
+
+    def pe_probe(state):
+        c0 = modules["lj_cells"].launches
+        out = pe_fn(state)
+        c1 = modules["lj_cells"].launches
+        eng = s.engine
+        with torch.no_grad():
+            pe = float(eng.pair.energy(state.x, None, state.type, eng.nbr,
+                                       state.box.h))
+        e_plain, pending["stress"] = plain_peratom(s, state, modules)
+        frames.append(dict(step=state.step, lj_energy_launches=c1 - c0,
+                           sum_pe_atom=float(out.double().sum()), pe=pe,
+                           pe_atom_max_abs_err=float(
+                               (out - e_plain).abs().max()),
+                           pe_atom_scale=float(e_plain.abs().max())))
+        return out
+
+    def s1_probe(state):
+        out = s1_fn(state)
+        eng = s.engine
+        stress = torch.stack([s.computes[f"c_s[{k}]"](state)
+                              for k in range(1, 7)], dim=1)
+        vol = abs(float(np.linalg.det(state.box.h_np())))
+        p_atom = -float(stress[:, :3].double().sum()) / (3.0 * vol)
+        row = eng._thermo(state)
+        scale = max(abs(row[k]) for k in ("pxx", "pyy", "pzz", "pxy", "pxz",
+                                           "pyz"))
+        s_plain = pending.pop("stress")
+        frames[-1].update(
+            press_from_vatom=p_atom, press=row["press"], press_scale=scale,
+            stress_atom_max_abs_err=float((stress - s_plain).abs().max()),
+            stress_atom_scale=float(s_plain.abs().max()))
+        return out
+
+    writer.providers["c_pe"], writer.providers["c_s[1]"] = pe_probe, s1_probe
+    return frames
+
+
+def unwrapped(eng):
+    st = eng.state
+    return st.box.unmap(st.x, st.image).double().cpu().numpy()
+
+
+def output_parts_ms(eng, reps=3):
+    """Median wall ms (synchronised) on the Engine's final state of one
+    thermo row (the autograd energy and strain virial), pe/atom, the
+    per-atom virial, and the per-atom virial's LJ cell sweep alone."""
+    st, pair, nbr = eng.state, eng.pair, eng.nbr
+    fns = {"thermo_row": lambda: eng._thermo(st),
+           "energy_peratom": lambda: pair.energy_peratom(
+               st.x, st.type, nbr, st.box.h),
+           "virial_peratom": lambda: pair.virial_peratom(
+               st.x, st.type, nbr, st.box.h),
+           "lj_virial_cells": lambda: pair._lj_virial_cells(
+               st.x, nbr.ghosts, nbr.cells, st.box.h)}
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[name] = statistics.median(times)
+    return out
+
+
+def script_rebomos(dev, modules):
+    """(a) the REBOMOS deck at the bench width: 1,000 steps with per-atom
+    computes, dumps every 250 and restarts every 500 (twice: byte-identical
+    dumps), the same deck without them (the same thermo rows bit for bit),
+    and read_restart of the step-500 file plus 10 steps against the
+    uninterrupted run at step 510."""
+    from lammps_plugins_tpu_torch.run.dump import DumpWriter
+    gpu = sh("nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader")
+    out = {}
+    dumps, rows, walls = [], [], []
+    for tag in ("a", "b"):
+        outputs = REBO_OUTPUTS.format(dir=SCRIPT_DIR, tag=tag,
+                                      dump_every=REBO_DUMP_EVERY,
+                                      restart_every=REBO_RESTART_EVERY)
+        s = card_script(REBO_DECK.format(rebo=REBO_FILE, outputs=outputs))
+        # the first run checks each frame (its probes cost time); the
+        # second is the timed one
+        frames = watch_frames(s, modules) if tag == "a" else None
+        torch.cuda.reset_peak_memory_stats()
+        r, launches, wall = run_counted(s, REBO_STEPS, modules)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        eng = s.engine
+        check_graph("REBOMOS deck", eng)
+        writer = [w for _, w in s.dumps if isinstance(w, DumpWriter)][0]
+        writer.close()
+        dumps.append(writer)
+        rows.append(r)
+        walls.append(wall)
+        if tag == "a":
+            out.update(natoms=eng.state.natoms, launches_with_outputs={
+                KERNEL_NAMES[m]: launches[m] for m in MAIN_PATH},
+                frames=frames, peak_gib_with_outputs=peak,
+                rebuilds=eng.rebuilds)
+            check_launches("REBOMOS deck", launches, MAIN_PATH)
+            run_a = launches
+        del s, eng
+        torch.cuda.empty_cache()
+    natoms = out["natoms"]
+    print(f"REBOMOS deck through Script on {gpu}: {natoms} atoms, "
+          f"{REBO_STEPS} steps, launches {run_a}, rebuilds "
+          f"{out['rebuilds']}")
+    for f in out["frames"]:
+        f["press_off_of_scale"] = (abs(f["press_from_vatom"] - f["press"])
+                                   / f["press_scale"])
+        print(f"  frame {f['step']}: sum pe/atom {f['sum_pe_atom']:.6f} pe "
+              f"{f['pe']:.6f}; press from vatom "
+              f"{f['press_from_vatom']:.6f} thermo {f['press']:.6f} "
+              f"(tensor scale {f['press_scale']:.3f}, off by "
+              f"{f['press_off_of_scale']:.2e} of it); kernel C launches in "
+              f"pe/atom {f['lj_energy_launches']}; atom by atom against the "
+              f"twins: "
+              f"pe/atom {f['pe_atom_max_abs_err']:.3e} (bar "
+              f"{1e-4 * f['pe_atom_scale']:.3e}), stress/atom "
+              f"{f['stress_atom_max_abs_err']:.3e} (bar "
+              f"{5e-4 * f['stress_atom_scale']:.3e})")
+    steps = [f["step"] for f in out["frames"]]
+    if steps != list(range(0, REBO_STEPS + 1, REBO_DUMP_EVERY)):
+        raise AssertionError(f"dump frames {steps}")
+    for f in out["frames"]:
+        if not abs(f["sum_pe_atom"] - f["pe"]) <= 1e-5 * abs(f["pe"]):
+            raise AssertionError(f"sum pe/atom off pe at step {f['step']}")
+        if not f["press_off_of_scale"] <= PRESS_BAR:
+            raise AssertionError(f"pressure of sum vatom off press at "
+                                 f"step {f['step']}")
+        if f["lj_energy_launches"] != 1:
+            raise AssertionError("pe/atom did not read kernel C's energy "
+                                 "row")
+        if not (f["pe_atom_max_abs_err"] <= 1e-4 * f["pe_atom_scale"]
+                and f["stress_atom_max_abs_err"]
+                <= 5e-4 * f["stress_atom_scale"]):
+            raise AssertionError(f"pe/atom or stress/atom off the kernels' "
+                                 f"twins atom by atom at step {f['step']}")
+    same_dump = (open(dumps[0].path, "rb").read()
+                 == open(dumps[1].path, "rb").read())
+    if not same_dump or rows[0] != rows[1]:
+        raise AssertionError("a second run of the REBOMOS deck wrote other "
+                             "dump bytes or other thermo rows")
+    frame_ms = {k: 1e3 * v / dumps[1].frames
+                for k, v in dumps[1].times.items()}
+    # the same deck without its compute, dump and restart lines
+    s = card_script(REBO_DECK.format(rebo=REBO_FILE, outputs=""))
+    torch.cuda.reset_peak_memory_stats()
+    r_plain, launches_plain, wall_plain = run_counted(s, REBO_STEPS,
+                                                      modules)
+    peak_plain = torch.cuda.max_memory_allocated() / 2 ** 30
+    if r_plain != rows[0]:
+        bad = [(a["step"], b["step"]) for a, b in zip(r_plain, rows[0])
+               if a != b]
+        raise AssertionError(f"thermo rows differ with and without the "
+                             f"outputs at {bad[:3]}")
+    parts_ms = output_parts_ms(s.engine)
+    del s
+    # uninterrupted run to 10 steps past the first restart file, and the
+    # resume from that file
+    s = card_script(REBO_DECK.format(rebo=REBO_FILE, outputs=""))
+    s.command(f"run {REBO_RESTART_EVERY + 10}")
+    x_ref = unwrapped(s.engine)
+    del s
+    r = card_script(REBO_RESTART_DECK.format(path=os.path.join(
+        SCRIPT_DIR, f"mos.restart.{REBO_RESTART_EVERY}"), rebo=REBO_FILE))
+    if r.engine.state.step != REBO_RESTART_EVERY + 10:
+        raise AssertionError(f"resumed run ends at step "
+                             f"{r.engine.state.step}")
+    resume_dx = float(np.abs(unwrapped(r.engine) - x_ref).max())
+    print(f"restart at step {REBO_RESTART_EVERY} + 10 steps: max |dx| "
+          f"{resume_dx:.3e} A from the uninterrupted run (bar 1e-3)")
+    if not resume_dx < 1e-3:
+        raise AssertionError("the resumed run left the uninterrupted one")
+    del r
+    torch.cuda.empty_cache()
+    with_dumps = natoms * REBO_STEPS / walls[1]
+    without = natoms * REBO_STEPS / wall_plain
+    print(f"REBOMOS deck: atom-steps/s over {REBO_STEPS} steps "
+          f"{with_dumps:.6g} with the dumps ({dumps[1].frames} frames, "
+          f"{REBO_STEPS // REBO_RESTART_EVERY} restart files), "
+          f"{without:.6g} "
+          f"without; ms per dump frame {frame_ms}; ms of one thermo row, "
+          f"pe/atom, the per-atom virial, its LJ sweep {parts_ms}; peak "
+          f"memory "
+          f"{out['peak_gib_with_outputs']:.3f} GiB with outputs, "
+          f"{peak_plain:.3f} GiB without; thermo rows equal with and "
+          f"without outputs, dump reruns byte-identical")
+    out.update(atom_steps_per_s_with_dumps=with_dumps,
+               atom_steps_per_s_without=without,
+               wall_s_with_dumps=walls, wall_s_without=wall_plain,
+               ms_per_dump_frame=frame_ms, output_parts_ms=parts_ms,
+               peak_gib_without=peak_plain,
+               resume_max_dx_A=resume_dx, rows_equal_without_outputs=True,
+               dump_reruns_identical=True,
+               press_bar_of_tensor_scale=PRESS_BAR, sum_pe_bar=1e-5)
+    return out, run_a
+
+
+def script_sample(dev, modules):
+    """(b) sample.in at full width: 96 steps equal to phase 6's Engine
+    (aeam_engine) bit for bit; then the deck with its fix ramping 863 ->
+    900 K run twice for 96 steps: each `run` re-anchors the ramp's window
+    (the fix's end points stay), the graph loop captures anew for the
+    second window, and its state equals the eager loop's bit for bit."""
+    s = card_script(SAMPLE_DECK.format(aeam=AEAM_FILE, t_stop=863.0))
+    rows, launches, wall = run_counted(s, SAMPLE_STEPS, modules)
+    ref = aeam_engine(dev)
+    ref_rows = ref.run(SAMPLE_STEPS, thermo_every=AEAM["check_every"])
+    del ref
+    if rows != ref_rows:
+        raise AssertionError("sample.in through Script differs from phase "
+                             "6's Engine")
+    check_launches("sample.in deck", launches, ("select_candidates",))
+    natoms = s.engine.state.natoms
+    del s
+    ramped = SAMPLE_DECK.format(aeam=AEAM_FILE, t_stop=SAMPLE_RAMP_T)
+    g = card_script(ramped)
+    e = card_script(ramped + "run 0\n", fused=False)
+    keys, ends, windows = [], [], []
+    for _ in range(2):
+        for sc in (g, e):
+            sc.command(f"run {SAMPLE_STEPS}")
+        fx = g.fixes[0]
+        keys.append(g.engine._loop_key)
+        ends.append((fx.t_start, fx.t_stop))
+        windows.append((fx.begin_step, fx.end_step))
+    check_graph("ramped sample.in deck", g.engine)
+    same = same_state(g.engine, e.engine)
+    print(f"sample.in through Script: {natoms} atoms, {SAMPLE_STEPS} steps "
+          f"equal to phase 6's Engine bit for bit ({wall:.2f} s, launches "
+          f"{launches}); the ramped deck (temp 863 {SAMPLE_RAMP_T}) run "
+          f"twice: windows {windows}, end points {ends}, recaptured "
+          f"{keys[0] != keys[1]}; graph vs eager bit-identical {same}")
+    if ends[0] != ends[1] or ends[0] != (863.0, SAMPLE_RAMP_T):
+        raise AssertionError("a run changed the fix's end points")
+    if windows != [(0, SAMPLE_STEPS), (SAMPLE_STEPS, 2 * SAMPLE_STEPS)] \
+            or keys[0] == keys[1]:
+        raise AssertionError("the second run kept the first run's window "
+                             "or graph")
+    if not all(same.values()):
+        raise AssertionError("the ramped sample.in runs: graph loop differs "
+                             "from the eager loop")
+    out = dict(natoms=natoms, rows_equal_phase6=True,
+               ramp_windows=windows, ramp_recaptured=True,
+               ramp_graph_equals_eager=True, first_run_s=wall,
+               launches_first_run={KERNEL_NAMES["select_candidates"]:
+                                   launches["select_candidates"]})
+    del g, e
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def script_lj(dev, modules):
+    """(c) bench/in.lj from a data file: FIRE on the card (MinResult, ms
+    per iteration), then fix langevin + fix nve for 300 steps through the
+    graph loop against the eager loop, and the noise of three steps
+    against the CPU draw."""
+    from lammps_plugins_tpu_torch.api.data import write_data
+    from lammps_plugins_tpu_torch.api.scenes import lj_melt
+    st = lj_melt(DECKS["lj"], dtype=torch.float64, device="cpu").state
+    x = st.x.numpy() + 0.05 * np.random.default_rng(7).standard_normal(
+        st.x.shape)
+    path = os.path.join(SCRIPT_DIR, "in.lj.jiggled.data")
+    write_data(path, st.replace(x=torch.as_tensor(x)))
+    deck = LJ_DECK.format(path=path)
+    runs = {}
+    for name, fused in (("graph", None), ("eager", False)):
+        from lammps_plugins_tpu_torch.api.script import Script
+        sc = Script(log=lambda _: None)
+        sc.run_text(deck)
+        sc.engine = sc._make_engine()
+        sc.engine._ensure_neighbors()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sc.command(LJ_MINIMIZE)
+        torch.cuda.synchronize()
+        min_s = time.perf_counter() - t0
+        sc.engine.fused_loop = fused
+        _, launches, wall = run_counted(sc, LJ_RUN_STEPS, modules)
+        runs[name] = (sc, min_s, launches, wall)
+    g, e = runs["graph"][0], runs["eager"][0]
+    res = g.last_min
+    if (res.iterations, res.e_final) != (e.last_min.iterations,
+                                         e.last_min.e_final):
+        raise AssertionError("FIRE differs between two runs on the card")
+    ms_per_it = 1e3 * runs["eager"][1] / max(1, res.iterations)
+    same = same_state(g.engine, e.engine)
+    fix = g.fixes[0]
+    key = fix.key
+    noise_same = []
+    noise_steps = (0, LJ_RUN_STEPS // 2, LJ_RUN_STEPS)
+    for step in noise_steps:
+        stc = g.engine.state.replace(extras={key: {"step": torch.tensor(
+            step, device=dev)}})
+        cpu = stc.replace(x=stc.x.cpu(), v=stc.v.cpu(),
+                          extras={key: {"step": torch.tensor(step)}})
+        noise_same.append(bool(torch.equal(fix.noise(stc).cpu(),
+                                           fix.noise(cpu))))
+    launches = runs["graph"][2]
+    print(f"in.lj through Script: {g.engine.state.natoms} atoms; "
+          f"{res!r}\n  FIRE on the card: {ms_per_it:.3f} ms per iteration "
+          f"(eager chunks; the first list built before); then langevin + "
+          f"nve {LJ_RUN_STEPS} steps graph vs eager bit-identical {same}, "
+          f"launches {launches}; noise on the card = CPU draw at steps "
+          f"{noise_steps}: {noise_same}")
+    if not all(same.values()) or not all(noise_same):
+        raise AssertionError("in.lj: the graph loop differs from the eager "
+                             "loop, or the card's noise from the CPU's")
+    check_graph("in.lj deck", g.engine)
+    check_launches("in.lj deck", launches, ("select_candidates",))
+    speed = langevin_speed(dev, g.engine, fix)
+    out = dict(natoms=g.engine.state.natoms,
+               min_result=dict(stop=res.stop_criterion,
+                               iterations=res.iterations,
+                               e_initial=res.e_initial, e_final=res.e_final,
+                               fnorm2=res.fnorm2_final),
+               fire_ms_per_iteration=ms_per_it,
+               fire_wall_s=[runs[n][1] for n in ("graph", "eager")],
+               langevin_graph_equals_eager=True, noise_equals_cpu=True,
+               run_s=[runs[n][3] for n in ("graph", "eager")], **speed)
+    del g, e, runs
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def graph_ms(fn, reps=20):
+    """Median device ms of one replay of fn() captured alone in a CUDA
+    graph (its launches off the clock, as inside the graph loop)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return timed_ms(graph.replay, reps)
+
+
+def langevin_speed(dev, eng, fix):
+    """The Langevin deck's graph loop (its graph already captured, so no
+    capture on the clock) in turns with in.lj's plain NVE graph loop
+    (phase 7's Engine, 32,000 atoms at T 1.44): LJ_TIMED_REPS windows of
+    LJ_TIMED_STEPS each, atom-steps/s and wall ms per step; and the
+    device ms of one noise draw replayed alone in a graph."""
+    engines = {"langevin": eng, "nve": deck_engine(dev, "lj")}
+    engines["nve"].run(LJ_TIMED_STEPS)             # its capture
+    natoms = eng.state.natoms
+    out = {name: [] for name in engines}
+    for rep in range(LJ_TIMED_REPS):
+        names = list(engines) if rep % 2 == 0 else list(engines)[::-1]
+        for name in names:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engines[name].run(LJ_TIMED_STEPS)
+            torch.cuda.synchronize()
+            out[name].append(time.perf_counter() - t0)
+    noise_ms = graph_ms(lambda: fix.noise(eng.state))
+    ms = {k: [1e3 * t / LJ_TIMED_STEPS for t in v] for k, v in out.items()}
+    rate = {k: [natoms * LJ_TIMED_STEPS / t for t in v]
+            for k, v in out.items()}
+    step_ms = {k: statistics.median(v) for k, v in ms.items()}
+    print(f"in.lj graph loop, {LJ_TIMED_REPS} windows of {LJ_TIMED_STEPS} "
+          f"steps in turns (capture excluded): langevin + nve atom-steps/s "
+          f"{rate['langevin']} (ms/step {ms['langevin']}), plain nve "
+          f"{rate['nve']} (ms/step {ms['nve']}); one noise draw [N, 3] "
+          f"replayed alone in a graph {noise_ms:.4f} ms, "
+          f"{noise_ms / step_ms['langevin']:.3f} of the Langevin step")
+    del engines
+    return dict(langevin_atom_steps_per_s=rate["langevin"],
+                langevin_ms_per_step=ms["langevin"],
+                nve_atom_steps_per_s=rate["nve"], nve_ms_per_step=ms["nve"],
+                noise_draw_graph_ms=noise_ms,
+                timed_steps=LJ_TIMED_STEPS)
+
+
+def phase9_script(dev, modules):
+    """The three decks through the port's Script on the card; returns the
+    SCRIPT record and the launch counts of each deck's counted run."""
+    import shutil
+    free_card("phase 9")
+    os.makedirs(SCRIPT_DIR, exist_ok=True)
+    try:
+        with timed("phase 9 REBOMOS deck"):
+            rebomos, l_rebo = script_rebomos(dev, modules)
+        with timed("phase 9 sample.in"):
+            sample, l_sample = script_sample(dev, modules)
+        with timed("phase 9 in.lj"):
+            lj, l_lj = script_lj(dev, modules)
+    finally:
+        shutil.rmtree(SCRIPT_DIR, ignore_errors=True)
+    gpu = sh("nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader")
+    record = dict(gpu=gpu, rebomos=rebomos, sample=sample, lj=lj)
+    launches = {m: l_rebo[m] + l_sample[m] + l_lj[m] for m in l_rebo}
+    return record, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--golden-rebo", default="",
@@ -1992,6 +2624,12 @@ def main():
         results["select_candidates"].update(phase7_bfield(dev, modules))
     with timed("phase 8"):
         mono_launches, mono = phase8_monolayer(dev, modules)
+    with timed("phase 9"):
+        script, script_launches = phase9_script(dev, modules)
+    for m in MAIN_PATH:
+        results[KERNEL_NAMES[m]]["script"] = dict(
+            launches=script_launches[m])
+    print("SCRIPT " + json.dumps(script))
     for m in MAIN_PATH:
         results[KERNEL_NAMES[m]]["monolayer"] = dict(
             {"rebo": mono["rebo_at_run_k"], "mirror": mono["mirror_at_run_k"],

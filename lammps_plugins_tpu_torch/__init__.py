@@ -4,9 +4,11 @@ The JAX package beside it (``lammps_plugins_tpu``) is the reference; this
 package mirrors its module paths so each counterpart is easy to find:
 
   core/        State, triclinic Box, lattice fills, units, regions, the
-               device rule
-  api/         scene builders (REBOMOS bulk and monolayer, AEAM sample.in,
-               the LJ melt decks of bench/in.lj and config 2)
+               device rule, jax.random's threefry draws
+  api/         the input-script interpreter (Script), equal-style
+               variables, LAMMPS data files, scene builders (REBOMOS bulk
+               and monolayer, AEAM sample.in, the LJ melt decks of
+               bench/in.lj and config 2)
   neighbor/    ghosts, padded [N, K] lists, host build, on-device rebuild
   potentials/  PairStyle base (autograd forces / strain virial), REBOMoS,
                AEAM, lj/cut, lj/cut/coul/cut, none, the REBOMOS and AEAM
@@ -15,10 +17,11 @@ package mirrors its module paths so each counterpart is easy to find:
   ops/         hand-written CUDA kernels (sources in csrc/) with their
                plain-PyTorch twins, the nvcc build and ctypes loader, and
                the g++-built native pair search of the host build
-  fixes/       nve, nvt (Nose-Hoover chain), bfield (Lorentz force),
-               velocity create, set type/fraction
+  fixes/       nve, nvt (Nose-Hoover chain), langevin, bfield (Lorentz
+               force), velocity create, set type/fraction
   run/         Engine (device loop as CUDA graphs, host loop, half-skin
-               rebuild rule), thermo, timers
+               rebuild rule), FIRE minimize, thermo, dumps, restart
+               files, timers
   convert.py   numpy bridge from the JAX package's objects
 
 The port imports torch, never jax, and nothing of the JAX package: it
@@ -38,3 +41,14 @@ of any other dtype raises.
 """
 
 __version__ = "0.1.0"
+
+__all__ = ["Script", "ScriptError"]
+
+
+def __getattr__(name):
+    """`from lammps_plugins_tpu_torch import Script` (imported on first
+    use, so that importing the package stays light)."""
+    if name in __all__:
+        from .api import script
+        return getattr(script, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -79,7 +79,44 @@ class Box:
             self, h=self.h.to(device=device, dtype=dtype),
             lo=self.lo.to(device=device, dtype=dtype))
 
+    def with_geometry(self, h=None, lo=None) -> "Box":
+        """A Box with a new cell matrix and/or origin (array-likes), the
+        float64 masters rebuilt with the tensors (dataclasses.replace
+        would leave h64/lo64 stale)."""
+        like = self.h
+        new_h = self.h if h is None else torch.as_tensor(
+            np.asarray(h, np.float64), dtype=like.dtype, device=like.device)
+        new_lo = self.lo if lo is None else torch.as_tensor(
+            np.asarray(lo, np.float64), dtype=like.dtype, device=like.device)
+        return Box(h=new_h, lo=new_lo, periodic=self.periodic,
+                   h64=self._master(h) if h is not None else self.h64,
+                   lo64=self._master(lo) if lo is not None else self.lo64)
+
     # -- geometry ----------------------------------------------------------
+    @property
+    def lengths(self) -> torch.Tensor:
+        """Edge vector lengths |a|, |b|, |c|."""
+        return torch.linalg.norm(self.h, dim=1)
+
+    def perpendicular_widths(self) -> torch.Tensor:
+        """Distances between opposite box faces (device twin of
+        perpendicular_widths_np)."""
+        a, b, c = self.h[0], self.h[1], self.h[2]
+        vol = self.volume
+        return torch.stack([
+            vol / torch.linalg.norm(torch.cross(b, c, dim=0)),
+            vol / torch.linalg.norm(torch.cross(c, a, dim=0)),
+            vol / torch.linalg.norm(torch.cross(a, b, dim=0))])
+
+    def cell_angles_deg(self):
+        """(alpha, beta, gamma) in degrees as tensors (device twin of
+        cell_angles_deg_np)."""
+        a, b, c = self.h[0], self.h[1], self.h[2]
+        la, lb, lc = (torch.linalg.norm(v) for v in (a, b, c))
+        return (torch.rad2deg(torch.arccos(torch.dot(b, c) / (lb * lc))),
+                torch.rad2deg(torch.arccos(torch.dot(a, c) / (la * lc))),
+                torch.rad2deg(torch.arccos(torch.dot(a, b) / (la * lb))))
+
     @property
     def h_inv(self) -> torch.Tensor:
         """Closed-form inverse of the lower-triangular cell matrix."""

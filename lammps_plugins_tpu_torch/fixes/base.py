@@ -5,8 +5,10 @@ without writing tensors in place.  The Engine's device loop captures the
 hooks in a CUDA graph, which replays their device work and nothing else:
 a hook must compute from the state's tensors and the context's constants
 only, never from a value it reads back from the device or that changes on
-the host between steps.  A fix that cannot keep to this sets
-`capturable = False`, and the device loop refuses it.
+the host between steps.  Host values that the hooks read as constants and
+that a caller may change between runs (a ramp's window) are listed by
+`capture_key`, which is part of the device loop's key.  A fix that cannot
+keep to this sets `capturable = False`, and the device loop refuses it.
 """
 
 from __future__ import annotations
@@ -69,6 +71,12 @@ class Fix:
                                      device=state.x.device)
             self._group_dev = cached
         return cached
+
+    def capture_key(self) -> tuple:
+        """The host values the hooks read as constants (a ramp's window
+        and end points): the device loop captures anew when they change,
+        so a graph never replays a stale window."""
+        return ()
 
     def initial_integrate(self, state: State, ctx: StepContext) -> State:
         return state

@@ -12,7 +12,10 @@ and accept/discard step, as it carries x, v and f.  State.step is a Python
 int, frozen inside a captured CUDA graph, so the temperature ramp
 (_t_target, between begin_step and end_step) reads the fix's device step
 count instead: end_of_step advances it, and a ramped NVT replays correctly
-in the graph.
+in the graph.  The window (begin_step, end_step), which the script
+interpreter re-anchors at every `run`, is a constant of the captured
+graph: capture_key puts it into the device loop's key, so a changed
+window captures anew.
 
 Half-step structure per LAMMPS Verlet + FixNH:
   initial_integrate: thermostat half-step (scale v), then NVE half-kick +
@@ -81,6 +84,9 @@ class FixNVT(Fix):
         delta = (step - self.begin_step).to(state.x.dtype) / max(
             1, self.end_step - self.begin_step)
         return self.t_start + delta * (self.t_stop - self.t_start)
+
+    def capture_key(self) -> tuple:
+        return (self.t_start, self.t_stop, self.begin_step, self.end_step)
 
     def setup(self, state: State, ctx: StepContext) -> State:
         self.group_sel(state)      # the mask reaches the device here

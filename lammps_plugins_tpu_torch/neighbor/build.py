@@ -58,6 +58,16 @@ class NeighborData:
     pair_tables: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict)
 
+    def max_displacement_sq(self, x: torch.Tensor) -> torch.Tensor:
+        """max_i |x_i - x_build_i|^2 (a 0-d device tensor)."""
+        d = x - self.x_build
+        return torch.max(torch.sum(d * d, dim=-1))
+
+    def needs_rebuild(self, x) -> bool:
+        """The half-skin displacement rule (LAMMPS
+        Neighbor::check_distance); one device-to-host read."""
+        return float(self.max_displacement_sq(x)) > (0.5 * self.skin) ** 2
+
 
 def build_ghosts_np(x: np.ndarray, box: Box, cutoff: float):
     """Periodic images within `cutoff` of the box, by a per-axis

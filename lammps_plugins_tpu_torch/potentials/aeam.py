@@ -51,7 +51,8 @@ from ..core.device import resolve
 from ..neighbor.build import NeighborData
 from ..neighbor.neighbor import edge_components, mirror_combine
 from ..registry import register_pair_style
-from .base import PairStyle
+from .base import (PairStyle, edge_targets, edge_virial_peratom,
+                   target_table)
 from .spline import make_spline
 from .tables import AEAMTables, read_aeam
 
@@ -390,18 +391,8 @@ class AEAM(PairStyle):
         main, ghosts = nbr.lists["main"], nbr.ghosts
         sel = self._ang_sel
         n, K = main.idx.shape
-        dev = main.idx.device
-        E = sel.shape[0] * K
-        owner_all = torch.cat([torch.arange(n, device=dev), ghosts.owner,
-                               torch.full((1,), n, device=dev)])
-        m_all = owner_all.shape[0] - 1
-        tgt = owner_all[torch.where(main.mask[sel], main.idx[sel], m_all)]
-        st, order = torch.sort(tgt.reshape(-1), stable=True)
-        rank = torch.arange(E, device=dev) - torch.searchsorted(st, st)
-        ok = (st < n) & (rank < K)
-        table = torch.full((n + 1, K), E, dtype=torch.int64, device=dev)
-        table[torch.where(ok, st, n), torch.where(ok, rank, 0)] = order
-        return table[:n]
+        tgt = edge_targets(main, ghosts, n)[sel]
+        return target_table(tgt.reshape(-1), n, K)
 
     def forces(self, x, types, nbr: NeighborData, h):
         """The fast path when the file's r-grids are symmetric; otherwise
@@ -716,3 +707,22 @@ class AEAM(PairStyle):
         eat = torch.where(ang_center, embed / 3.0, embed)
         phi = torch.where(mask & (r <= cut_ij), phi, 0.0)
         return eat + 0.5 * torch.sum(phi, dim=1)
+
+    def virial_peratom(self, x, types, nbr: NeighborData, h):
+        """[N, 6] vatom through the edge cotangents of the whole energy
+        (density, embedding, angular and pair terms all enter through the
+        edge displacements), tallied half-half (JAX aeam.py:458); sums to
+        the strain-derivative virial.  On the card the neighbour halves
+        are gathered through the mirror table or, on the fast path's
+        lists without one, base.target_table: no float atomics."""
+        main = nbr.lists["main"]
+        el_own, el_all = self._elements(types, nbr.ghosts)
+        dx, dy, dz, _, mask = edge_components(x, nbr.ghosts, main, h)
+        with torch.enable_grad():
+            d = [c.detach().requires_grad_(True) for c in (dx, dy, dz)]
+            rsq = torch.where(mask, d[0] * d[0] + d[1] * d[1] + d[2] * d[2],
+                              1.0)
+            e = self._energy_core(*d, rsq, mask, el_own, el_all, main)
+            g = torch.autograd.grad(e, d)
+        return edge_virial_peratom((dx, dy, dz), g, main, nbr.ghosts,
+                                   x.shape[0])

@@ -36,7 +36,7 @@ from ..core.device import resolve
 from ..neighbor.build import NeighborData
 from ..neighbor.neighbor import edge_components, mirror_combine
 from ..registry import register_pair_style
-from .base import PairStyle
+from .base import PairStyle, edge_virial_peratom, half_half
 
 
 @register_pair_style("lj/cut")
@@ -154,6 +154,28 @@ class PairLJCut(PairStyle):
         dx, dy, dz, rsq, mask = edge_components(x, nbr.ghosts, nlist, h)
         _, de = self._edge_terms(rsq, mask, types, nbr, nlist)
         return mirror_combine(de * dx, de * dy, de * dz, nlist)
+
+    # -- per-atom tallies (compute pe/atom, stress/atom) --------------------
+    def energy_peratom(self, x, types, nbr: NeighborData, h):
+        """[N] eatom: each directed edge's 1/2 e split half-half between
+        its endpoints (LAMMPS ev_tally); sums to energy()."""
+        nlist = nbr.lists["main"]
+        _, _, _, rsq, mask = edge_components(x, nbr.ghosts, nlist, h)
+        e, _ = self._edge_terms(rsq, mask, types, nbr, nlist)
+        return half_half(0.5 * e[..., None], nlist, nbr.ghosts,
+                         x.shape[0])[:, 0]
+
+    def virial_peratom(self, x, types, nbr: NeighborData, h):
+        """[N, 6] vatom from the written-out edge cotangents G = e' d
+        (JAX ljcut.py:136), tallied half-half; sums to the
+        strain-derivative virial.  The Coulomb term of lj/cut/coul/cut
+        enters through the same e'."""
+        nlist = nbr.lists["main"]
+        dx, dy, dz, rsq, mask = edge_components(x, nbr.ghosts, nlist, h)
+        _, de = self._edge_terms(rsq, mask, types, nbr, nlist)
+        return edge_virial_peratom((dx, dy, dz),
+                                   (de * dx, de * dy, de * dz), nlist,
+                                   nbr.ghosts, x.shape[0])
 
 
 @register_pair_style("lj/cut/coul/cut")

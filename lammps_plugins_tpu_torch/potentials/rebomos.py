@@ -28,10 +28,20 @@ and LPT_REACT flags) are constructor arguments here:
     builds them at any size).
 
 Energy and virial (thermo rows) are autograd of `energy`.
+
+Per-atom tallies (compute pe/atom, stress/atom) keep the JAX package's
+half-half split with the directed p_ij.  On the rebuild's lists the
+REBO terms come in the kernels' [K, Np] layout (the cotangents G from
+kernel A) and are tallied through the mirror table (kernel B,
+base.half_half_mirror); the LJ energy is kernel C's energy row, and the
+LJ virial a torch sweep over the 27 cell offsets.  Host-built lists (a
+master list, no mirror table) take the JAX package's [N, K] path with
+the scatter twin, on the CPU only.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 
 import numpy as np
@@ -42,7 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.device import resolve
 from ..neighbor.build import CellData, NeighborData
 from ..neighbor.neighbor import Ghosts, NeighborList, edge_components
-from ..ops.lj_cells import derive_lj_constants, lj_cell_forces
+from ..ops.lj_cells import derive_lj_constants, lj_cell_forces, pair_terms
 from ..ops.lj_half import lj_cell_forces_half
 from ..ops.mirror import mirror_combine
 from ..ops.mirror_rows import mirror_combine_rows
@@ -50,7 +60,8 @@ from ..ops.pin import pin_rows3, pin_rows3_v2
 from ..ops.react import react_combine
 from ..ops.rebo import derive_rebo_constants, rebo_cotangents
 from ..registry import register_pair_style
-from .base import PairStyle
+from .base import (VIRIAL_PAIRS, PairStyle, edge_virial_peratom, half_half,
+                   half_half_mirror)
 from .tables import REBOMoSTables, read_rebomos
 
 TOL = 1.0e-9      # pair_rebomos.cpp:52
@@ -102,6 +113,15 @@ def rebo_energy_rows(dx, dy, dz, mask, ei, ej, consts):
     ei: [N] center element codes and ej: [N, K] neighbor codes, both
     float 0/1; consts: derive_rebo_constants(tables) (bilinear rows).
     Every term is row-local."""
+    return 0.5 * torch.sum(rebo_edge_energy(dx, dy, dz, mask, ei, ej,
+                                            consts))
+
+
+def rebo_edge_energy(dx, dy, dz, mask, ei, ej, consts):
+    """[N, K] per directed edge VR + p_ij VA (0 on masked and dead
+    slots), of which rebo_energy_rows is half the sum; p_ij is the
+    directed bond order, whose per-atom split the JAX package documents
+    (README "Documented deviations")."""
     eI = ei[:, None]
 
     def pairc(name):
@@ -142,8 +162,7 @@ def rebo_energy_rows(dx, dy, dz, mask, ei, ej, consts):
     P = p_coord(nM, nS, ctr("a", 4))
     pij = torch.rsqrt(1.0 + Etmp + P[:, None])
     live = mask & (w > TOL)            # wij <= TOL skip, cpp:412
-    e_edge = torch.where(live, VR + pij * VA, torch.zeros_like(VR))
-    return 0.5 * torch.sum(e_edge)
+    return torch.where(live, VR + pij * VA, torch.zeros_like(VR))
 
 
 @register_pair_style("rebomos")
@@ -220,6 +239,14 @@ class REBOMoS(PairStyle):
                 master[i, j] = t.rcLJmax[ei, ej]
                 rebo[i, j] = t.rcmax[ei, ej]
         return {"master": master, "rebo": rebo}
+
+    def ghost_margin(self, skin: float) -> float:
+        """Halo width for spatial sharding (JAX rebomos.py:178): the LJ
+        reach, or two REBO hops (a halo centre's bond order needs its own
+        rcmax neighbourhood), whichever is larger."""
+        t = self.tables
+        return max(float(np.max(t.rcLJmax)) + skin,
+                   2.0 * (float(np.max(t.rcmax)) + skin))
 
     # -- energy (autograd path: thermo, virial, host-list forces) ---------
     def energy(self, x, strain, types, nbr: NeighborData, h):
@@ -332,6 +359,23 @@ class REBOMoS(PairStyle):
                                      nbr.lists["rebo"], h)
         return f + self._lj_forces_cells(x, nbr.ghosts, nbr.cells, h)
 
+    def energy_forces(self, x, types, nbr: NeighborData, h):
+        """(E, F) for FIRE: on the rebuild's lists the LJ energy comes
+        with the LJ forces from one launch of kernel C (its energy row,
+        summed) and the REBO energy from the row-local edge terms; on
+        host-built lists, the base class's path."""
+        if nbr.cells is None or nbr.lists["rebo"].mirT is None:
+            return super().energy_forces(x, types, nbr, h)
+        with torch.no_grad():
+            el_own = self.el_of_type[types]
+            e = self._rebo_energy(x, None, el_own, nbr.ghosts,
+                                  nbr.lists["rebo"], h)
+            f = self._rebo_forces_mirror(x, el_own, nbr.ghosts,
+                                         nbr.lists["rebo"], h)
+            f_lj, e_lj = self._lj_cells(x, nbr.ghosts, nbr.cells, h,
+                                        with_energy=True)
+            return e + e_lj.sum(), f + f_lj
+
     def _rebo_planes(self, x, el_own, ghosts, rebo, h):
         """Inputs of the cotangent kernel in the [K, Np] layout: the
         displacement planes from one row gather of the neighbor positions,
@@ -404,10 +448,124 @@ class REBOMoS(PairStyle):
 
     def _lj_forces_cells(self, x, ghosts, cells: CellData, h):
         """Cell-kernel LJ forces remapped to atoms by the aslot gather."""
+        return self._lj_cells(x, ghosts, cells, h)[0]
+
+    def _lj_cells(self, x, ghosts, cells: CellData, h, with_energy=False):
+        """(forces [N, 3], per-atom energy [N] or None): the cell kernel's
+        outputs remapped to atoms by the aslot gather.  The energy is
+        kernel C's energy row (half of each pair's V to each endpoint);
+        with lj="half" the forces come from kernel E and the energy from
+        C."""
         P = self._cell_planes(x, ghosts, cells, h)
+        out = (lj_cell_forces(P, self._lj_consts, cells.a_range,
+                              with_energy=with_energy)
+               if self.lj != "half" or with_energy else None)
         if self.lj == "half":
             F3 = lj_cell_forces_half(P, self._lj_consts, cells.a_range)
         else:
-            out = lj_cell_forces(P, self._lj_consts, cells.a_range)
             F3 = out[..., 0:3, :].permute(0, 1, 2, 4, 3)
-        return F3.reshape(-1, 3)[cells.aslot]
+        e = (out[..., 3, :].reshape(-1)[cells.aslot] if with_energy
+             else None)
+        return F3.reshape(-1, 3)[cells.aslot], e
+
+    # -- per-atom tallies (compute pe/atom, stress/atom) --------------------
+    def _tables_path(self, nbr: NeighborData) -> bool:
+        """True on the rebuild's lists (cells and the [K, Np] mirror
+        tables); False on host-built ones, which the CPU alone serves."""
+        if nbr.cells is not None and nbr.lists["rebo"].mirT is not None:
+            return True
+        if nbr.x_build.is_cuda:
+            raise RuntimeError("REBOMoS per-atom tallies on the card need "
+                               "the device rebuild's cell and mirror "
+                               "tables")
+        return False
+
+    def energy_peratom(self, x, types, nbr: NeighborData, h):
+        """[N] eatom under ev_tally's half-half split: half of each REBO
+        edge's 1/2 (VR + p_ij VA) to its centre, half to its neighbour's
+        owner; the LJ pair energy split evenly between its endpoints.
+        Sums to energy() (JAX rebomos.py:957)."""
+        N = x.shape[0]
+        el_own = self.el_of_type[types]
+        rebo = nbr.lists["rebo"]
+        if self._tables_path(nbr):
+            dxT, dyT, dzT, jelT, mskT, eiT = self._rebo_planes(
+                x, el_own, nbr.ghosts, rebo, h)
+            e = 0.5 * rebo_edge_energy(dxT.t(), dyT.t(), dzT.t(),
+                                       mskT.t() > 0, eiT, jelT.t(),
+                                       self._rebo_consts)
+            eat = half_half_mirror([e.t().contiguous()], rebo.mirT,
+                                   rebo.mirvT.to(x.dtype), N)[:, 0]
+            return eat + self._lj_cells(x, nbr.ghosts, nbr.cells, h,
+                                        with_energy=True)[1]
+        dx, dy, dz, _, mask = edge_components(x, nbr.ghosts, rebo, h)
+        e = 0.5 * rebo_edge_energy(dx, dy, dz, mask, el_own.to(x.dtype),
+                                   self.el_of_type[rebo.jtype].to(x.dtype),
+                                   self._rebo_consts)
+        eat = half_half(e[..., None], rebo, nbr.ghosts, N)[:, 0]
+        master = nbr.lists["master"]
+        _, _, _, rsq, mask = edge_components(x, nbr.ghosts, master, h)
+        vlj = self._vlj(el_own[:, None], self.el_of_type[master.jtype],
+                        torch.sqrt(rsq), rsq)
+        e = torch.where(mask, 0.5 * vlj, 0.0)
+        return eat + half_half(e[..., None], master, nbr.ghosts, N)[:, 0]
+
+    def virial_peratom(self, x, types, nbr: NeighborData, h):
+        """[N, 6] vatom: the REBO tier through the edge cotangents G
+        (v_e = -(d_e ⊗ G_e), tallied half-half), the LJ tier per pair
+        (w fpair d ⊗ d, half to each endpoint).  Sums to energy_virial()'s
+        W (JAX rebomos.py:1022)."""
+        N = x.shape[0]
+        el_own = self.el_of_type[types]
+        rebo = nbr.lists["rebo"]
+        if self._tables_path(nbr):
+            planes = self._rebo_planes(x, el_own, nbr.ghosts, rebo, h)
+            g = rebo_cotangents(*planes, self._rebo_consts)
+            live = planes[4] > 0
+            v = [torch.where(live, -(planes[a] * g[b]), 0.0)
+                 for a, b in VIRIAL_PAIRS]
+            vat = half_half_mirror(v, rebo.mirT, rebo.mirvT.to(x.dtype), N)
+            return vat + self._lj_virial_cells(x, nbr.ghosts, nbr.cells, h)
+        el_nbr = self.el_of_type[rebo.jtype]
+        vat = self._list_virial(
+            x, nbr, rebo, h,
+            lambda dx, dy, dz, mask: self._rebo_energy_core(
+                dx, dy, dz, mask, el_own, el_nbr))
+        master = nbr.lists["master"]
+        ej = self.el_of_type[master.jtype]
+
+        def e_lj(dx, dy, dz, mask):
+            rsq = torch.where(mask, dx * dx + dy * dy + dz * dz, 1.0)
+            vlj = self._vlj(el_own[:, None], ej, torch.sqrt(rsq), rsq)
+            return 0.5 * torch.sum(torch.where(mask, vlj, 0.0))
+
+        return vat + self._list_virial(x, nbr, master, h, e_lj)
+
+    @staticmethod
+    def _list_virial(x, nbr, nlist, h, energy_of_d):
+        """Per-atom virial of one [N, K] list tier from the autograd
+        cotangents of energy_of_d(dx, dy, dz, mask)."""
+        dx, dy, dz, _, mask = edge_components(x, nbr.ghosts, nlist, h)
+        with torch.enable_grad():
+            d = [c.detach().requires_grad_(True) for c in (dx, dy, dz)]
+            g = torch.autograd.grad(energy_of_d(*d, mask), d)
+        return edge_virial_peratom((dx, dy, dz), g, nlist, nbr.ghosts,
+                                   x.shape[0])
+
+    def _lj_virial_cells(self, x, ghosts, cells: CellData, h):
+        """[N, 6] per-atom LJ virial over the cell grid: for each owned
+        atom a, 1/2 Σ_b fpair(a, b) d_ab ⊗ d_ab over the 27 neighbour
+        cells (kernel C's twin pair terms, pads and self pairs outside
+        the window), read at aslot.  Torch ops, one [cells, C, C] block
+        per offset; JAX rebomos.py:1068 tallies the same per pair."""
+        P = self._cell_planes(x, ghosts, cells, h)
+        (x0, x1), (y0, y1), (z0, z1) = cells.a_range
+        A = P[x0:x1, y0:y1, z0:z1]
+        acc = [torch.zeros_like(A[..., 0, :]) for _ in VIRIAL_PAIRS]
+        for ox, oy, oz in itertools.product((-1, 0, 1), repeat=3):
+            B = P[x0 + ox:x1 + ox, y0 + oy:y1 + oy, z0 + oz:z1 + oz]
+            d, fp, _ = pair_terms(A, B, self._lj_consts)
+            for c, (a, b) in enumerate(VIRIAL_PAIRS):
+                acc[c] = acc[c] + (fp * d[a] * d[b]).sum(dim=-1)
+        vat = 0.5 * torch.stack(acc, dim=-1)              # [Ax, Ay, Az, C, 6]
+        return vat.reshape(-1, 6)[cells.aslot]

@@ -342,10 +342,12 @@ class Engine:
 
     def _device_loop(self) -> DeviceLoop:
         """The loop of the current plan and configuration; a plan change,
-        another pair style, fix list, dt, skin or check_every, or new type
-        or box tensors discard the captured graph and capture anew."""
+        another pair style, fix list or fix capture_key (a ramp's window),
+        dt, skin or check_every, or new type or box tensors discard the
+        captured graph and capture anew."""
         st = self.state
         key = (self._plan, id(self.pair), tuple(map(id, self.fixes)),
+               tuple(f.capture_key() for f in self.fixes),
                self.ctx.dt, self.skin, self.check_every, id(st.type),
                id(st.mass), id(st.box.h), self._react)
         if self._loop is None or self._loop_key != key:
@@ -419,12 +421,8 @@ class Engine:
 
     # -- set-up and output --------------------------------------------------
     def _ensure_neighbors(self):
-        if self.nbr is None:
-            self.rebuild_neighbors()
-            return
-        d = self.state.x - self.nbr.x_build
-        if float(torch.max(torch.sum(d * d, dim=-1))) \
-                > (0.5 * self.skin) ** 2:
+        if self.nbr is None or float(self.nbr.max_displacement_sq(
+                self.state.x)) > (0.5 * self.skin) ** 2:
             self.rebuild_neighbors()
 
     def evaluate(self):

@@ -37,6 +37,11 @@ def pressure_tensor(state: State, virial_w, units: UnitSystem):
     return (kin + virial_w) / state.box.volume * units.nktv2p
 
 
+def pressure(state: State, virial_w, units: UnitSystem):
+    """Scalar pressure: the trace of pressure_tensor over 3."""
+    return torch.trace(pressure_tensor(state, virial_w, units)) / 3.0
+
+
 def thermo_row(state: State, pe, virial_w, units: UnitSystem,
                fix_energy=0.0) -> dict:
     """Thermo row as Python numbers (one device-to-host copy).

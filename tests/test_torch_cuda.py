@@ -63,6 +63,15 @@ or all but those of 64 close pairs).  The cyclotron oracle in f32 (512
 free ions, Bz 1000 T, one period of 2,000 steps).  The f32
 lj/cut and lj/cut/coul/cut forces on the card within 1e-2 RMS(F) of the
 f64 CPU path.
+
+The input-script slice: REBOMoS energy_peratom and virial_peratom on the
+card (kernels A, B and C, no float atomics) within 1e-4 and 5e-4 of their
+scale of the f64 CPU twin on the sorted 2,304-atom scene's lists, reruns
+bit-identical; a deck with compute pe/atom and stress/atom dumped through
+the graph loop writes the same bytes twice; fix langevin's graph loop
+equals its eager loop bit for bit and its noise on the card the CPU draw;
+a ramped fix nvt over two runs (the window re-anchored by each) captures
+anew and equals the eager loop bit for bit.
 """
 
 import dataclasses
@@ -1041,3 +1050,145 @@ def test_ljcut_f32_forces_on_card_match_f64(cuda, deck):
                                    st.box.h).double().cpu().numpy())
     f64, f32 = out
     assert np.abs(f32 - f64).max() < 1e-2 * np.sqrt(np.mean(f64 * f64))
+
+
+# -- per-atom tallies, dumps and the input-script path on the card ---------
+
+def _to_cpu64(obj):
+    """A copy of a (nested) neighbor structure with every tensor on the
+    CPU, floating ones in float64."""
+    if torch.is_tensor(obj):
+        t = obj.cpu()
+        return t.double() if t.is_floating_point() else t
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _to_cpu64(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)})
+    if isinstance(obj, dict):
+        return {k: _to_cpu64(v) for k, v in obj.items()}
+    return obj
+
+
+def test_peratom_on_card_matches_cpu_twin(cuda):
+    """energy_peratom and virial_peratom of REBOMoS on the card (kernels
+    A, B and C, the torch LJ virial sweep; no float atomics) on the
+    jiggled, sorted 2,304-atom scene against the float64 CPU twin on the
+    same lists: energy within 1e-4 and virial within 5e-4 of their scale,
+    Σ eatom within 1e-5 of the f64 energy, reruns bit-identical."""
+    from lammps_plugins_tpu_torch.ops import lj_cells as lj
+    st = rebomos_bulk_commensurate(12, 16, 2, dtype=torch.float32,
+                                   device=cuda, sort=True)
+    rng = np.random.default_rng(6)
+    x = st.x.cpu().numpy() + rng.uniform(-0.08, 0.08, st.x.shape)
+    st = st.replace(x=torch.as_tensor(x, dtype=torch.float32, device=cuda))
+    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float32,
+                             device=cuda)
+    eng = Engine(st, pair, [FixNVE()], units.METAL)
+    eng.rebuild_neighbors()
+    s, nbr = eng.state, eng.nbr
+    before = (rebo.launches, mirror.launches, lj.launches)
+    e = pair.energy_peratom(s.x, s.type, nbr, s.box.h)
+    v = pair.virial_peratom(s.x, s.type, nbr, s.box.h)
+    torch.cuda.synchronize()
+    assert rebo.launches > before[0] and mirror.launches >= before[1] + 3 \
+        and lj.launches > before[2]
+    assert torch.equal(e, pair.energy_peratom(s.x, s.type, nbr, s.box.h))
+    assert torch.equal(v, pair.virial_peratom(s.x, s.type, nbr, s.box.h))
+    pair64 = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float64,
+                               device="cpu")
+    s64 = dataclasses.replace(
+        s, x=s.x.cpu().double(), type=s.type.cpu(),
+        box=s.box.to("cpu", torch.float64))
+    nbr64 = _to_cpu64(nbr)
+    e64 = pair64.energy_peratom(s64.x, s64.type, nbr64, s64.box.h).numpy()
+    v64 = pair64.virial_peratom(s64.x, s64.type, nbr64, s64.box.h).numpy()
+    pe64 = float(pair64.energy(s64.x, None, s64.type, nbr64, s64.box.h))
+    e32, v32 = e.double().cpu().numpy(), v.double().cpu().numpy()
+    assert np.abs(e32 - e64).max() <= 1e-4 * np.abs(e64).max()
+    assert np.abs(v32 - v64).max() <= 5e-4 * np.abs(v64).max()
+    assert abs(e32.sum() - pe64) <= 1e-5 * abs(pe64)
+
+
+def _card_script(text, fused=None):
+    """The port's Script on the card (float32) after `text`, its Engine
+    made (`run 0`) and set to the graph loop (fused None) or the eager
+    loop (False)."""
+    from lammps_plugins_tpu_torch.api.script import Script
+    s = Script(log=lambda _: None)
+    s.run_text(text + "\nrun 0\n")
+    s.engine.fused_loop = fused
+    return s
+
+
+def test_dump_reruns_are_byte_identical_on_card(cuda, tmp_path):
+    """A deck with compute pe/atom and stress/atom dumped every 10 steps
+    through the graph loop writes the same bytes twice."""
+    from test_torch_script import REBO_DECK
+    deck = REBO_DECK.replace("run             20", "").replace(
+        "thermo          10", "velocity all create 300.0 4928459\n"
+        "compute pe all pe/atom\ncompute s all stress/atom NULL\n"
+        "dump 1 all custom 10 {d} id type x y z c_pe c_s[1] c_s[2] c_s[3] "
+        "c_s[4] c_s[5] c_s[6]\nthermo 10")
+    paths = []
+    for k in range(2):
+        path = str(tmp_path / f"{k}.dump")
+        s = _card_script(deck.format(d=path))
+        s.command("run 40")
+        assert s.engine._loop is not None and s.engine._loop.exec is not None
+        paths.append(path)
+    text = open(paths[0], "rb").read()
+    assert text == open(paths[1], "rb").read()
+    assert text.count(b"ITEM: TIMESTEP") == 6       # 0 (run 0), 0..40
+
+
+def test_langevin_graph_equals_eager_on_card(cuda):
+    """fix langevin + fix nve, 100 steps of the n = 6 LJ melt through the
+    graph loop and the eager loop: the same bits (x, v, f, image, the
+    fix's step count); the noise drawn on the card at three steps equals
+    the CPU draw bit for bit."""
+    from test_torch_script import LJ_SETUP
+    deck = LJ_SETUP.replace("0 4 0 4 0 4", "0 6 0 6 0 6") + \
+        "velocity all create 1.44 87287\nfix 1 all langevin 1.44 1.8 0.1 " \
+        "48279\nfix 2 all nve\n"
+    runs = [_card_script(deck, fused) for fused in (None, False)]
+    for s in runs:
+        s.command("run 100")
+    g, e = (s.engine for s in runs)
+    assert g._loop is not None and g._loop.exec is not None
+    assert e._loop is None
+    _assert_same_state(g, e)
+    key = "langevin:1"
+    assert torch.equal(g.state.extras[key]["step"],
+                       e.state.extras[key]["step"])
+    fix = runs[0].fixes[0]
+    for step in (0, 57, 100):
+        st = dataclasses.replace(g.state, extras={key: {"step": torch.tensor(
+            step, device=cuda)}})
+        on_card = fix.noise(st).cpu()
+        cpu = dataclasses.replace(st, x=st.x.cpu(), v=st.v.cpu(),
+                                  extras={key: {"step": torch.tensor(step)}})
+        assert torch.equal(on_card, fix.noise(cpu))
+
+
+def test_ramped_nvt_two_runs_graph_equals_eager_on_card(cuda):
+    """Two runs of a ramped fix nvt (the window re-anchored by each run):
+    the graph loop captures anew for the second window and stays equal to
+    the eager loop bit for bit (the stale-window fault replayed the first
+    run's targets)."""
+    from test_torch_script import SAMPLE_DECK
+    deck = SAMPLE_DECK.replace("863.0 863.0 0.1", "863.0 1000.0 0.1") \
+        .replace("run             24", "neigh_modify every 6") \
+        .replace("thermo          6", "thermo 12")
+    runs = [_card_script(deck, fused) for fused in (None, False)]
+    keys = []
+    for s in runs:
+        s.command("run 24")
+        keys.append(s.engine._loop_key)
+        s.command("run 24")
+        assert (s.fixes[0].begin_step, s.fixes[0].end_step) == (24, 48)
+    g, e = (s.engine for s in runs)
+    assert keys[0] is not None and keys[0] != g._loop_key
+    _assert_same_state(g, e)
+    for k in ("eta", "eta_dot", "step"):
+        assert torch.equal(g.state.extras["nvt:1"][k],
+                           e.state.extras["nvt:1"][k]), k

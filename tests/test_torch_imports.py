@@ -1,9 +1,13 @@
 """The port loads neither JAX nor the JAX package: every module of
 lammps_plugins_tpu_torch (core/region.py, potentials/ljcut.py and none.py,
-fixes/bfield.py among them) and chip_smoke.py's imports are loaded, and
-one Engine.evaluate runs on the CPU, and a step of the charged melt with
-fix bfield, in a fresh interpreter that must end with no `jax` and no
-`lammps_plugins_tpu` module in sys.modules.  The entry points default to
+fixes/bfield.py, the input-script modules api/script.py, equalvar.py and
+data.py, run/dump.py, checkpoint.py and minimize.py, fixes/langevin.py
+and core/threefry.py among them) and chip_smoke.py's imports are loaded,
+and one Engine.evaluate runs on the CPU, a step of the charged melt with
+fix bfield, and a deck through the port's Script (per-atom computes, a
+dump, a restart file, a data file, FIRE and fix langevin), in a fresh
+interpreter that must end with no `jax` and no `lammps_plugins_tpu`
+module in sys.modules.  The entry points, Script among them, default to
 the card and raise without one."""
 
 import os
@@ -42,6 +46,36 @@ for m in ("core.region", "potentials.ljcut", "potentials.none",
     assert "lammps_plugins_tpu_torch." + m in names, m
 melt = charged_melt(2, **f64).engine()
 melt.run(2)
+for m in ("api.script", "api.equalvar", "api.data", "run.dump",
+          "run.checkpoint", "run.minimize", "fixes.langevin",
+          "core.threefry"):
+    assert "lammps_plugins_tpu_torch." + m in names, m
+import tempfile
+from lammps_plugins_tpu_torch import Script
+tmp = tempfile.mkdtemp()
+s = Script(log=lambda _: None, **f64)
+s.run_text(f'''
+units lj
+lattice fcc 0.8442
+region box block 0 2 0 2 0 2
+create_box 1 box
+create_atoms 1 box
+mass 1 1.0
+pair_style lj/cut 2.5
+pair_coeff 1 1 1.0 1.0 2.5
+neighbor 0.3 bin
+compute pe all pe/atom
+compute s all stress/atom NULL
+dump 1 all custom 2 {tmp}/d.dump id type x c_pe c_s[1]
+restart 2 {tmp}/r.*
+fix 1 all langevin 1.0 1.0 0.5 48279
+fix 2 all nve
+minimize 0.0 1e-4 10
+run 4
+write_data {tmp}/w.data
+''')
+assert open(f"{tmp}/d.dump").read().count("ITEM: TIMESTEP") == 3
+assert os.path.exists(f"{tmp}/r.4") and os.path.exists(f"{tmp}/w.data")
 build = os.path.join(os.path.dirname(os.path.dirname(pkg.__file__)), "build")
 assert native.LIB_PATH.startswith(build + os.sep), native.LIB_PATH
 bad = sorted(m for m in sys.modules
@@ -71,6 +105,9 @@ def _entry_points():
                                                            PairLJCutCoulCut)
     from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
     from lammps_plugins_tpu_torch.potentials.tables import read_rebomos
+    from lammps_plugins_tpu_torch.api.data import read_data
+    from lammps_plugins_tpu_torch.api.script import Script
+    from lammps_plugins_tpu_torch.run.checkpoint import load_state
     from torch_parity import SYNTH_AEAM, SYNTH_REBO
     import numpy as np
     x = np.array([[0.0, 0.0, 0.0], [2.4, 0.0, 0.0]])
@@ -95,6 +132,9 @@ def _entry_points():
         "rebomos_monolayer": lambda: scenes.rebomos_monolayer(2, 2),
         "PairLJCut": lambda: PairLJCut(2.5),
         "PairLJCutCoulCut": lambda: PairLJCutCoulCut(6.0, 8.0),
+        "Script": lambda: Script(),
+        "load_state": lambda: load_state("restart.npz"),
+        "read_data": lambda: read_data("system.data"),
     }
 
 
@@ -105,7 +145,8 @@ def _entry_points():
                                   "Box.orthogonal", "AEAM.from_file",
                                   "lj_melt", "charged_melt",
                                   "rebomos_monolayer", "PairLJCut",
-                                  "PairLJCutCoulCut"])
+                                  "PairLJCutCoulCut", "Script",
+                                  "load_state", "read_data"])
 def test_entry_point_without_device_raises_without_cuda(monkeypatch, name):
     """Called without `device`, an entry point asks for the card; with no
     CUDA device it raises a clear error instead of running on the CPU."""
@@ -124,13 +165,17 @@ def test_entry_point_defaults_are_the_card_in_float32():
     from lammps_plugins_tpu_torch.potentials.ljcut import (PairLJCut,
                                                            PairLJCutCoulCut)
     from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
+    from lammps_plugins_tpu_torch.api.data import read_data
+    from lammps_plugins_tpu_torch.api.script import Script
+    from lammps_plugins_tpu_torch.run.checkpoint import load_state
     for fn in (scenes.rebomos_bulk, scenes.rebomos_bulk_commensurate,
                Box.triclinic, Box.from_numpy, REBOMoS.__init__,
                REBOMoS.from_file, build_neighbor_data, scenes.alsi_sample,
                Box.orthogonal, AEAM.__init__, AEAM.from_file,
                scenes.lj_melt, scenes.charged_melt,
                scenes.rebomos_monolayer, PairLJCut.__init__,
-               PairLJCutCoulCut.__init__):
+               PairLJCutCoulCut.__init__, Script.__init__, load_state,
+               read_data):
         params = inspect.signature(fn).parameters
         assert params["device"].default == "cuda", fn
         assert params["dtype"].default is torch.float32, fn
