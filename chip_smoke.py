@@ -134,6 +134,36 @@ Phases (any failure raises, so the script exits non-zero):
      (three 500-step windows each, capture excluded) and the device time
      of one noise draw replayed alone in a graph
 
+  10. the sharded engine with its shards stacked on the card (`SHARDED
+     {json}`, lammps_plugins_tpu_torch/parallel/): (a) the bench scene in
+     a 2x2 grid and in four x-slabs on devices=[card] * 4: pe and forces
+     of a copy jiggled by 0.05 A against the single-device Engine (2e-5
+     relative, 3e-4 x scale), A, B, C and D' against their twins on shard
+     0's own block, lists and cells (pad and halo rows, a slab box
+     non-periodic in x; D' exact, its pad rows skipped), 300 steps
+     through the sharded graph loop (every shard's resettle under the
+     conditional node) with the counters reset (A, B, C and D' must
+     launch), the NVE drift, the thermo rows at steps 100, 200 and 300
+     against the single-device run's (SHARD_ROW_BARS), the atoms that
+     changed shard (> 0), the state after 300 steps equal to the eager
+     host loop's bit for bit (rows, layout, halo tables, resettles), then
+     atom-steps/s in turns with the single-device Engine's graph loop,
+     host launch calls and device ms a step from a profiled run, a
+     resettle's device ms and its top device ops, the peak memory; (b)
+     config 2 (65,536 ions) in four x-slabs for 100 steps: fix bfield's
+     fsum and the rows against the single-device run (FSUM_BAR,
+     MELT_ROW_BARS), graph = eager bit for bit with the fix's extras; (c)
+     config 5, benchmarks/scale_multichip.py's 7,999,488-atom bulk
+     (rebomos_bulk_commensurate(1302, 64, 16)) in eight x-slabs, skin 1.0:
+     pe/atom at step 0 against the bench scene's (1e-5), 100 steps through
+     the graph loop (A, B, C and D' must launch), the NVE drift, a second
+     100-step window's atom-steps/s, per-shard capacities and ghosts, the
+     peak memory; (d) the phase-9 REBOMOS deck without outputs through
+     Script(n_devices=4, devices=[card] * 4) for 200 steps, its thermo
+     rows against the single-device Script's (SHARD_ROW_BARS); (e) the
+     entry checks of lammps_plugins_tpu_torch/entry.py with their
+     defaults (the card, float32): entry() and dryrun_multichip(4)
+
 The REBOMOS parameters are the synthetic file tests/data/MoS.REBO.synthetic,
 the AEAM ones tests/data/AlSi.synthetic.aeam.
 Output ends with a JSON line of per-kernel results, the card's name and
@@ -516,10 +546,10 @@ def candidate_work(args):
     return nbytes, 10 * pairs, pairs
 
 
-def capture_candidate_calls(eng):
-    """eng.rebuild_neighbors(), recording the arguments of every
+def capture_candidate_calls(eng, run=None):
+    """eng.rebuild_neighbors(), or run(), recording the arguments of every
     select_candidates call of the rebuild (the last is the one whose
-    lists the Engine kept)."""
+    lists the Engine kept; a sharded resettle makes one a shard)."""
     from lammps_plugins_tpu_torch.neighbor import device_build
     calls = []
     real = device_build.select_candidates
@@ -530,15 +560,16 @@ def capture_candidate_calls(eng):
 
     device_build.select_candidates = spy
     try:
-        eng.rebuild_neighbors()
+        (run or eng.rebuild_neighbors)()
     finally:
         device_build.select_candidates = real
     return calls
 
 
-def bench_engine(dev, sort=False, **config):
+def bench_engine(dev, sort=False, jiggle=0.0, **config):
     """The bench scene on the card with its velocities; no lists yet.
-    sort: spatially sorted atoms; config: REBOMoS force configuration."""
+    sort: spatially sorted atoms; jiggle: see shard_bench; config: REBOMoS
+    force configuration."""
     from lammps_plugins_tpu_torch.core import units
     from lammps_plugins_tpu_torch.api.scenes import rebomos_bulk_commensurate
     from lammps_plugins_tpu_torch.fixes.nve import FixNVE
@@ -548,6 +579,11 @@ def bench_engine(dev, sort=False, **config):
     state = rebomos_bulk_commensurate(BENCH["nx"], BENCH["ny"], BENCH["nz"],
                                       dtype=torch.float32, device=dev,
                                       sort=sort)
+    if jiggle:
+        rng = np.random.default_rng(7)
+        state = state.replace(x=state.x + torch.as_tensor(
+            rng.uniform(-jiggle, jiggle, tuple(state.x.shape)),
+            dtype=torch.float32, device=dev))
     state = velocity_create(state, units.METAL, BENCH["temp"], BENCH["seed"])
     pair = REBOMoS.from_file(REBO_FILE, ["M", "S"], dtype=torch.float32,
                              device=dev, **config)
@@ -1310,12 +1346,14 @@ def aeam_engine(dev, fused=None, poly_mode=False):
     return eng
 
 
-def candidates_record(eng, label, ks=()):
-    """D' on the arguments of a rebuild of `eng` (eng.rebuild_neighbors())
-    at the plan's K and at each K of `ks`, exact against its twin; at the
-    plan's K its median time, the twin's, the bound and the rows' hits."""
+def candidates_record(eng, label, ks=(), args=None):
+    """D' on the arguments of a rebuild of `eng` (eng.rebuild_neighbors()),
+    or on `args`, at the plan's K and at each K of `ks`, exact against its
+    twin; at the plan's K its median time, the twin's, the bound and the
+    rows' hits."""
     from lammps_plugins_tpu_torch.ops import select_candidates
-    args = capture_candidate_calls(eng)[-1]
+    if args is None:
+        args = capture_candidate_calls(eng)[-1]
     K = args[5]
     diffs, hits = [], None
     for k in (K, *ks):
@@ -2593,6 +2631,514 @@ def phase9_script(dev, modules):
     return record, launches
 
 
+# -- phase 10: the sharded engine, every shard on the one card -------------
+
+#: the bench scene's two layouts of four shards: the reference's own 2x2x1
+#: processor grid (log.rebomos-bulk.4:22) and four x-slabs
+SHARD_LAYOUTS = (("2x2", (2, 2)), ("4 x-slabs", (4, 1)))
+SHARD_RUN_STEPS, SHARD_THERMO_EVERY = 300, 100
+SHARD_TIMED_STEPS, SHARD_PROFILE_STEPS = 300, 100
+#: the sharded engine against the single-device Engine on the same card:
+#: step-0 pe (relative) and forces (x scale), the bars of phase 1's full
+#: dispatch; then thermo rows at the same step, f32 on both sides with
+#: other summation orders: pe and T relative, press over the pressure
+#: tensor's largest component
+SHARD_PE_BAR, SHARD_F_BAR = 2e-5, 3e-4
+#: the static check's scene: the bench scene with every atom moved by up
+#: to 0.05 A (on the lattice sites the forces are rounding noise)
+SHARD_JIGGLE = 0.05
+SHARD_ROW_BARS = dict(pe=2e-5, temp=1e-4, press=1e-3)
+#: config 2 in four x-slabs: steps, thermo interval, fix bfield's fsum
+#: against the single-device run's (over its largest component)
+MELT_SHARD_STEPS, MELT_SHARD_EVERY, FSUM_BAR = 100, 50, 1e-3
+#: the melt's rows: its pe (~-4.2 eV an ion) is a sum of Coulomb pair
+#: terms of ~1-10 eV of both signs, summed in f32 in another order on
+#: each side.  Sound runs read 6.7e-6 (H100, from step 0 on); a sharded
+#: graph loop whose in-span re-size was faulty read 4.9e-5, so the bar
+#: sits between the two
+MELT_ROW_BARS = dict(pe=3e-5, temp=1e-4, press=1e-3)
+#: config 5 (benchmarks/scale_multichip.py:45-49): 7,999,488 atoms in eight
+#: x-slabs, f32, skin 1.0; pe/atom at step 0 against the bench scene's
+SCALE_8M = dict(nx=1302, ny=64, nz=16, shards=8, skin=1.0, steps=100)
+PE_ATOM_BAR = 1e-5
+SCRIPT_SHARD_STEPS = 200
+
+
+def shard_engine(dev, state, pair, fixes, grid, fused=None, **kw):
+    """A ShardedEngine with every shard on `dev`; fused as in
+    aeam_engine."""
+    from lammps_plugins_tpu_torch.core import units
+    from lammps_plugins_tpu_torch.parallel import ShardedEngine
+    se = ShardedEngine(state, pair, fixes, units.METAL,
+                       devices=[dev] * (grid[0] * grid[1]), grid=grid, **kw)
+    se.fused_loop = fused
+    return se
+
+
+def shard_bench(dev, grid, fused=None, jiggle=0.0):
+    """The bench scene (phase 3's state and pair) in `grid` (grid None:
+    phase 3's Engine); jiggle moves every atom by uniform(-jiggle, jiggle)
+    A (numpy seed 7), off the lattice sites where the forces are rounding
+    noise."""
+    from lammps_plugins_tpu_torch.fixes.nve import FixNVE
+    eng = bench_engine(dev, jiggle=jiggle)
+    if grid is None:
+        return eng
+    return shard_engine(dev, eng.state, eng.pair, [FixNVE()], grid, fused,
+                        check_every=BENCH["check_every"], skin=BENCH["skin"])
+
+
+def shard_view(se, d=0):
+    """Shard d's local block as an Engine-like view (pair bound to its
+    charges, its [owned | halo] rows on the slab box, its lists): what
+    rebo_at_run_k, mirror_at_run_k and lj_cells_at_run read."""
+    import types
+    from lammps_plugins_tpu_torch.core.state import State
+    blocks = se._halo_blocks(se.shards.x, se.halo)
+    x = blocks[d]
+    st = State(x=x, v=torch.zeros_like(x), f=torch.zeros_like(x),
+               type=se.halo.t_loc[d], q=se.halo.q_loc[d],
+               image=torch.zeros(x.shape, dtype=torch.int32,
+                                 device=x.device),
+               mass=se._mass, box=se.slab_box, step=se.step, extras={})
+    return types.SimpleNamespace(pair=se._pair_local(se.halo, d), state=st,
+                                 nbr=se.nbrs[d])
+
+
+def shard_kernels(se, label):
+    """A, B, C and D' against their twins on shard 0's own block, lists and
+    cells (the pad and halo rows, the slab box non-periodic in x)."""
+    view = shard_view(se)
+    out = dict(rebo=rebo_at_run_k(view), mirror=mirror_at_run_k(view))
+    torch.cuda.empty_cache()
+    out["lj_cells"] = lj_cells_at_run(view)
+    out["select_candidates"] = candidates_record(
+        None, f"{label} shard 0", args=capture_candidate_calls(
+            None, lambda: se._resettle(se.shards))[0])
+    for r in out.values():
+        r["shard"] = 0
+    return out
+
+
+def rows_gap(rows, ref):
+    """Largest gaps of thermo rows against reference rows at the same
+    steps: pe and temp relative, press over the largest |p_aa|."""
+    gap = dict(pe=0.0, temp=0.0, press=0.0)
+    for r, s in zip(rows, ref, strict=True):
+        if r["step"] != s["step"]:
+            raise AssertionError(f"rows at steps {r['step']} / {s['step']}")
+        gap["pe"] = max(gap["pe"], abs(r["pe"] - s["pe"]) / abs(s["pe"]))
+        gap["temp"] = max(gap["temp"],
+                          abs(r["temp"] - s["temp"]) / abs(s["temp"]))
+        scale = max(abs(s[k]) for k in ("pxx", "pyy", "pzz"))
+        gap["press"] = max(gap["press"], abs(r["press"] - s["press"]) / scale)
+    return gap
+
+
+def shard_state_equal(a, b):
+    """{field: bit-identical} of two sharded engines' shard rows, halo
+    tables and extras tensors, and their resettle counts."""
+    from lammps_plugins_tpu_torch.run.device_loop import extras_items
+    same = {f: bool(torch.equal(getattr(a.shards, f), getattr(b.shards, f)))
+            for f in ("x", "v", "f", "image", "type", "q", "tag", "valid")}
+    same["halo"] = all(torch.equal(getattr(a.halo, f), getattr(b.halo, f))
+                       for f in ("t_loc", "q_loc", "valid_loc"))
+    ea, eb = (dict(extras_items(e.shards.extras)) for e in (a, b))
+    same.update({":".join(p): bool(torch.equal(t, eb[p]))
+                 for p, t in ea.items()})
+    same["resettles"] = a.resettles == b.resettles
+    return same
+
+
+def shard_of_tag(se):
+    """[N] int64: the shard that owns each atom id now."""
+    ss = se.shards
+    out = torch.full((se.natoms,), -1, dtype=torch.int64,
+                     device=ss.x.device)
+    d = torch.arange(ss.x.shape[0], device=ss.x.device) // se.n_cap
+    out[ss.tag[ss.valid]] = d[ss.valid]
+    return out
+
+
+def resettle_profile(se, top=10):
+    """[(device op, ms, calls)] of one resettle of every shard, the `top`
+    ops by device time (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        se._resettle(se.shards)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    tot = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == cuda:
+            t = tot[e.name[:80]]
+            t[0] += e.time_range.elapsed_us() / 1e3
+            t[1] += 1
+    total = sum(ms for ms, _ in tot.values())
+    calls = sum(c for _, c in tot.values())
+    ops = sorted(tot.items(), key=lambda kv: -kv[1][0])[:top]
+    print(f"one resettle: {total:.3f} ms of device time in {calls} device "
+          f"ops; the largest: "
+          + "; ".join(f"{n} {ms:.3f} ms x{c}" for n, (ms, c) in ops))
+    return dict(device_ms=total, device_ops=calls,
+                top=[(n, ms, c) for n, (ms, c) in ops])
+
+
+def windows_in_turns(engines, steps=SHARD_TIMED_STEPS, reps=TIMED_REPS):
+    """{name: [atom-steps/s]}: `steps`-step windows of each engine (graph
+    loop), in turns, the order reversed every other turn."""
+    out = {name: [] for name in engines}
+    names = list(engines)
+    for rep in range(reps):
+        for name in (names if rep % 2 == 0 else names[::-1]):
+            eng = engines[name]
+            natoms = eng.natoms if hasattr(eng, "natoms") \
+                else eng.state.natoms
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run(steps)
+            torch.cuda.synchronize()
+            out[name].append(natoms * steps / (time.perf_counter() - t0))
+    return out
+
+
+def sharded_bench(dev, modules, gpu):
+    """(a) the bench scene in both layouts against the single-device Engine
+    on the same card.  Returns (records by layout, launches of the 2x2
+    graph run by module, shard-0 kernel records of the 2x2 run)."""
+    jig = shard_bench(dev, None, jiggle=SHARD_JIGGLE)
+    jig._setup_forces()
+    st = jig.state
+    with torch.no_grad():
+        pe1 = float(jig.pair.energy(st.x, None, st.type, jig.nbr, st.box.h))
+    f1 = st.f.clone()
+    del jig, st
+    single = bench_engine(dev)
+    natoms = single.state.natoms
+    single_rows = single.run(SHARD_RUN_STEPS, thermo_every=SHARD_THERMO_EVERY)
+    check_graph("single-device bench", single)
+    out, launches0, kernels0 = {}, None, None
+    for label, grid in SHARD_LAYOUTS:
+        free_card(f"phase 10 (a) {label}")
+        torch.cuda.reset_peak_memory_stats()
+        se = shard_bench(dev, grid, jiggle=SHARD_JIGGLE)
+        se._setup_forces()
+        pe2 = se.potential_energy()
+        f2 = se.to_state().f
+        pe_err = abs(pe2 - pe1) / abs(pe1)
+        f_err = float((f2 - f1).abs().max()) / float(f1.abs().max())
+        print(f"sharded {label}: caps n_cap {se.n_cap} Bhx {se.Bhx} Bhy "
+              f"{se.Bhy} B_mig {se.B_mig} n_loc {se.n_loc}, K "
+              f"{dict(se._plan.k_caps)}, cell C {se._plan.cell_capacity}; "
+              f"jiggled scene: pe {pe2:.6f} vs single {pe1:.6f} (rel "
+              f"{pe_err:.3e}, bar {SHARD_PE_BAR}), forces max|dF|/max|F| "
+              f"{f_err:.3e} (bar {SHARD_F_BAR})")
+        if not (pe_err <= SHARD_PE_BAR and f_err <= SHARD_F_BAR):
+            raise AssertionError(f"sharded {label} pe or forces differ "
+                                 "from the single-device Engine's")
+        kern = shard_kernels(se, label)
+        del se
+        torch.cuda.empty_cache()
+        se = shard_bench(dev, grid)
+        se._setup_forces()
+        owner0 = shard_of_tag(se)
+        for m in modules.values():
+            m.launches = 0
+        t0 = time.perf_counter()
+        rows = se.run(SHARD_RUN_STEPS, thermo_every=SHARD_THERMO_EVERY)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: m.launches for name, m in modules.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if se._loop is None or se._loop.exec is None:
+            raise AssertionError(f"sharded {label} did not run through the "
+                                 "graph loop")
+        check_launches(f"sharded {label}", launches, MAIN_PATH)
+        moved = int((shard_of_tag(se) != owner0).sum())
+        for r in rows:
+            if not all(np.isfinite(v) for v in r.values()):
+                raise AssertionError(f"non-finite sharded row {r}")
+            print(f"  step {r['step']} T {r['temp']:.6f} pe {r['pe']:.6f} "
+                  f"etotal {r['etotal']:.6f} press {r['press']:.4f}")
+        drift = (abs(rows[-1]["etotal"] - rows[0]["etotal"])
+                 / (rows[-1]["step"] - rows[0]["step"]) / natoms)
+        gap = rows_gap(rows, single_rows)
+        print(f"sharded {label}: {SHARD_RUN_STEPS} steps in {wall:.2f} s "
+              f"(first resettle, capture and thermo rows included), "
+              f"launches {launches}, resettles {se.resettles}, regrows "
+              f"{se.regrows}, atoms that changed shard {moved}, NVE drift "
+              f"{drift:.3e} eV/step/atom (bar 1e-6), rows against the "
+              f"single-device run {gap} (bars {SHARD_ROW_BARS}), peak "
+              f"{peak:.3f} GiB")
+        if not drift < 1e-6:
+            raise AssertionError(f"sharded {label} NVE drift above 1e-6")
+        if not all(gap[k] <= SHARD_ROW_BARS[k] for k in gap):
+            raise AssertionError(f"sharded {label} rows differ from the "
+                                 "single-device run's")
+        if moved <= 0:
+            raise AssertionError(f"sharded {label}: no atom changed shard")
+        ref = shard_bench(dev, grid, fused=False)
+        ref.run(SHARD_RUN_STEPS, thermo_every=SHARD_THERMO_EVERY)
+        same = shard_state_equal(se, ref)
+        print(f"sharded {label} graph vs eager host loop after "
+              f"{SHARD_RUN_STEPS} steps: bit-identical {same}")
+        if not all(same.values()):
+            raise AssertionError(f"sharded {label}: the graph loop's state "
+                                 "differs from the eager loop's")
+        del ref
+        torch.cuda.empty_cache()
+        rates = windows_in_turns({"sharded": se, "single": single})
+        prof = profile_run(se, SHARD_PROFILE_STEPS)
+        resettle_ms = 1e3 * se._rebuild_cost_estimate()
+        rs_ops = resettle_profile(se)
+        comm_ms = 1e3 * se._comm_cost_estimate()
+        med = {k: statistics.median(v) for k, v in rates.items()}
+        print(f"sharded {label} on {gpu}: atom-steps/s {rates['sharded']} "
+              f"(median {med['sharded']:.6g}) against the single-device "
+              f"Engine's {rates['single']} (median {med['single']:.6g}) in "
+              f"turns; host launch calls/step "
+              f"{prof['host_launch_calls_per_step']:.3f}, device ms/step "
+              f"{prof['device_ms_per_step']:.4f}, a resettle {resettle_ms:.3f}"
+              f" ms eagerly (device clock, CUDA events), halo refresh "
+              f"{comm_ms:.4f} ms a step")
+        out[label] = dict(
+            grid=list(grid), natoms=natoms, n_cap=se.n_cap, Bhx=se.Bhx,
+            Bhy=se.Bhy, B_mig=se.B_mig, n_loc=se.n_loc,
+            k_caps=dict(se._plan.k_caps), pe_rel_err=pe_err,
+            forces_rel_err=f_err, drift_ev_per_step_atom=drift,
+            rows_gap=gap, rows_bars=SHARD_ROW_BARS, atoms_changed_shard=moved,
+            resettles=se.resettles, regrows=se.regrows,
+            graph_equals_eager=True, atom_steps_per_s=rates["sharded"],
+            single_atom_steps_per_s=rates["single"], peak_gib=peak,
+            resettle_eager_ms=resettle_ms, resettle_profile=rs_ops,
+            halo_refresh_ms=comm_ms,
+            capture_s=se._loop.capture_s,
+            host_launch_calls_per_step=prof["host_launch_calls_per_step"],
+            device_ms_per_step=prof["device_ms_per_step"],
+            kernels={k: dict(max_abs_err=v["max_abs_err"], ms=v["ms"],
+                             plain_ms=v["plain_ms"], bound_ms=v["bound_ms"])
+                     for k, v in kern.items()},
+            launches={KERNEL_NAMES[m]: launches[m] for m in MAIN_PATH})
+        if launches0 is None:
+            launches0, kernels0 = launches, kern
+        del se
+        torch.cuda.empty_cache()
+    del single
+    return out, launches0, kernels0, single_rows[0]["pe"] / natoms
+
+
+def sharded_melt(dev, modules):
+    """(b) config 2 in four x-slabs: fsum and thermo rows against the
+    single-device run, the graph loop against the eager loop bit for bit
+    (fix bfield's extras included)."""
+    from lammps_plugins_tpu_torch.api.scenes import charged_melt
+
+    def deck():
+        return charged_melt(DECKS["melt"], bz=MELT_BZ, dtype=torch.float32,
+                            device=dev)
+
+    free_card("phase 10 (b)")
+    single = deck().engine()
+    srows = single.run(MELT_SHARD_STEPS, thermo_every=MELT_SHARD_EVERY)
+    fsum1 = single.state.extras[single.fixes[0].key]["fsum"].cpu()
+    d = deck()
+    se = shard_engine(dev, d.state, d.pair, d.fixes, (4, 1), skin=d.skin)
+    for m in modules.values():
+        m.launches = 0
+    rows = se.run(MELT_SHARD_STEPS, thermo_every=MELT_SHARD_EVERY)
+    launches = {name: m.launches for name, m in modules.items()}
+    if se._loop is None or se._loop.exec is None:
+        raise AssertionError("sharded melt did not run through the graph")
+    check_launches("sharded melt", launches, ("select_candidates",))
+    fsum2 = se.fix_view_state().extras[se.fixes[0].key]["fsum"].cpu()
+    fsum_err = float((fsum2 - fsum1).abs().max() / fsum1.abs().max())
+    gap = rows_gap(rows, srows)
+    gap0 = rows_gap(rows[:1], srows[:1])
+    d2 = deck()
+    ref = shard_engine(dev, d2.state, d2.pair, d2.fixes, (4, 1), fused=False,
+                       skin=d2.skin)
+    ref.run(MELT_SHARD_STEPS, thermo_every=MELT_SHARD_EVERY)
+    same = shard_state_equal(se, ref)
+    print(f"sharded melt ({se.natoms} ions, 4 x-slabs): fsum {fsum2.tolist()}"
+          f" vs single {fsum1.tolist()} (max gap over max |fsum| "
+          f"{fsum_err:.3e}, bar {FSUM_BAR}); rows against the single-device "
+          f"run {gap} (bars {MELT_ROW_BARS}; step 0 alone {gap0}); resettles "
+          f"{se.resettles} / {ref.resettles}, regrows {se.regrows} / "
+          f"{ref.regrows}; graph vs eager bit-identical {same}")
+    if not fsum_err <= FSUM_BAR:
+        raise AssertionError("sharded melt fsum differs from the single run")
+    if not all(gap[k] <= MELT_ROW_BARS[k] for k in gap):
+        raise AssertionError("sharded melt rows differ from the single run")
+    if not all(same.values()):
+        raise AssertionError("sharded melt: graph loop differs from eager")
+    return dict(natoms=se.natoms, n_cap=se.n_cap, Bhx=se.Bhx, n_loc=se.n_loc,
+                fsum=fsum2.tolist(), fsum_single=fsum1.tolist(),
+                fsum_rel_gap=fsum_err, fsum_bar=FSUM_BAR, rows_gap=gap,
+                rows_gap_step0=gap0, rows_bars=MELT_ROW_BARS,
+                resettles=se.resettles, regrows=se.regrows,
+                graph_equals_eager=True,
+                launches=launches["select_candidates"])
+
+
+def sharded_scale(dev, modules, gpu, pe_atom_bench):
+    """(c) config 5: 7,999,488 atoms in eight x-slabs on the one card."""
+    from lammps_plugins_tpu_torch.api.scenes import rebomos_bulk_commensurate
+    from lammps_plugins_tpu_torch.core import units
+    from lammps_plugins_tpu_torch.fixes.nve import FixNVE
+    from lammps_plugins_tpu_torch.fixes.velocity import velocity_create
+    from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
+    c = SCALE_8M
+    free_card("phase 10 (c)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = rebomos_bulk_commensurate(c["nx"], c["ny"], c["nz"],
+                                      dtype=torch.float32, device=dev)
+    state = velocity_create(state, units.METAL, BENCH["temp"], BENCH["seed"])
+    pair = REBOMoS.from_file(REBO_FILE, ["M", "S"], dtype=torch.float32,
+                             device=dev)
+    se = shard_engine(dev, state, pair, [FixNVE()], (c["shards"], 1),
+                      check_every=BENCH["check_every"], skin=c["skin"])
+    natoms = se.natoms
+    del state
+    setup_s = time.perf_counter() - t0
+    pe_atom = se.potential_energy() / natoms
+    pe_err = abs(pe_atom - pe_atom_bench) / abs(pe_atom_bench)
+    print(f"config 5: {natoms} atoms in {c['shards']} x-slabs (scene and "
+          f"engine {setup_s:.1f} s), n_cap {se.n_cap} Bhx {se.Bhx} n_loc "
+          f"{se.n_loc}, K {dict(se._plan.k_caps)}, ghosts per shard "
+          f"{[n.ghosts.count for n in se.nbrs]}; pe/atom at step 0 "
+          f"{pe_atom:.7f} vs the bench scene's {pe_atom_bench:.7f} (rel "
+          f"{pe_err:.3e}, bar {PE_ATOM_BAR})")
+    if not pe_err <= PE_ATOM_BAR:
+        raise AssertionError("config 5 pe/atom differs from the bench's")
+    for m in modules.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    rows = se.run(c["steps"], thermo_every=c["steps"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: m.launches for name, m in modules.items()}
+    if se._loop is None or se._loop.exec is None:
+        raise AssertionError("config 5 did not run through the graph loop")
+    check_launches("config 5", launches, MAIN_PATH)
+    for r in rows:
+        if not all(np.isfinite(v) for v in r.values()):
+            raise AssertionError(f"non-finite config 5 row {r}")
+    drift = (abs(rows[-1]["etotal"] - rows[0]["etotal"])
+             / (rows[-1]["step"] - rows[0]["step"]) / natoms)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    se.run(c["steps"])
+    torch.cuda.synchronize()
+    rate = natoms * c["steps"] / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = dict(natoms=natoms, shards=c["shards"], skin=c["skin"],
+               n_cap=se.n_cap, Bhx=se.Bhx, n_loc=se.n_loc,
+               B_mig=se.B_mig, k_caps=dict(se._plan.k_caps),
+               ghosts=[n.ghosts.count for n in se.nbrs],
+               halo_rows=[int(v.sum()) - int(o.sum()) for v, o in zip(
+                   se.halo.valid_loc, se.shards.valid.view(c["shards"], -1))],
+               pe_atom=pe_atom, pe_atom_bench=pe_atom_bench,
+               pe_atom_rel_err=pe_err, drift_ev_per_step_atom=drift,
+               rows=[{k: r[k] for k in ("step", "temp", "pe", "etotal",
+                                        "press")} for r in rows],
+               first_run_s=wall, atom_steps_per_s=rate, peak_gib=peak,
+               resettles=se.resettles, regrows=se.regrows,
+               capture_s=se._loop.capture_s, gpu=gpu,
+               launches={KERNEL_NAMES[m]: launches[m] for m in MAIN_PATH})
+    print(f"config 5: {c['steps']} steps (first run {wall:.1f} s with the "
+          f"first resettle, capture and two thermo rows), NVE drift "
+          f"{drift:.3e} eV/step/atom (bar 1e-6), {rate:.6g} atom-steps/s "
+          f"(a second {c['steps']}-step window) on {gpu}, peak {peak:.3f} "
+          f"GiB, resettles {se.resettles}, launches {launches}")
+    if not drift < 1e-6:
+        raise AssertionError("config 5 NVE drift above 1e-6 eV/step/atom")
+    del se
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_script(dev):
+    """(d) the phase-9 REBOMOS deck (no outputs) through
+    Script(n_devices=4, devices=[card] * 4) for SCRIPT_SHARD_STEPS, its
+    thermo rows against the single-device Script's."""
+    from lammps_plugins_tpu_torch.api.script import Script
+    from lammps_plugins_tpu_torch.parallel import ShardedEngine
+    free_card("phase 10 (d)")
+    text = REBO_DECK.format(rebo=REBO_FILE, outputs="")
+    run = f"run {SCRIPT_SHARD_STEPS}\n"
+    s1 = card_script(text + run)
+    rows1 = s1.last_rows
+    natoms = s1.engine.state.natoms
+    del s1
+    torch.cuda.empty_cache()
+    s4 = Script(log=lambda _: None, n_devices=4, devices=[dev] * 4)
+    t0 = time.perf_counter()
+    s4.run_text(text + run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng = s4.engine
+    if not isinstance(eng, ShardedEngine):
+        raise AssertionError("Script(n_devices=4) did not build a "
+                             "ShardedEngine")
+    if eng._loop is None or eng._loop.exec is None:
+        raise AssertionError("the sharded Script did not run through the "
+                             "graph loop")
+    gap = rows_gap(s4.last_rows, rows1)
+    print(f"sharded Script ({natoms} atoms, {SCRIPT_SHARD_STEPS} steps in "
+          f"{wall:.2f} s): rows against the single-device Script {gap} "
+          f"(bars {SHARD_ROW_BARS}), resettles {eng.resettles}")
+    if not all(gap[k] <= SHARD_ROW_BARS[k] for k in gap):
+        raise AssertionError("the sharded Script's rows differ")
+    return dict(natoms=natoms, steps=SCRIPT_SHARD_STEPS, rows_gap=gap,
+                rows=[{k: r[k] for k in ("step", "temp", "pe", "press")}
+                      for r in s4.last_rows], wall_s=wall)
+
+
+def entry_checks():
+    """(e) the port's entry checks called with their defaults, so on the
+    card in float32: entry()'s force pass on the 288-atom scene and
+    dryrun_multichip(4) (a resettle, a segment, a second resettle)."""
+    from lammps_plugins_tpu_torch.entry import dryrun_multichip, entry
+    fn, args = entry()
+    if not args[0].is_cuda:
+        raise AssertionError("entry() did not run on the card")
+    e, f, w = fn(*args)
+    if not (bool(torch.isfinite(f).all()) and bool(torch.isfinite(w).all())
+            and f.shape == (288, 3)):
+        raise AssertionError("entry(): non-finite or misshapen output")
+    t0 = time.perf_counter()
+    dryrun_multichip(4)
+    torch.cuda.synchronize()
+    out = dict(entry_pe=float(e), entry_max_f=float(f.abs().max()),
+               dryrun_s=time.perf_counter() - t0)
+    print(f"entry checks on the card: {out}")
+    return out
+
+
+def phase10_sharded(dev, modules):
+    """The sharded engine on the card: (a) the bench scene, (b) config 2,
+    (c) config 5, (d) the sharded Script, (e) the entry checks.  Returns (record, launches of
+    the bench's 2x2 graph run, shard-0 kernel records)."""
+    gpu = sh("nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader")
+    with timed("phase 10 (a) bench scene"):
+        bench, launches, kern, pe_atom = sharded_bench(dev, modules, gpu)
+    with timed("phase 10 (b) config 2"):
+        melt = sharded_melt(dev, modules)
+    with timed("phase 10 (c) config 5"):
+        scale = sharded_scale(dev, modules, gpu, pe_atom)
+    with timed("phase 10 (d) sharded Script"):
+        script = sharded_script(dev)
+    with timed("phase 10 (e) entry checks"):
+        entry = entry_checks()
+    out = dict(gpu=gpu, bench=bench, melt=melt, scale=scale, script=script,
+               entry=entry)
+    print("SHARDED " + json.dumps(out))
+    return out, launches, kern
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--golden-rebo", default="",
@@ -2630,6 +3176,11 @@ def main():
         results[KERNEL_NAMES[m]]["script"] = dict(
             launches=script_launches[m])
     print("SCRIPT " + json.dumps(script))
+    with timed("phase 10"):
+        sharded, shard_launches, shard_kern = phase10_sharded(dev, modules)
+    for m in MAIN_PATH:
+        results[KERNEL_NAMES[m]]["sharded"] = dict(
+            shard_kern[m], launches=shard_launches[m])
     for m in MAIN_PATH:
         results[KERNEL_NAMES[m]]["monolayer"] = dict(
             {"rebo": mono["rebo_at_run_k"], "mirror": mono["mirror_at_run_k"],

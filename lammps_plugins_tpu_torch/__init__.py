@@ -22,6 +22,10 @@ package mirrors its module paths so each counterpart is easy to find:
   run/         Engine (device loop as CUDA graphs, host loop, half-skin
                rebuild rule), FIRE minimize, thermo, dumps, restart
                files, timers
+  parallel/    ShardedEngine: x-slabs and Px x Py grids with migration,
+               halo exchange and per-shard rebuilds, every shard on one
+               device, its iteration one CUDA graph
+  entry.py     entry checks: one force pass, a sharded dryrun
   convert.py   numpy bridge from the JAX package's objects
 
 The port imports torch, never jax, and nothing of the JAX package: it
@@ -42,12 +46,15 @@ of any other dtype raises.
 
 __version__ = "0.1.0"
 
-__all__ = ["Script", "ScriptError"]
+__all__ = ["Script", "ScriptError", "ShardedEngine"]
 
 
 def __getattr__(name):
-    """`from lammps_plugins_tpu_torch import Script` (imported on first
-    use, so that importing the package stays light)."""
+    """`from lammps_plugins_tpu_torch import Script, ShardedEngine`
+    (imported on first use, so that importing the package stays light)."""
+    if name == "ShardedEngine":
+        from .parallel import ShardedEngine
+        return ShardedEngine
     if name in __all__:
         from .api import script
         return getattr(script, name)

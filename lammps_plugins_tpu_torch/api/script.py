@@ -10,9 +10,13 @@ graphs on the card.
 
 Script(log=print, dtype=torch.float32, device="cuda") runs on the card
 and raises without one; a CPU run passes device="cpu" (and
-dtype=torch.float64 for the parity checks).  n_devices > 1 raises: the
-spatially sharded engine is not ported yet.  `plugin load` registers into
-the port's own registry (lammps_plugins_tpu_torch/registry.py).
+dtype=torch.float64 for the parity checks).  n_devices > 1 runs the deck
+on the spatially sharded engine (parallel/sharded_engine.py, `mpirun -np
+N`), with the shards on `devices` (e.g. ["cuda:0"] * 4 or ["cpu"] * 4);
+as in the JAX package only the timestep and the skin reach it, so
+`neigh_modify every` does not, and per-atom computes and minimize stay
+single-device.  `plugin load` registers into the port's own registry
+(lammps_plugins_tpu_torch/registry.py).
 
 Differences of mechanism, not of result: a ramped fix (nvt, langevin) is
 re-anchored at every `run` as in the JAX package, and the device loop
@@ -50,6 +54,7 @@ from ..potentials.aeam import AEAM
 from ..potentials.rebomos import REBOMoS
 from ..potentials import ljcut as _ljcut   # noqa: F401  (registers lj/cut*)
 from ..potentials import none as _none     # noqa: F401  (registers none/zero)
+from ..parallel.sharded_engine import ShardedEngine
 from ..run.simulation import Engine
 
 _NOOP_COMMANDS = {"dump_modify", "log", "echo",
@@ -65,19 +70,23 @@ class Script:
     """Stateful command interpreter (one LAMMPS 'input deck')."""
 
     def __init__(self, log: Callable[[str], None] = print,
-                 dtype=torch.float32, device="cuda", n_devices: int = 1):
+                 dtype=torch.float32, device="cuda", n_devices: int = 1,
+                 devices=None):
         """The deck runs on `device` in `dtype` (the card and float32
-        unless the caller asks otherwise).  n_devices > 1 (the JAX
-        package's sharded engine, `mpirun -np N`) is not ported yet."""
-        if n_devices > 1:
+        unless the caller asks otherwise).  n_devices > 1 runs it on the
+        sharded engine with one shard per entry of `devices`, all the
+        deck's device (e.g. ["cuda:0"] * 4): shards cannot be placed on
+        several cards yet, so `devices` is required."""
+        if n_devices > 1 and (devices is None or len(devices) != n_devices):
             raise ScriptError(
-                f"n_devices={n_devices}: the spatially sharded engine "
-                "(lammps_plugins_tpu/parallel/sharded_engine.py) is not "
-                "ported to lammps_plugins_tpu_torch yet; run on one device")
+                f"n_devices={n_devices} needs devices, one per shard, all "
+                f"the deck's device (devices=['cuda:0'] * {n_devices}); "
+                f"got {devices}")
         self.dtype = dtype
         self.device = resolve(device)
         self.log = log
         self.n_devices = n_devices
+        self.devices = devices
         self.units = units_mod.METAL
         self.atom_style = "atomic"
         self.dimension = 3
@@ -687,13 +696,22 @@ class Script:
         del self.fixes[i]
         self.engine = None
 
+    def _single_engine(self, style: str) -> Engine:
+        """The Engine whose lists a per-atom compute reads; the sharded
+        engine's lists are per shard, so a sharded deck refuses (the JAX
+        Script cannot run them either)."""
+        if isinstance(self.engine, ShardedEngine):
+            raise ScriptError(f"compute {style} is single-device: the "
+                              "sharded engine's lists are per shard")
+        return self.engine
+
     def cmd_compute(self, args):
         """compute ID group style — pe/atom and ke/atom supported."""
         cid, group, style = args[0], args[1], args[2]
         gmask = self._group_mask(group)     # None for "all"
         if style == "pe/atom":
             def raw(state):
-                eng = self.engine
+                eng = self._single_engine("pe/atom")
                 return eng.pair.energy_peratom(state.x, state.type, eng.nbr,
                                                state.box.h)
         elif style == "ke/atom":
@@ -722,7 +740,7 @@ class Script:
             def raw6(state):
                 if cache["state"] is state:
                     return cache["value"]
-                eng = self.engine
+                eng = self._single_engine("stress/atom")
                 vat = eng.pair.virial_peratom(state.x, state.type,
                                               eng.nbr, state.box.h)
                 m = state.per_atom_mass
@@ -909,6 +927,11 @@ class Script:
                     if isinstance(f, FixNVT):
                         raise ScriptError("fix bfield requires an NVE "
                                           "style integrator")
+        if self.n_devices > 1:
+            # as the JAX Script (script.py:876-880): dt and skin only
+            return ShardedEngine(state, self.pair, self.fixes, self.units,
+                                 devices=self.devices, dt=self.dt,
+                                 skin=self.skin)
         return Engine(state, self.pair, self.fixes, self.units,
                       dt=self.dt, skin=self.skin,
                       check_every=self.check_every)
@@ -942,6 +965,10 @@ class Script:
             maxiter = min(maxiter, int(args[3]))
         if self.engine is None:
             self.engine = self._make_engine()
+        if isinstance(self.engine, ShardedEngine):
+            raise ScriptError("minimize is single-device (run it before "
+                              "sharded dynamics, like LAMMPS minimizes "
+                              "before production runs)")
         res = _minimize(self.engine, etol=etol, ftol=ftol, maxiter=maxiter)
         self.log(repr(res))
         self.last_min = res
@@ -961,7 +988,7 @@ class Script:
         ramped = [fx for fx in self.fixes
                   if hasattr(fx, "begin_step") and hasattr(fx, "t_stop")
                   and fx.t_stop != fx.t_start]
-        b = int(eng.state.step)
+        b = int(eng.step)
         for fx in ramped:
             fx.begin_step, fx.end_step = b, b + n
 
@@ -982,7 +1009,8 @@ class Script:
             fx = fix_by_id.get(name)
             if fx is None:
                 return 0.0
-            st = eng.state
+            st = (eng.fix_view_state() if isinstance(eng, ShardedEngine)
+                  else eng.state)
             if k is None:
                 return float(fx.energy(st, eng.ctx))
             return float(fx.vector(st)[k - 1])

@@ -83,12 +83,23 @@ class FixLangevin(Fix):
         delta = torch.clamp(delta.to(state.x.dtype), 0.0, 1.0)
         return self.t_start + delta * (self.t_stop - self.t_start)
 
-    def noise(self, state: State) -> torch.Tensor:
-        """[N, 3] uniform(-0.5, 0.5) of the fix's current step."""
-        key = threefry.fold_in(self.prng_key,
-                               state.extras[self.key]["step"])
-        return threefry.uniform(key, tuple(state.v.shape), state.x.dtype,
-                                -0.5, 0.5, state.x.device)
+    def noise(self, state: State, ctx: StepContext | None = None
+              ) -> torch.Tensor:
+        """[N, 3] uniform(-0.5, 0.5) of the fix's current step.  On the
+        sharded engine's stacked state (ctx.shards = (Pn, n_cap)) each
+        block d draws its own [n_cap, 3] under fold_in(key, d), as each
+        JAX shard does (JAX langevin.py:78-82)."""
+        step = state.extras[self.key]["step"]
+        key = threefry.fold_in(self.prng_key, step)
+        dtype, dev = state.x.dtype, state.x.device
+        if ctx is None or ctx.shards is None:
+            return threefry.uniform(key, tuple(state.v.shape), dtype,
+                                    -0.5, 0.5, dev)
+        n_shards, n_cap = ctx.shards
+        return torch.cat([
+            threefry.uniform(threefry.fold_in(key, torch.full_like(step, d)),
+                             (n_cap, 3), dtype, -0.5, 0.5, dev)
+            for d in range(n_shards)])
 
     def post_force(self, state: State, ctx: StepContext) -> State:
         u = ctx.units
@@ -98,7 +109,7 @@ class FixLangevin(Fix):
         gamma2 = torch.sqrt(24.0 * u.boltz * t_target * m * u.mvv2e
                             / (self.damp * ctx.dt))
         f = state.f + self._sel(state) * (gamma1 * state.v
-                                          + gamma2 * self.noise(state))
+                                          + gamma2 * self.noise(state, ctx))
         return state.replace(f=f)
 
     def end_of_step(self, state: State, ctx: StepContext) -> State:

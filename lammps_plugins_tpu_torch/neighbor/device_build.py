@@ -411,13 +411,20 @@ def flags_to_host(flags: Dict[str, torch.Tensor]) -> Dict[str, int]:
 
 
 def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
-                   cut_mats: Dict[str, np.ndarray], react: bool = False):
+                   cut_mats: Dict[str, np.ndarray], react: bool = False,
+                   valid: torch.Tensor | None = None):
     """(x, image) -> (xw, image', NeighborData, flags) with fixed shapes.
 
     cut_mats: per-tier [T+1, T+1] cutoff matrices (numpy).  react: measure
     the route geometry of the mirror tiers (count:rnw/rkc/rq) and, when
     the plan carries route capacities, build the route tables and their
-    target-major form rtgt (react_overflow flags them too small)."""
+    target-major form rtgt (react_overflow flags them too small).
+    valid: optional [N] bool (JAX device_build.py:553): rows marked False,
+    the pad rows of the sharded engine's blocks, are kept out of the
+    boundary set, the ghosts, the candidate cells and the cell table, so
+    that no list holds them; they should be parked far outside the box
+    along a non-periodic axis, where no centre finds them and their own
+    rows stay empty."""
     dtype, dev = x.dtype, x.device
     n = x.shape[0]
     cst = rebuild_constants(plan, cut_mats, dtype, dev)
@@ -436,6 +443,8 @@ def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
     Mg, Nb = plan.ghost_capacity, plan.bnd_capacity
     near = (fw <= margins) | (fw >= 1.0 - margins)
     bnd = torch.any(near & per[None, :], dim=1)
+    if valid is not None:
+        bnd = bnd & valid
     flags = {"count:bnd": bnd.sum()}
     if 0 < Nb < n:
         bsel = _compact(bnd, Nb)
@@ -450,6 +459,8 @@ def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
     else:
         fi = fw[None, :, :] + shifts[:, None, :]            # [S, N, 3]
         keep = torch.all((fi >= -margins) & (fi <= 1.0 + margins), dim=-1)
+        if valid is not None:
+            keep = keep & valid[None, :]
         flat = keep.reshape(-1)
         sel = _compact(flat, Mg)
         ss = torch.clamp(sel, min=0)
@@ -466,8 +477,8 @@ def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
     x_all = ghosts.all_positions(xw, h)                     # [n+Mg, 3]
     t_all = ghosts.all_types(types)
     m_all = n + Mg
-    valid_row = torch.cat([torch.ones(n, dtype=torch.bool, device=dev),
-                           ghost_valid])
+    valid_row = torch.cat([torch.ones(n, dtype=torch.bool, device=dev)
+                           if valid is None else valid, ghost_valid])
     lo_off = lo - cst["lo_ref"]
     mn = cst["grid_mn"] + lo_off
     x_pad = torch.cat([x_all, x.new_full((1, 3), 1e7)], dim=0)
@@ -487,9 +498,13 @@ def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
         sidx_ghost = torch.where(ghost_valid, sidx_from_sel,
                                  torch.zeros_like(sidx_from_sel))
         Np = -(-n // 128) * 128
+        # pad rows take no candidates, and no share of a kernel block (they
+        # would all sit in the clipped edge cell of their parking place)
+        c3_own = c3f[:n] if valid is None else torch.where(
+            valid[:, None], c3f[:n], torch.full_like(c3f[:n], -1))
         for name, K in plan.k_caps:
             idx, jtype, mask, kmax = select_candidates(
-                xt_pad, dense_f, c3f[:n], plan.cand_dims, cst["cut"][name],
+                xt_pad, dense_f, c3_own, plan.cand_dims, cst["cut"][name],
                 K)
             kw = {}
             if name in plan.mirror_tiers:

@@ -19,7 +19,9 @@ dx = x_candidate - x_atom and cut[t_i, t_j] = fl(cm) + skin.
 The twin builds the [rows, W] keys and selects with select_k_ref, in
 chunks of rows; the kernel stages each fine cell's 27 neighbour cells in
 shared memory and writes only the [N, K] outputs.  On the card both give
-the same lists, element for element.
+the same lists, element for element.  A row whose cell has a negative
+coordinate (a pad row of the sharded engine's blocks) has no candidates:
+an empty list, and no share of a block's work.
 """
 
 from __future__ import annotations
@@ -43,14 +45,16 @@ BIG = float("inf")
 
 def neighbour_cells(c3f, fdims):
     """[n, 27] flat ids of the fine cells around each c3f row; out-of-range
-    cells map to the table's empty pad row (ncf + 1)."""
+    cells, and every cell of a row with a negative coordinate, map to the
+    table's empty pad row (ncf + 1)."""
     dev = c3f.device
     ncf = fdims[0] * fdims[1] * fdims[2]
     offs = build.device_constants(OFFS27, dev, torch.int64)
     nbr3 = c3f[:, None, :] + offs[None, :, :]
     in_rng = torch.all((nbr3 >= 0)
                        & (nbr3 < build.device_constants(tuple(fdims), dev,
-                                                        torch.int64)), -1)
+                                                        torch.int64)), -1) \
+        & torch.all(c3f >= 0, -1)[:, None]
     ncid = (nbr3[..., 0] * fdims[1] + nbr3[..., 1]) * fdims[2] \
         + nbr3[..., 2]
     return torch.where(in_rng, ncid, torch.full_like(ncid, ncf + 1))
@@ -118,11 +122,14 @@ def select_candidates_ref(xt_pad, dense_f, c3f, fdims, cut, k,
 def prepare(dense_f, c3f, fdims, cut):
     """The kernel's int32 inputs: the cell table, the owned atoms ordered
     by fine cell (one block per cell takes its run [starts[c],
-    starts[c + 1]) of `order`) and the float32 cutoff table."""
+    starts[c + 1]) of `order`; rows with a negative cell sort past the
+    last run, which no block takes) and the float32 cutoff table."""
     d0, d1, d2 = (int(d) for d in fdims)
     dev, i32 = c3f.device, torch.int32
     # int32 keys: half the radix passes of int64 ones
     cid = ((c3f[:, 0] * d1 + c3f[:, 1]) * d2 + c3f[:, 2]).to(i32)
+    cid = torch.where(torch.all(c3f >= 0, -1), cid,
+                      torch.full_like(cid, d0 * d1 * d2))
     scid, order = torch.sort(cid)
     starts = torch.searchsorted(scid, torch.arange(d0 * d1 * d2 + 1,
                                                    dtype=i32, device=dev))
@@ -137,7 +144,8 @@ def select_candidates(xt_pad, dense_f, c3f, fdims, cut, k):
     xt_pad [m_all + 1, 4]: x, y, z and type of the owned+ghost rows (the
     owned atoms first) and a pad row (x = 1e7, type 0); dense_f
     [ncf + 2, Cf] int64: the fine-cell table (m_all in empty slots; row
-    ncf + 1 empty); c3f [n, 3]: the fine cell of each owned atom; fdims:
+    ncf + 1 empty); c3f [n, 3]: the fine cell of each owned atom (a
+    negative coordinate: a row without candidates); fdims:
     the fine grid; cut [T + 1, T + 1]: cm + skin per type pair.  CPU
     tensors take the twin; CUDA float32 tensors the kernel."""
     global launches
@@ -164,10 +172,11 @@ def select_candidates(xt_pad, dense_f, c3f, fdims, cut, k):
                          f"on {dense_f.device}, expected "
                          f"({d0 * d1 * d2 + 2}, Cf) on {dev}")
     table, order, starts, cutc = prepare(dense_f, c3f, fdims, cut)
-    idx = torch.empty((n, k), dtype=torch.int64, device=dev)
-    jtype = torch.empty((n, k), dtype=torch.int64, device=dev)
-    mask = torch.empty((n, k), dtype=torch.bool, device=dev)
-    cnt = torch.empty(n, dtype=torch.int32, device=dev)
+    # zeros: the rows no block takes keep an empty list
+    idx = torch.zeros((n, k), dtype=torch.int64, device=dev)
+    jtype = torch.zeros((n, k), dtype=torch.int64, device=dev)
+    mask = torch.zeros((n, k), dtype=torch.bool, device=dev)
+    cnt = torch.zeros(n, dtype=torch.int32, device=dev)
     status = build.lib().lpt_select_candidates(
         xp, table.data_ptr(), order.data_ptr(), starts.data_ptr(),
         cutc.data_ptr(), nt, idx.data_ptr(), jtype.data_ptr(),

@@ -148,15 +148,34 @@ class PairStyle:
                    for c in self.neighbor_requests().values())
 
     def ghost_margin(self, skin: float) -> float:
-        """Halo width for exact owned forces under spatial sharding (the
-        JAX package's conservative default: twice the max cutoff plus
-        skin; the sharded engine is not ported yet)."""
+        """Halo width for exact owned forces under spatial sharding
+        (JAX base.py:114): a halo atom whose edge mirrors into an owned
+        force sum needs its own many-body environment complete, so the
+        conservative default is twice the max cutoff plus skin; styles
+        may override it with their per-tier structure.  A pairwise style
+        (lj/cut) keeps it too: its halo rows need neighbours within one
+        cutoff only, but the mirror combine reads a halo row's whole edge
+        row (JAX ljcut.py:104)."""
         return 2.0 * (self.max_cutoff() + skin)
+
+    def for_sharded(self) -> "PairStyle":
+        """This style configured for per-shard evaluation (JAX base.py:99):
+        every call then sees one shard's [owned | halo] row space, so a
+        style that keeps a row index set built from the global types in
+        prepare() returns a copy without it.  The copy may share every
+        table with the original."""
+        return self
 
     def energy(self, x: torch.Tensor, strain: torch.Tensor | None,
                types: torch.Tensor, nbr: NeighborData,
-               h: torch.Tensor) -> torch.Tensor:
-        """Total potential energy (differentiable in x and strain)."""
+               h: torch.Tensor, center_mask=None) -> torch.Tensor:
+        """Total potential energy (differentiable in x and strain).
+
+        center_mask: optional [N] bool of the rows that count as owned
+        centres.  The sharded engine passes its shard's owned rows: the
+        halo rows of its local block are centres owned by another shard,
+        so their terms are left out and each directed edge is counted by
+        exactly one shard."""
         raise NotImplementedError
 
     def energy_force_virial(self, x, types, nbr, h):

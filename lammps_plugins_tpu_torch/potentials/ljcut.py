@@ -132,10 +132,13 @@ class PairLJCut(PairStyle):
         """(e, e') per edge of the style."""
         return self._lj(rsq, mask, self._edge_flat_types(types, nbr, nlist))
 
-    def energy(self, x, strain, types, nbr: NeighborData, h):
+    def energy(self, x, strain, types, nbr: NeighborData, h,
+               center_mask=None):
         nlist = nbr.lists["main"]
         _, _, _, rsq, mask = edge_components(x, nbr.ghosts, nlist, h, strain)
         e, _ = self._edge_terms(rsq, mask, types, nbr, nlist)
+        if center_mask is not None:
+            e = e * center_mask[:, None].to(e.dtype)
         # a full (directed) list: each pair appears twice
         return 0.5 * torch.sum(e)
 
@@ -211,6 +214,11 @@ class PairLJCutCoulCut(PairLJCut):
         view = copy.copy(self)
         view._q = q
         return view
+
+    def for_sharded(self) -> "PairLJCutCoulCut":
+        """Without the globally bound charges: the sharded engine binds
+        each shard's [owned | halo] charges through with_charges."""
+        return self.with_charges(None)
 
     def _interaction_cut(self) -> np.ndarray:
         return np.maximum(self._cut, self.cut_coul)

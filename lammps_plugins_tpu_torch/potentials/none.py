@@ -33,7 +33,7 @@ class PairNone(PairStyle):
         cut[1:, 1:] = self.cutoff
         return {"main": cut}
 
-    def energy(self, x, strain, types, nbr, h):
+    def energy(self, x, strain, types, nbr, h, center_mask=None):
         # depends on x and strain so that their gradients are defined
         # (strain is None on the forces-only path)
         e = 0.0 * torch.sum(x)

@@ -41,6 +41,7 @@ the scatter twin, on the CPU only.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import math
 
@@ -107,14 +108,42 @@ def p_coord(NM, NS, a):
         + a[..., 3]
 
 
+#: elements of one piece of the autograd energy's [rows, K, K] (REBO) or
+#: [cells, C, C] (LJ cells) temporaries: past it the sum runs over pieces,
+#: each recomputed in the backward pass (checkpoint), so that a thermo
+#: row's autograd holds one piece's temporaries; below it one piece, the
+#: sums as they were
+ENERGY_PIECE_ELEMS = 2 ** 25
+
+
+def _pieces(n: int, per_row: int):
+    """Row ranges of at most ENERGY_PIECE_ELEMS // per_row rows."""
+    step = max(1, ENERGY_PIECE_ELEMS // per_row)
+    return [(c0, min(c0 + step, n)) for c0 in range(0, n, step)]
+
+
 def rebo_energy_rows(dx, dy, dz, mask, ei, ej, consts):
     """REBO energy of [N, K] edge displacements (rows = centers).
 
     ei: [N] center element codes and ej: [N, K] neighbor codes, both
     float 0/1; consts: derive_rebo_constants(tables) (bilinear rows).
-    Every term is row-local."""
-    return 0.5 * torch.sum(rebo_edge_energy(dx, dy, dz, mask, ei, ej,
-                                            consts))
+    Every term is row-local, so a large N is summed in row pieces
+    (ENERGY_PIECE_ELEMS)."""
+    N, K = mask.shape
+    pieces = _pieces(N, K * K)
+    if len(pieces) == 1:
+        return 0.5 * torch.sum(rebo_edge_energy(dx, dy, dz, mask, ei, ej,
+                                                consts))
+
+    def piece(*rows):
+        return torch.sum(rebo_edge_energy(*rows, consts))
+
+    e = dx.new_zeros(())
+    for c0, c1 in pieces:
+        e = e + checkpoint(piece, dx[c0:c1], dy[c0:c1], dz[c0:c1],
+                           mask[c0:c1], ei[c0:c1], ej[c0:c1],
+                           use_reentrant=False)
+    return 0.5 * e
 
 
 def rebo_edge_energy(dx, dy, dz, mask, ei, ej, consts):
@@ -249,16 +278,29 @@ class REBOMoS(PairStyle):
                    2.0 * (float(np.max(t.rcmax)) + skin))
 
     # -- energy (autograd path: thermo, virial, host-list forces) ---------
-    def energy(self, x, strain, types, nbr: NeighborData, h):
+    def energy(self, x, strain, types, nbr: NeighborData, h,
+               center_mask=None):
+        """center_mask: [N] bool of the true owned centres (JAX
+        rebomos.py:203).  Under the sharded engine the halo rows are
+        pseudo-owned centres whose directed edges another shard counts, so
+        they are masked out of every tier."""
         ghosts = nbr.ghosts
         el_own = self.el_of_type[types]
+
+        def owned(nlist):
+            if center_mask is None:
+                return nlist
+            return dataclasses.replace(
+                nlist, mask=nlist.mask & center_mask[:, None])
+
         e_rebo = self._rebo_energy(x, strain, el_own, ghosts,
-                                   nbr.lists["rebo"], h)
+                                   owned(nbr.lists["rebo"]), h)
         if "master" in nbr.lists:
             e_lj = self._lj_energy(x, strain, el_own, ghosts,
-                                   nbr.lists["master"], h)
+                                   owned(nbr.lists["master"]), h)
         else:
-            e_lj = self._lj_energy_cells(x, strain, ghosts, nbr.cells, h)
+            e_lj = self._lj_energy_cells(x, strain, ghosts, nbr.cells, h,
+                                         center_mask=center_mask)
         return e_rebo + e_lj
 
     def _rebo_energy(self, x, strain, el_own, ghosts: Ghosts,
@@ -301,45 +343,57 @@ class REBOMoS(PairStyle):
                         torch.sqrt(rsq), rsq)
         return 0.5 * torch.sum(torch.where(mask, vlj, torch.zeros_like(vlj)))
 
-    def _lj_energy_cells(self, x, strain, ghosts, cells: CellData, h):
+    def _lj_energy_cells(self, x, strain, ghosts, cells: CellData, h,
+                         center_mask=None):
         """Switched LJ over the half-offset cell decomposition: each
         unordered candidate pair once (the self-cell block holds both slot
         orders, hence its extra 1/2), weighted by (owned_a + owned_b)/2.
-        The per-offset body is recomputed in the backward pass
-        (checkpoint), so autograd never holds every offset's
-        [ncells, C, C] block at once."""
+        With a center_mask the ownership is that mask (ghosts and the pad
+        row 0) instead of the row range.  The per-offset body is
+        recomputed in the backward pass (checkpoint), so autograd never
+        holds every offset's [ncells, C, C] block at once; many cells are
+        taken in pieces of cells (ENERGY_PIECE_ELEMS)."""
         x_all = ghosts.all_positions(x, h)
         m_all = x_all.shape[0]
         xpad = torch.cat([x_all, x.new_full((1, 3), 1e7)], dim=0)
         cxs = [xpad[:, a][cells.table] for a in range(3)]
         cel = self.el_of_type[cells.jtype]
         valid = cells.table < m_all
-        ownedf = (cells.table < cells.n_owned).to(x.dtype)
+        if center_mask is None:
+            ownedf = (cells.table < cells.n_owned).to(x.dtype)
+        else:
+            own_pad = torch.cat([center_mask.to(x.dtype), x.new_zeros(
+                m_all + 1 - center_mask.shape[0])])
+            ownedf = own_pad[cells.table]
         ncells = cells.nbr_map.shape[0]
         ael, aid = cel[:ncells], cells.table[:ncells]
         aval, aown = valid[:ncells], ownedf[:ncells]
 
-        def one_offset(nb_col, s, strain_, *cx):
-            d = [cx[a][nb_col][:, None, :] - cx[a][:ncells][:, :, None]
+        def one_offset(c0, c1, nb_col, s, strain_, *cx):
+            d = [cx[a][nb_col][:, None, :] - cx[a][c0:c1][:, :, None]
                  for a in range(3)]
             if strain_ is not None:
                 d = [d[a] + d[0] * strain_[0, a] + d[1] * strain_[1, a]
                      + d[2] * strain_[2, a] for a in range(3)]
             rsq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-            w = (aown[:, :, None] + ownedf[nb_col][:, None, :]) * s
-            pmask = (aval[:, :, None] & valid[nb_col][:, None, :]
-                     & (aid[:, :, None] != cells.table[nb_col][:, None, :]))
+            w = (aown[c0:c1, :, None] + ownedf[nb_col][:, None, :]) * s
+            pmask = (aval[c0:c1, :, None] & valid[nb_col][:, None, :]
+                     & (aid[c0:c1, :, None]
+                        != cells.table[nb_col][:, None, :]))
             rsq = torch.where(pmask, rsq, torch.ones_like(rsq))
-            vlj = self._vlj(ael[:, :, None], cel[nb_col][:, None, :],
+            vlj = self._vlj(ael[c0:c1, :, None], cel[nb_col][:, None, :],
                             torch.sqrt(rsq), rsq)
             return torch.sum(torch.where(pmask, w * vlj,
                                          torch.zeros_like(vlj)))
 
         e = x.new_zeros(())
+        C = cells.table.shape[1]
         for o in range(cells.nbr_map.shape[1]):
             s = 0.25 if o == 0 else 0.5
-            e = e + checkpoint(one_offset, cells.nbr_map[:, o], s, strain,
-                               *cxs, use_reentrant=False)
+            for c0, c1 in _pieces(ncells, C * C):
+                e = e + checkpoint(one_offset, c0, c1,
+                                   cells.nbr_map[c0:c1, o], s, strain, *cxs,
+                                   use_reentrant=False)
         return e
 
     # -- analytic forces (the per-step path) -------------------------------

@@ -1,5 +1,12 @@
-"""The Engine's device loop (port of lammps_plugins_tpu/run/simulation.py,
-`_device_loop_fn` and the loop half of `_run_span_device`).
+"""The device loop (port of lammps_plugins_tpu/run/simulation.py,
+`_device_loop_fn` and the loop half of `_run_span_device`, and of
+lammps_plugins_tpu/parallel/sharded_engine.py, `_build_loop`).
+
+`GraphIteration` holds what both loops share: the control vector, the
+decision rule, the capture, the conditional node, replay and read.
+`DeviceLoop` is the Engine's iteration; the sharded engine's, whose
+rebuild is the resettle of every shard, is
+parallel/sharded_engine.py::ShardLoop.
 
 One iteration of the JAX loop body, on buffers that stay in place:
 
@@ -158,96 +165,63 @@ class SpanResult:
     flags: dict
 
 
-class DeviceLoop:
-    """The iteration's buffers and, on a CUDA state, its graph.  Built by
-    the Engine for one plan, pair style, fix list, dt, skin and
-    check_every (Engine._device_loop); anything else means a new loop."""
+class GraphIteration:
+    """One iteration of the loop body on buffers that stay in place, and,
+    on a CUDA device, its graph: the rebuild under the conditional node on
+    `pending`, then the segment.  A subclass holds the buffers and defines
+    `_rebuild()` (rebuild into its buffers and `_merge_flags` the flags)
+    and `_steps()` (check_every steps from its buffers; returns the new
+    tensors of the buffers a step changes, by buffer key, and md, the
+    largest squared displacement since the rebuild, in float64).  Both
+    may launch kernels and read and write device tensors only.
 
-    def __init__(self, eng, flag_names):
-        st = eng.state
-        self.eng = eng
-        self.plan = eng._plan
-        self.check = eng.check_every
-        self.requests = eng.pair.neighbor_requests()
-        half2 = (0.5 * eng.skin) ** 2
+    Built for one plan and configuration; anything else means a new
+    iteration (Engine._device_loop, ShardedEngine._device_loop)."""
+
+    def __init__(self, device, flag_names, check: int, skin: float):
+        half2 = (0.5 * skin) ** 2
         self.half2, self.c95 = half2, 0.95 * math.sqrt(half2)
-        bad = [type(f).__name__ for f in eng.fixes
-               if not getattr(f, "capturable", True)]
-        if bad:
-            raise RuntimeError(f"fused loop: fixes {bad} read host values "
-                               "in their hooks and cannot be captured")
-        dev = st.x.device
-        self.cuda = st.x.is_cuda
+        self.check = check
+        self.cuda = device.type == "cuda"
         self.names = list(flag_names)
-        # the loop's state in place: x, v, f, image and the extras tensors
-        # (keyed by their key paths); type, mass, box as given
-        self.xpaths = [p for p, _ in extras_items(st.extras)]
-        self.buf = {a: getattr(st, a).clone()
-                    for a in _STATE_FIELDS + ("image",)}
-        self.buf.update(zip(_RB_IN, (t.clone() for t in eng._rb_in)))
-        self.buf.update((p, t.clone()) for p, t in extras_items(st.extras))
-        self.snap = {a: t.clone() for a, t in self.buf.items()}
-        self.base = self._state(st)
-        self.nbr = _cloned(eng.nbr)
+        self.buf = {}                 # the carried tensors, by key
+        self.snap = {}                # their copies at start()
         self.ctl = torch.zeros(len(_CTL) + len(self.names), dtype=torch.int64,
-                               device=dev)
+                               device=device)
         self.done, self.n_rb = self.ctl[0], self.ctl[2]
         self.flags = self.ctl[len(_CTL):]
-        self.pending = torch.zeros((), dtype=torch.bool, device=dev)
-        self.dprev = torch.zeros((), dtype=torch.float64, device=dev)
+        self.pending = torch.zeros((), dtype=torch.bool, device=device)
+        self.dprev = torch.zeros((), dtype=torch.float64, device=device)
         self.graphs = ()
         self.exec = None
         self.rb_launches = self.seg_launches = None
         self.pool_bytes = 0
         self.capture_s = 0.0
-        self.step0 = st.step
-        if self.cuda:
-            self._capture()
 
     # -- the iteration --------------------------------------------------------
     def _rebuild(self):
-        """Rebuild into the loop's neighbor buffers; max-merge the flags."""
-        b = self.buf
-        xw, image, nbr, flags = self.eng.rebuild_lists(
-            self.plan, b["x"], b["image"], self.base.type, self.requests)
+        raise NotImplementedError
+
+    def _steps(self):
+        raise NotImplementedError
+
+    def _merge_flags(self, flags):
+        """Max-merge a rebuild's flags into the control vector; n_rb += 1."""
         if sorted(flags) != self.names:
             raise RuntimeError(f"fused loop: rebuild flags {sorted(flags)} "
                                f"are not the loop's {self.names}")
-        b["rb_x"].copy_(b["x"])
-        b["rb_image"].copy_(b["image"])
-        b["x"].copy_(xw)
-        b["image"].copy_(image)
-        for dst, src in zip(tensors(self.nbr), tensors(nbr), strict=True):
-            dst.copy_(src)
         new = torch.stack([flags[k].to(torch.int64).reshape(())
                            for k in self.names])
         self.flags.copy_(torch.maximum(self.flags, new))
         self.n_rb.add_(1)
 
     def _segment(self):
-        """check_every steps from the loop's state, then the decisions."""
+        """check_every steps from the buffers, then the decisions."""
         b = self.buf
-        st = self.base
-        with torch.no_grad():
-            for _ in range(self.check):
-                st = self.eng._one_step(st, self.nbr)
-        moved = [f.name for f in dataclasses.fields(st)
-                 if f.name not in _STATE_FIELDS + ("step", "extras")
-                 and getattr(st, f.name) is not getattr(self.base, f.name)]
-        new = dict(extras_items(st.extras))
-        if list(new) != self.xpaths or any(
-                t.shape != b[p].shape or t.dtype != b[p].dtype
-                for p, t in new.items()):
-            moved.append("the keys, shapes or types of extras")
-        if moved:
-            raise RuntimeError(f"fused loop: a step changed {moved}; the "
-                               "loop carries x, v, f and the extras tensors")
-        dd = st.x - self.nbr.x_build
-        md = torch.max(torch.sum(dd * dd, dim=-1)).double()
+        new, md = self._steps()
         tripped = md > self.half2
         accept = self.pending | ~tripped
-        for a, t in [(a, getattr(st, a)) for a in _STATE_FIELDS] \
-                + list(new.items()):
+        for a, t in new:
             b[a].copy_(torch.where(accept, t, b[a]))
         self.done.add_(accept.to(torch.int64) * self.check)
         d = torch.sqrt(md)
@@ -259,14 +233,11 @@ class DeviceLoop:
         self.ctl[3].copy_(d.view(torch.int64))
 
     # -- CUDA graph -----------------------------------------------------------
-    def _capture(self):
-        """Warm every kernel and cache eagerly, capture the rebuild and the
-        segment, and join them under the conditional node."""
-        e, b = self.eng, self.buf
-        with torch.no_grad():
-            e.rebuild_lists(self.plan, b["x"], b["image"], self.base.type,
-                             self.requests)
-            e.pair.forces(b["x"], self.base.type, self.nbr, self.base.box.h)
+    def _capture(self, warm):
+        """Run warm() (every kernel and cache of the iteration, eagerly),
+        capture the rebuild and the segment, and join them under the
+        conditional node."""
+        warm()
         lib = build.lib()
         t0 = time.perf_counter()
         torch.cuda.synchronize()
@@ -316,39 +287,19 @@ class DeviceLoop:
             pass
 
     # -- driving --------------------------------------------------------------
-    def _state(self, st):
-        """st with x, v, f, image and extras on the loop's buffers."""
-        return st.replace(
-            extras=_nested((p, self.buf[p]) for p in self.xpaths),
-            **{a: self.buf[a] for a in _STATE_FIELDS + ("image",)})
-
-    def start(self, state, nbr, pending: bool, dprev: float):
-        """Load the Engine's state and lists (copied where they are not the
-        loop's own), the host's pending/dprev, and zero the counters.
-        Returns the Engine's state on the loop's buffers."""
-        src_of = dict(extras_items(state.extras))
-        if list(src_of) != self.xpaths:
-            raise RuntimeError(f"fused loop: state.extras holds "
-                               f"{list(src_of)}, the loop {self.xpaths}")
-        src_of.update(zip(_RB_IN, self.eng._rb_in))
+    def _load(self, src_of, pending: bool, dprev: float):
+        """Copy each buffer's source (where it is not the buffer itself)
+        in, snapshot the buffers that restore() brings back (`snap`), set
+        pending/dprev, zero the counters."""
         for a, t in self.buf.items():
-            src = src_of[a] if a in src_of else getattr(state, a)
+            src = src_of[a]
             if src is not t:
                 t.copy_(src)
-            self.snap[a].copy_(t)
-        if nbr is not self.nbr:
-            for dst, src in zip(tensors(self.nbr), tensors(nbr), strict=True):
-                dst.copy_(src)
+            if a in self.snap:
+                self.snap[a].copy_(t)
         self.pending.fill_(bool(pending))
         self.dprev.fill_(float(dprev))
         self.ctl.zero_()
-        self.step0 = state.step
-        return self._state(state)
-
-    @property
-    def rb_in(self):
-        """(x, image) that the last rebuild of the loop's state took."""
-        return self.buf["rb_x"], self.buf["rb_image"]
 
     def replay(self, n: int):
         """n iterations: n graph launches (CUDA), or n eager iterations."""
@@ -378,12 +329,118 @@ class DeviceLoop:
             flags=dict(zip(self.names, (int(x) for x in v[len(_CTL):]))))
 
     def restore(self):
-        """Back to the state start() loaded (a discarded span)."""
-        for a, t in self.buf.items():
-            t.copy_(self.snap[a])
+        """Back to the snapshot start() took (a discarded span)."""
+        for a, t in self.snap.items():
+            self.buf[a].copy_(t)
 
     def nbytes(self) -> int:
         """Device bytes of the loop's own: snapshot (extras included),
         control, graph pool."""
         return (sum(t.numel() * t.element_size() for t in self.snap.values())
                 + self.ctl.numel() * 8 + 9 + self.pool_bytes)
+
+
+class DeviceLoop(GraphIteration):
+    """The Engine's iteration: its buffers and, on a CUDA state, its graph.
+    Built by the Engine for one plan, pair style, fix list, dt, skin and
+    check_every (Engine._device_loop); anything else means a new loop."""
+
+    def __init__(self, eng, flag_names):
+        st = eng.state
+        super().__init__(st.x.device, flag_names, eng.check_every, eng.skin)
+        self.eng = eng
+        self.plan = eng._plan
+        self.requests = eng.pair.neighbor_requests()
+        bad = [type(f).__name__ for f in eng.fixes
+               if not getattr(f, "capturable", True)]
+        if bad:
+            raise RuntimeError(f"fused loop: fixes {bad} read host values "
+                               "in their hooks and cannot be captured")
+        # the loop's state in place: x, v, f, image and the extras tensors
+        # (keyed by their key paths); type, mass, box as given
+        self.xpaths = [p for p, _ in extras_items(st.extras)]
+        self.buf = {a: getattr(st, a).clone()
+                    for a in _STATE_FIELDS + ("image",)}
+        self.buf.update(zip(_RB_IN, (t.clone() for t in eng._rb_in)))
+        self.buf.update((p, t.clone()) for p, t in extras_items(st.extras))
+        self.snap = {a: t.clone() for a, t in self.buf.items()}
+        self.base = self._state(st)
+        self.nbr = _cloned(eng.nbr)
+        self.step0 = st.step
+        if self.cuda:
+            self._capture(self._warm)
+
+    # -- the iteration --------------------------------------------------------
+    def _rebuild(self):
+        """Rebuild into the loop's neighbor buffers; max-merge the flags."""
+        b = self.buf
+        xw, image, nbr, flags = self.eng.rebuild_lists(
+            self.plan, b["x"], b["image"], self.base.type, self.requests)
+        b["rb_x"].copy_(b["x"])
+        b["rb_image"].copy_(b["image"])
+        b["x"].copy_(xw)
+        b["image"].copy_(image)
+        for dst, src in zip(tensors(self.nbr), tensors(nbr), strict=True):
+            dst.copy_(src)
+        self._merge_flags(flags)
+
+    def _steps(self):
+        """check_every steps from the loop's state."""
+        b = self.buf
+        st = self.base
+        with torch.no_grad():
+            for _ in range(self.check):
+                st = self.eng._one_step(st, self.nbr)
+        moved = [f.name for f in dataclasses.fields(st)
+                 if f.name not in _STATE_FIELDS + ("step", "extras")
+                 and getattr(st, f.name) is not getattr(self.base, f.name)]
+        new = dict(extras_items(st.extras))
+        if list(new) != self.xpaths or any(
+                t.shape != b[p].shape or t.dtype != b[p].dtype
+                for p, t in new.items()):
+            moved.append("the keys, shapes or types of extras")
+        if moved:
+            raise RuntimeError(f"fused loop: a step changed {moved}; the "
+                               "loop carries x, v, f and the extras tensors")
+        dd = st.x - self.nbr.x_build
+        md = torch.max(torch.sum(dd * dd, dim=-1)).double()
+        return ([(a, getattr(st, a)) for a in _STATE_FIELDS]
+                + list(new.items())), md
+
+    def _warm(self):
+        """Every kernel and cache of the iteration, eagerly."""
+        e, b = self.eng, self.buf
+        with torch.no_grad():
+            e.rebuild_lists(self.plan, b["x"], b["image"], self.base.type,
+                            self.requests)
+            e.pair.forces(b["x"], self.base.type, self.nbr, self.base.box.h)
+
+    # -- driving --------------------------------------------------------------
+    def _state(self, st):
+        """st with x, v, f, image and extras on the loop's buffers."""
+        return st.replace(
+            extras=_nested((p, self.buf[p]) for p in self.xpaths),
+            **{a: self.buf[a] for a in _STATE_FIELDS + ("image",)})
+
+    def start(self, state, nbr, pending: bool, dprev: float):
+        """Load the Engine's state and lists (copied where they are not the
+        loop's own), the host's pending/dprev, and zero the counters.
+        Returns the Engine's state on the loop's buffers."""
+        src_of = dict(extras_items(state.extras))
+        if list(src_of) != self.xpaths:
+            raise RuntimeError(f"fused loop: state.extras holds "
+                               f"{list(src_of)}, the loop {self.xpaths}")
+        src_of.update(zip(_RB_IN, self.eng._rb_in))
+        src_of.update((a, getattr(state, a))
+                      for a in _STATE_FIELDS + ("image",))
+        self._load(src_of, pending, dprev)
+        if nbr is not self.nbr:
+            for dst, src in zip(tensors(self.nbr), tensors(nbr), strict=True):
+                dst.copy_(src)
+        self.step0 = state.step
+        return self._state(state)
+
+    @property
+    def rb_in(self):
+        """(x, image) that the last rebuild of the loop's state took."""
+        return self.buf["rb_x"], self.buf["rb_image"]

@@ -19,6 +19,8 @@ host loop (the CPU default, and every segment shorter than check_every)
 reads the segment's maximum displacement once per segment.  Both take the
 same decisions from the same numbers, so they give the same trajectory.
 A failed capture or replay raises: nothing falls back to the host loop.
+The host half of both loops (run(), the rule, the span protocol) is
+run/driver.py's, which the sharded engine shares.
 
 The on-device rebuild sizes its capacities from a plan, re-sizes on
 overflow flags, keeps a per-tier K high-water mark and quantizes K
@@ -43,8 +45,7 @@ or per-span control vector, the rebuild flags and the thermo rows.
 from __future__ import annotations
 
 import dataclasses
-import math
-from typing import Callable, List, Sequence
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -57,13 +58,9 @@ from ..neighbor.build import NeighborData, build_neighbor_data
 from ..ops.react import choose_react
 from ..potentials.base import PairStyle
 from .device_loop import DeviceLoop, device_seconds, tensors
+from .driver import LoopDriver, _overflowed
 from .thermo import thermo_row
 from .timers import Timers
-
-#: segments per span of the device loop at most: a span that overflows is
-#: run again whole, so this bounds the redone work (JAX simulation.py:720)
-SPAN_SEGMENTS = 16
-
 
 def _quantize_k(target: int) -> int:
     """Neighbor-list K for a measured kmax: multiples of 4 up to 48 (the
@@ -73,12 +70,12 @@ def _quantize_k(target: int) -> int:
     return -(-target // 16) * 16
 
 
-def _overflowed(flags) -> bool:
-    return any(v for k, v in flags.items() if "overflow" in k)
+class Engine(LoopDriver):
+    """Owns the state, the neighbor data and the loops (the host half of
+    the loops is run/driver.LoopDriver's)."""
 
-
-class Engine:
-    """Owns the state, the neighbor data and the loops."""
+    n_devices = 1
+    overflow_retries = 6           # JAX simulation.py:228, :514
 
     def __init__(self, state: State, pair: PairStyle, fixes: Sequence[Fix],
                  units: UnitSystem, dt: float | None = None,
@@ -102,7 +99,6 @@ class Engine:
         # K headroom of the re-tightening target: widened to 10 once an
         # overflow recovery has run (JAX simulation.py:89-94)
         self._k_headroom = 2
-        self._recovering = False       # a span-overflow recovery in flight
         self._bnd_hwm = 0
         self._react = getattr(pair, "combine", None) == "react"
         self._react_gate = getattr(pair, "react_gate", True)
@@ -110,8 +106,6 @@ class Engine:
         self._plan = None
         self._plan_tightened = False
         self._flag_names = None        # the flags of the plan's rebuild
-        self._pending_rebuild = False  # the rebuild rule's state (host side)
-        self._seg_dprev = 0.0
         self._loop = None
         self._loop_key = None
         self._rebuild_cost = None
@@ -186,7 +180,7 @@ class Engine:
             self.pair.neighbor_requests())
         flags = device_build.flags_to_host(flags_t)
         if _overflowed(flags):
-            if _retry >= 6:
+            if _retry >= self.overflow_retries:
                 raise RuntimeError(f"device rebuild overflow persists: "
                                    f"{flags}")
             # re-size from the measured counts (which a too-small capacity
@@ -310,36 +304,36 @@ class Engine:
             d = state.x - nbr.x_build
             return state, float(torch.max(torch.sum(d * d, dim=-1)))
 
-    def _host_segment(self, nsteps: int) -> int:
-        """One iteration of the rebuild rule on the host; returns the steps
-        it advanced (0 for a discarded segment)."""
-        pending = self._pending_rebuild
-        if pending:
-            with self.timers.section("Neigh"):
-                self.rebuild_neighbors()
-        half2 = (0.5 * self.skin) ** 2
-        with self.timers.section("Pair"):
-            new_state, md = self._segment(self.state, self.nbr, nsteps)
-        tripped = md > half2
-        if pending or not tripped:
-            self.state = new_state
-        # a discarded segment re-runs from its start after the rebuild that
-        # `tripped` asks for; a fresh-list segment that trips is kept, and
-        # the next one rebuilds first
-        d = math.sqrt(md)
-        growth = max(d - self._seg_dprev, 0.0)
-        self._pending_rebuild = d + growth > 0.95 * math.sqrt(half2) \
-            or tripped
-        self._seg_dprev = d
-        return nsteps if pending or not tripped else 0
+    # -- LoopDriver's hooks ---------------------------------------------------
+    @property
+    def step(self) -> int:
+        return self.state.step
+
+    @step.setter
+    def step(self, n: int):
+        self.state = self.state.replace(step=n)
+
+    @property
+    def device(self) -> torch.device:
+        return self.state.x.device
+
+    @property
+    def natoms(self) -> int:
+        return self.state.natoms
+
+    def _host_rebuild(self):
+        self.rebuild_neighbors()
+
+    def _host_steps(self, nsteps: int):
+        return self._segment(self.state, self.nbr, nsteps)
+
+    def _accept(self, new_state: State):
+        self.state = new_state
+
+    def _thermo_row(self) -> dict:
+        return self._thermo(self.state)
 
     # -- the device loop ------------------------------------------------------
-    def _fused(self) -> bool:
-        fused = self.fused_loop
-        if fused is None:
-            fused = self.state.x.is_cuda
-        return bool(fused) and self.device_rebuild
-
     def _device_loop(self) -> DeviceLoop:
         """The loop of the current plan and configuration; a plan change,
         another pair style, fix list or fix capture_key (a ramp's window),
@@ -358,54 +352,24 @@ class Engine:
             self._loop_key = key
         return self._loop
 
-    def _run_span_device(self, nsteps: int, _retry: int = 0):
-        """Advance `nsteps` (a multiple of check_every): iterations of the
-        device loop, one host read of the control vector per batch of
-        them, more iterations while discarded segments leave steps to do.
-        An overflow flag discards the span, re-sizes the plan, rebuilds
-        and runs the span again (JAX simulation.py:503-557)."""
-        loop = self._device_loop()
-        step0 = self.state.step
+    def _start_span(self, loop: DeviceLoop):
         self.state = loop.start(self.state, self.nbr, self._pending_rebuild,
                                 self._seg_dprev)
         self.nbr = loop.nbr
         # the last rebuild's inputs follow the loop's (restore() included)
         self._rb_in = loop.rb_in
-        reps = nsteps // self.check_every
-        while True:
-            loop.replay(reps)
-            res = loop.read()
-            if _overflowed(res.flags) or res.done >= nsteps:
-                break
-            reps = (nsteps - res.done) // self.check_every
-        if _overflowed(res.flags):
-            if _retry >= 6:
-                raise RuntimeError(f"device rebuild overflow persists: "
-                                   f"{res.flags}")
-            # a truncated list stepped physics: discard the whole span,
-            # re-size from the measured counts, re-list the last rebuild
-            # before the span, run it again
-            loop.restore()
-            self.state = self.state.replace(step=step0)
-            self._k_headroom = 10
-            self._resize_plan(res.flags, grow=1.5 * (1.3 ** _retry))
-            self._recovering = True
-            try:
-                self._rebuild_on_device(relist=True)
-                return self._run_span_device(nsteps, _retry + 1)
-            finally:
-                self._recovering = False
-        self.state = self.state.replace(step=step0 + res.done)
-        self._pending_rebuild, self._seg_dprev = res.pending, res.dprev
-        self._f_valid = True
+
+    def _resize_relist(self, flags, retry: int):
+        self._k_headroom = 10
+        self._resize_plan(flags, grow=1.5 * (1.3 ** retry))
+        self._rebuild_on_device(relist=True)
+
+    def _after_span(self, res):
+        """Count the span's rebuilds; a K cap left loose re-tightens."""
         self.rebuilds += res.n_rb
-        if res.n_rb:
-            # the span is booked under Pair: move its rebuilds to Neigh
-            self.timers.transfer("Pair", "Neigh",
-                                 res.n_rb * self._rebuild_cost_estimate())
-            if not self._recovering and self._k_slack(res.flags):
-                self._resize_plan(res.flags, grow=1.0)
-                self._rebuild_on_device(relist=True)
+        if res.n_rb and not self._recovering and self._k_slack(res.flags):
+            self._resize_plan(res.flags, grow=1.0)
+            self._rebuild_on_device(relist=True)
 
     def _rebuild_cost_estimate(self) -> float:
         """Device seconds of one rebuild, measured once (a standalone
@@ -469,56 +433,3 @@ class Engine:
                             else 0.0)}
         out["total_mb"] = sum(out.values())
         return out
-
-    def run(self, nsteps: int, thermo_every: int = 0,
-            on_thermo: Callable[[dict], None] | None = None,
-            callbacks: Sequence[tuple] = ()):
-        """Run `nsteps`; thermo rows every `thermo_every` steps, step 0
-        included (like LAMMPS).  callbacks: (every, fn) pairs; fn(state)
-        runs at the start and whenever the step count reaches a multiple
-        of `every` (dumps, restarts)."""
-        self.timers.start_run(self.state.natoms)
-        self._setup_forces()
-        rows = []
-
-        def emit():
-            with self.timers.section("Output"):
-                row = self._thermo(self.state)
-            rows.append(row)
-            if on_thermo:
-                on_thermo(row)
-
-        def boundaries(done):
-            if thermo_every and done % thermo_every == 0:
-                emit()
-            for every, fn in callbacks:
-                if done % every == 0:
-                    with self.timers.section("Output"):
-                        fn(self.state)
-
-        if thermo_every:
-            emit()
-        for every, fn in callbacks:
-            with self.timers.section("Output"):
-                fn(self.state)
-        done = 0
-        while done < nsteps:
-            span = nsteps - done
-            if thermo_every:
-                span = min(span, thermo_every - (done % thermo_every))
-            for every, _ in callbacks:
-                span = min(span, every - (done % every))
-            if self._fused() and span >= self.check_every:
-                m = min((span // self.check_every) * self.check_every,
-                        SPAN_SEGMENTS * self.check_every)
-                with self.timers.section("Pair"):
-                    self._run_span_device(m)
-                adv = m
-            else:
-                adv = self._host_segment(min(self.check_every, span))
-            if adv:
-                done += adv
-                boundaries(done)
-        self.timers.end_run(nsteps)
-        self.thermo_rows = rows
-        return rows

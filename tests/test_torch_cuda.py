@@ -72,6 +72,14 @@ the graph loop writes the same bytes twice; fix langevin's graph loop
 equals its eager loop bit for bit and its noise on the card the CPU draw;
 a ramped fix nvt over two runs (the window re-anchored by each) captures
 anew and equals the eager loop bit for bit.
+
+The sharded engine with its shards stacked on the card (864 atoms in four
+x-slabs, 1,296 in a 2x2 grid): the captured iteration (every shard's
+resettle under the conditional node, then the segment) equals the eager
+host loop bit for bit over 60 steps with resettles; A, B, C and D' on
+shard 0's own block (pad rows parked outside the slab box, halo rows, a
+box non-periodic in x) against their twins, D' exact with the pad rows
+skipped.
 """
 
 import dataclasses
@@ -1192,3 +1200,92 @@ def test_ramped_nvt_two_runs_graph_equals_eager_on_card(cuda):
     for k in ("eta", "eta_dot", "step"):
         assert torch.equal(g.state.extras["nvt:1"][k],
                            e.state.extras["nvt:1"][k]), k
+
+
+# -- the sharded engine (parallel/sharded_engine.py), shards on one card --
+
+def _sharded(dev, fused, jiggle=0.0, grid=(4, 1), temp=600.0):
+    """rebomos_bulk(12, 8, 1) (864 atoms, four 14.4 A x-slabs beside an
+    11.0 A halo margin at skin 0.5; (12, 12, 1) for a 2x2 grid), f32 on
+    `dev`, its shards stacked there."""
+    from lammps_plugins_tpu_torch.fixes.velocity import velocity_create
+    from lammps_plugins_tpu_torch.parallel import ShardedEngine
+    st = rebomos_bulk(12, 8 if grid[1] == 1 else 12, 1, tilt_xy=0.0,
+                      dtype=torch.float32, device="cpu")
+    if jiggle:
+        rng = np.random.default_rng(4)
+        st = st.replace(x=st.x + torch.as_tensor(
+            rng.uniform(-jiggle, jiggle, tuple(st.x.shape)),
+            dtype=torch.float32))
+    st = velocity_create(st, units.METAL, temp, 3)
+    st = dataclasses.replace(
+        st, x=st.x.to(dev), v=st.v.to(dev), f=st.f.to(dev),
+        type=st.type.to(dev), q=st.q.to(dev), image=st.image.to(dev),
+        mass=st.mass.to(dev), box=st.box.to(dev))
+    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float32,
+                             device=dev)
+    se = ShardedEngine(st, pair, [FixNVE()], units.METAL,
+                       devices=[dev] * (grid[0] * grid[1]), grid=grid,
+                       skin=0.5)
+    se.fused_loop = fused
+    return se
+
+
+@pytest.mark.parametrize("grid", [(4, 1), (2, 2)], ids=["slabs", "2x2"])
+def test_sharded_graph_loop_matches_eager_loop(cuda, grid):
+    """60 steps through resettles: the sharded iteration as one captured
+    graph (every shard's resettle under the conditional node) equals the
+    eager host loop bit for bit, rows, layout and halo tables included."""
+    graph, eager = (_sharded(cuda, f, grid=grid) for f in (None, False))
+    graph.run(60)
+    eager.run(60)
+    assert graph._loop is not None and graph._loop.exec is not None
+    assert eager._loop is None
+    assert graph.resettles >= 3 and graph.resettles == eager.resettles
+    for f in ("x", "v", "f", "image", "type", "q", "tag", "valid"):
+        assert torch.equal(getattr(graph.shards, f),
+                           getattr(eager.shards, f)), f
+    for f in ("t_loc", "valid_loc", "exp_r", "exp_l", "exp_u", "exp_d"):
+        assert torch.equal(getattr(graph.halo, f), getattr(eager.halo, f)), f
+
+
+def test_sharded_kernels_match_twins_on_a_shard_block(cuda):
+    """A, B, C and D' on shard 0's own block (pad rows parked outside the
+    slab box, halo rows, the slab box non-periodic in x) against their
+    twins at the JAX suite's bars, D' exact."""
+    se = _sharded(cuda, None, jiggle=0.1)
+    se._setup_forces()
+    pair = se._pair_local(se.halo, 0)
+    x = se._halo_blocks(se.shards.x, se.halo)[0]
+    t = se.halo.t_loc[0]
+    nbr = se.nbrs[0]
+    h = se._h_slab
+    rl = nbr.lists["rebo"]
+    planes = pair._rebo_planes(x, pair.el_of_type[t], nbr.ghosts, rl, h)
+    _rebo_kernel_vs_twin(planes, pair._rebo_consts)
+    gk = rebo.rebo_cotangents(*planes, pair._rebo_consts)
+    mv = rl.mirvT.float()
+    fk = mirror.mirror_combine(*gk, rl.mirT, mv)
+    ft = mirror.mirror_combine_ref(*gk, rl.mirT, mv)
+    assert float((fk - ft).abs().max()) <= 1e-5 * float(ft.abs().max())
+    P = pair._cell_planes(x, nbr.ghosts, nbr.cells, h)
+    ar = nbr.cells.a_range
+    ok = lj_cells.lj_cell_forces(P, pair._lj_consts, ar, with_energy=True)
+    ot = lj_cells.lj_cell_forces_ref(P, pair._lj_consts, ar,
+                                     with_energy=True)
+    scale = float(ot[..., :3, :].abs().max())
+    assert float((ok[..., :3, :] - ot[..., :3, :]).abs().max()) \
+        <= 2e-4 * scale
+    e_k, e_t = float(ok[..., 3, :].double().sum()), \
+        float(ot[..., 3, :].double().sum())
+    assert abs(e_k - e_t) <= 2e-5 * abs(e_t)
+    _, calls = rebuild_with_spy(
+        se._plan, x, torch.zeros_like(x, dtype=torch.int32), t, h,
+        se._hinv_slab, se._lo_shards[0], pair.neighbor_requests(),
+        valid=se.halo.valid_loc[0])
+    args = calls[0][0]
+    assert int((args[2] < 0).any(dim=1).sum()) > 0     # pad rows skipped
+    ck = select_candidates.select_candidates(*args)
+    ct = select_candidates.select_candidates_ref(*args)
+    for a, b in zip(ck, ct):
+        assert torch.equal(a, b)

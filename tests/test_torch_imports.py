@@ -2,13 +2,14 @@
 lammps_plugins_tpu_torch (core/region.py, potentials/ljcut.py and none.py,
 fixes/bfield.py, the input-script modules api/script.py, equalvar.py and
 data.py, run/dump.py, checkpoint.py and minimize.py, fixes/langevin.py
-and core/threefry.py among them) and chip_smoke.py's imports are loaded,
-and one Engine.evaluate runs on the CPU, a step of the charged melt with
-fix bfield, and a deck through the port's Script (per-atom computes, a
-dump, a restart file, a data file, FIRE and fix langevin), in a fresh
-interpreter that must end with no `jax` and no `lammps_plugins_tpu`
-module in sys.modules.  The entry points, Script among them, default to
-the card and raise without one."""
+and core/threefry.py, parallel/sharded_engine.py and entry.py among them)
+and chip_smoke.py's imports are loaded, and one Engine.evaluate runs on
+the CPU, a step of the charged melt with fix bfield, a deck through the
+port's Script (per-atom computes, a dump, a restart file, a data file,
+FIRE and fix langevin), entry() and the sharded dryrun on two shards, in
+a fresh interpreter that must end with no `jax` and no
+`lammps_plugins_tpu` module in sys.modules.  The entry points, Script
+among them, default to the card and raise without one."""
 
 import os
 import subprocess
@@ -76,6 +77,12 @@ write_data {tmp}/w.data
 ''')
 assert open(f"{tmp}/d.dump").read().count("ITEM: TIMESTEP") == 3
 assert os.path.exists(f"{tmp}/r.4") and os.path.exists(f"{tmp}/w.data")
+for m in ("parallel", "parallel.sharded_engine", "entry"):
+    assert "lammps_plugins_tpu_torch." + m in names, m
+from lammps_plugins_tpu_torch.entry import dryrun_multichip, entry
+fn, args = entry(**f64)
+assert abs(float(fn(*args)[0]) / 288 + 3.5787) < 1e-3
+dryrun_multichip(2, **f64)
 build = os.path.join(os.path.dirname(os.path.dirname(pkg.__file__)), "build")
 assert native.LIB_PATH.startswith(build + os.sep), native.LIB_PATH
 bad = sorted(m for m in sys.modules
@@ -107,6 +114,7 @@ def _entry_points():
     from lammps_plugins_tpu_torch.potentials.tables import read_rebomos
     from lammps_plugins_tpu_torch.api.data import read_data
     from lammps_plugins_tpu_torch.api.script import Script
+    from lammps_plugins_tpu_torch.entry import dryrun_multichip, entry
     from lammps_plugins_tpu_torch.run.checkpoint import load_state
     from torch_parity import SYNTH_AEAM, SYNTH_REBO
     import numpy as np
@@ -135,6 +143,8 @@ def _entry_points():
         "Script": lambda: Script(),
         "load_state": lambda: load_state("restart.npz"),
         "read_data": lambda: read_data("system.data"),
+        "entry": lambda: entry(),
+        "dryrun_multichip": lambda: dryrun_multichip(2),
     }
 
 
@@ -146,7 +156,8 @@ def _entry_points():
                                   "lj_melt", "charged_melt",
                                   "rebomos_monolayer", "PairLJCut",
                                   "PairLJCutCoulCut", "Script",
-                                  "load_state", "read_data"])
+                                  "load_state", "read_data", "entry",
+                                  "dryrun_multichip"])
 def test_entry_point_without_device_raises_without_cuda(monkeypatch, name):
     """Called without `device`, an entry point asks for the card; with no
     CUDA device it raises a clear error instead of running on the CPU."""
@@ -167,6 +178,7 @@ def test_entry_point_defaults_are_the_card_in_float32():
     from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
     from lammps_plugins_tpu_torch.api.data import read_data
     from lammps_plugins_tpu_torch.api.script import Script
+    from lammps_plugins_tpu_torch.entry import dryrun_multichip, entry
     from lammps_plugins_tpu_torch.run.checkpoint import load_state
     for fn in (scenes.rebomos_bulk, scenes.rebomos_bulk_commensurate,
                Box.triclinic, Box.from_numpy, REBOMoS.__init__,
@@ -175,7 +187,7 @@ def test_entry_point_defaults_are_the_card_in_float32():
                scenes.lj_melt, scenes.charged_melt,
                scenes.rebomos_monolayer, PairLJCut.__init__,
                PairLJCutCoulCut.__init__, Script.__init__, load_state,
-               read_data):
+               read_data, entry, dryrun_multichip):
         params = inspect.signature(fn).parameters
         assert params["device"].default == "cuda", fn
         assert params["dtype"].default is torch.float32, fn

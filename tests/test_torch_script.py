@@ -13,7 +13,8 @@ with a group-scoped fix nve, fix langevin with a ramp over two runs,
 FIRE minimize from a data file, compute msd and v_ columns, and a
 ramped fix nvt over two runs (the window re-anchored by each run).  Plus
 `plugin load` of a port style, the port's ScriptErrors (as JAX's), the
-card default of Script and its refusal of n_devices > 1.
+card default of Script and its n_devices / devices arguments (the
+sharded decks themselves: tests/test_torch_sharded_script.py).
 """
 
 import math
@@ -351,14 +352,16 @@ def test_script_errors_match_jax(case):
 
 def test_script_runs_on_the_card_by_default():
     """Script() asks for the card in float32; without one it raises (no
-    CPU fallback); n_devices > 1 names the engine that is not ported."""
-    from lammps_plugins_tpu_torch.api.script import Script, ScriptError
+    CPU fallback); n_devices > 1 keeps the shards' devices for the sharded
+    engine that its first run builds."""
+    from lammps_plugins_tpu_torch.api.script import Script
     import inspect
     sig = inspect.signature(Script)
     assert sig.parameters["device"].default == "cuda"
     assert sig.parameters["dtype"].default == torch.float32
-    with pytest.raises(ScriptError, match="sharded engine"):
-        Script(device="cpu", n_devices=4)
+    assert sig.parameters["devices"].default is None
+    s = Script(device="cpu", n_devices=4, devices=["cpu"] * 4)
+    assert (s.n_devices, s.devices, s.engine) == (4, ["cpu"] * 4, None)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Script()

@@ -139,9 +139,10 @@ def sextic_tables():
     return dataclasses.replace(t, b=b, bg=bg)
 
 
-def rebuild_with_spy(plan, x, image, types, h, h_inv, lo, requests):
-    """The port's device_rebuild, recording the arguments and results of
-    each select_candidates call: (rebuild output, [(args, result)])."""
+def rebuild_with_spy(plan, x, image, types, h, h_inv, lo, requests, **kw):
+    """The port's device_rebuild (kw: its options, e.g. valid=),
+    recording the arguments and results of each select_candidates call:
+    (rebuild output, [(args, result)])."""
     from lammps_plugins_tpu_torch.neighbor import device_build as pdb
     calls = []
     real = pdb.select_candidates
@@ -154,7 +155,7 @@ def rebuild_with_spy(plan, x, image, types, h, h_inv, lo, requests):
     pdb.select_candidates = spy
     try:
         out = pdb.device_rebuild(plan, x, image, types, h, h_inv, lo,
-                                 requests)
+                                 requests, **kw)
     finally:
         pdb.select_candidates = real
     return out, calls
