@@ -164,6 +164,27 @@ Phases (any failure raises, so the script exits non-zero):
      entry checks of lammps_plugins_tpu_torch/entry.py with their
      defaults (the card, float32): entry() and dryrun_multichip(4)
 
+  11. lists past the card's former size limits (`WIDE {json}`): (a) the
+     wide-cut melt, config 2's 65,536-ion deck with lj/cut/coul/cut 6 12
+     and LAMMPS's default metal skin of 2 A (wide_melt), 300 steps
+     through the graph loop with the counters reset: K past 256 at every
+     thermo row (K's trajectory printed), D' launched (no other kernel),
+     finite thermo, the state equal to an eager Engine's bit for bit,
+     both loops' 300-step windows in turns with a profiled run and the
+     peak memory, then D' on a rebuild of the run exact against its twin
+     (median time, bound, launches); (b) f32 forces of the jiggled
+     1,024-ion copy of the deck against the f64 CPU path, max|dF| < 1e-2
+     RMS(F); (c) the bench scene at skin 4.0, 100 steps through the graph
+     loop: the REBO list's K past 64, A, B, C and D' launched, the NVE
+     drift < 1e-6 eV/step/atom, graph = eager bit for bit, A on the run's
+     planes within 5e-4 x scale of its twin (the twin REBO_TWIN_ATOMS
+     atoms at a time), D' on a rebuild of the run; (d) kernel-only checks,
+     each exact against its twin: D' on lj_melt(12) with lj/cut 7.0 (6,912
+     atoms, K past 1,024, its 27 cells staged in slices), D' on a
+     21-type lj/cut mixture with a cut per type pair, and D on seeded rows
+     of 0, K / 2, K, 3K, K + 17 tied and 3K tied hits at K = 320, 512 and
+     1024 and W = 2048 and 4096
+
 The REBOMOS parameters are the synthetic file tests/data/MoS.REBO.synthetic,
 the AEAM ones tests/data/AlSi.synthetic.aeam.
 Output ends with a JSON line of per-kernel results, the card's name and
@@ -175,6 +196,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -437,20 +459,25 @@ def lj_launchers(b, P, consts, a_range):
 
 def select_k_launcher(b, keys, K, payloads):
     """fn() launching select_k (D) of the build `b` on keys [N, W] with two
-    float32 payloads, returning (pos, *payloads at pos); the C signature
-    is the same in every design."""
+    float32 payloads, returning (pos, *payloads at pos).  The designs
+    that size their hit buffers from K (13 arguments) take this tree's
+    plan (ops/select_k.py::select_k_plan); the earlier ones take none,
+    and refuse K > 256 or W > 1024 (the fn then raises)."""
+    from lammps_plugins_tpu_torch.ops.select_k import select_k_plan
     lib = b.lib()
     N, W = keys.shape
     dev = keys.device
     pos = torch.empty((N, K), dtype=torch.int32, device=dev)
     outs = [torch.empty((N, K), device=dev) for _ in range(2)]
     stream = b.stream(dev)
+    plan = (select_k_plan(K)[:2]
+            if len(b._SIGNATURES["lpt_select_k"]) == 13 else ())
 
     def fn():
         b.raise_on_error(lib.lpt_select_k(
             keys.data_ptr(), payloads[0].data_ptr(), payloads[1].data_ptr(),
             2, pos.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(), N, W,
-            K, stream), "select_k")
+            K, *plan, stream), "select_k")
         return (pos, *outs)
     return fn
 
@@ -501,6 +528,10 @@ def candidates_launcher(b, args):
             for dt in (torch.int64, torch.int64, torch.bool)]
     cnt = torch.empty(n, dtype=torch.int32, device=dev)
     stream = b.stream(dev)
+    # the designs that size their buffers and staging at launch (20
+    # arguments) take this tree's plan; the earlier ones refuse K > 256
+    plan = (sc.candidates_plan(K, Cf, cut.shape[0])[:3]
+            if len(b._SIGNATURES["lpt_select_candidates"]) == 20 else ())
 
     def fn():
         table, order, starts, cutc = sc.prepare(dense_f, c3f, fdims, cut)
@@ -508,9 +539,31 @@ def candidates_launcher(b, args):
             xt_pad.data_ptr(), table.data_ptr(), order.data_ptr(),
             starts.data_ptr(), cutc.data_ptr(), cut.shape[0],
             *(o.data_ptr() for o in outs), cnt.data_ptr(), d0, d1, d2, Cf,
-            m_all, K, stream), "select_candidates")
+            m_all, K, *plan, stream), "select_candidates")
         return (*outs, cnt.max().to(torch.int64))
     return fn, "fused"
+
+
+def rebo_launcher(b, planes, cvec, K, Np):
+    """fn() launching the REBO kernel (A) of the build `b` on the [K, Np]
+    planes, returning its three planes.  The designs that take any K (16
+    arguments) are given this tree's plan (ops/rebo.py::rebo_plan); the
+    earlier ones take none and refuse K > 64 (the fn then raises)."""
+    from lammps_plugins_tpu_torch.ops.rebo import rebo_plan
+    lib = b.lib()
+    dev = planes[0].device
+    outs = [torch.empty((K, Np), device=dev) for _ in range(3)]
+    stream = b.stream(dev)
+    plan = (rebo_plan(K)[:2]
+            if len(b._SIGNATURES["lpt_rebo_cotangents"]) == 16 else ())
+    ptrs = [p.data_ptr() for p in planes]
+
+    def fn():
+        b.raise_on_error(lib.lpt_rebo_cotangents(
+            *ptrs, cvec.data_ptr(), *(o.data_ptr() for o in outs), None, K,
+            Np, *plan, stream), "rebo_cotangents")
+        return outs
+    return fn
 
 
 def select_k_keys(dev, N, W):
@@ -566,7 +619,7 @@ def capture_candidate_calls(eng, run=None):
     return calls
 
 
-def bench_engine(dev, sort=False, jiggle=0.0, **config):
+def bench_engine(dev, sort=False, jiggle=0.0, skin=BENCH["skin"], **config):
     """The bench scene on the card with its velocities; no lists yet.
     sort: spatially sorted atoms; jiggle: see shard_bench; config: REBOMoS
     force configuration."""
@@ -588,7 +641,7 @@ def bench_engine(dev, sort=False, jiggle=0.0, **config):
     pair = REBOMoS.from_file(REBO_FILE, ["M", "S"], dtype=torch.float32,
                              device=dev, **config)
     return Engine(state, pair, [FixNVE()], units.METAL,
-                  check_every=BENCH["check_every"], skin=BENCH["skin"])
+                  check_every=BENCH["check_every"], skin=skin)
 
 
 def phase1_kernels(dev, prev_tree=""):
@@ -1685,21 +1738,23 @@ def deck_engine(dev, name, fused=None, dtype=torch.float32, device=None,
     return eng
 
 
-def ljcut_f32_accuracy(dev):
-    """max|F_f32 - F_f64| / RMS(F) of the jiggled charged_melt(6) (432
-    ions) and lj_melt(6) (864 atoms): the f32 path on the card against the
-    f64 path on the CPU, each on its own device rebuild's lists, the same
+def ljcut_f32_accuracy(dev, cases=None):
+    """max|F_f32 - F_f64| / RMS(F) of each (name, deck maker, n, jiggle) of
+    `cases`, by default the jiggled charged_melt(6) (432 ions) and
+    lj_melt(6) (864 atoms): the f32 path on the card against the f64 path
+    on the CPU, each on its own device rebuild's lists, the same
     positions, types and charges (the f64 scene's); bar 1e-2."""
     from lammps_plugins_tpu_torch.api.scenes import charged_melt, lj_melt
     out = {}
-    for name, make, jiggle in (("charged_melt", charged_melt, 0.1),
-                               ("lj_melt", lj_melt, 0.05)):
-        base = make(6, dtype=torch.float64, device="cpu").state
+    for name, make, n, jiggle in cases or (
+            ("charged_melt", charged_melt, 6, 0.1),
+            ("lj_melt", lj_melt, 6, 0.05)):
+        base = make(n, dtype=torch.float64, device="cpu").state
         rng = np.random.default_rng(AEAM["seed"])
         pos = base.x.numpy() + rng.uniform(-jiggle, jiggle, base.x.shape)
         forces = []
         for dtype, device in ((torch.float64, "cpu"), (torch.float32, dev)):
-            deck = make(6, dtype=dtype, device=device)
+            deck = make(n, dtype=dtype, device=device)
             deck.state = deck.state.replace(
                 x=torch.as_tensor(pos, dtype=dtype, device=device),
                 type=base.type.to(device),
@@ -1713,8 +1768,9 @@ def ljcut_f32_accuracy(dev):
         f64, f32 = forces
         rms = float(np.sqrt(np.mean(f64 * f64)))
         err = float(np.abs(f32 - f64).max())
-        print(f"{name}(6) ({len(pos)} atoms): max|F32 - F64| = {err:.3e}, "
-              f"RMS(F) = {rms:.3e}, ratio {err / rms:.3e} (bar 1e-2)")
+        print(f"{name}({n}) ({len(pos)} atoms): max|F32 - F64| = "
+              f"{err:.3e}, RMS(F) = {rms:.3e}, ratio {err / rms:.3e} (bar "
+              "1e-2)")
         if not err < 1e-2 * rms:
             raise AssertionError(f"{name} f32 forces outside 1e-2 RMS(F)")
         out[name] = err / rms
@@ -3139,6 +3195,341 @@ def phase10_sharded(dev, modules):
     return out, launches, kern
 
 
+# -- phase 11: lists past the card's former size limits ---------------------
+
+#: the wide-cut charged melt: config 2's deck (phase 7) with
+#: lj/cut/coul/cut 6 12 and LAMMPS's default metal skin, 2 A, so that K
+#: passes 256 (bcc 4.2 A: 330 sites within 14 A)
+WIDE = dict(cut_lj=6.0, cut_coul=12.0, skin=2.0, steps=300, thermo=100,
+            profile_steps=50)
+#: the REBOMOS bench scene at skin 4.0: the REBO list's K past 64
+SKIN4 = dict(skin=4.0, steps=100)
+#: kernel A against its twin on the run's planes, this many atoms at a
+#: time (the twin's autograd keeps [atoms, K, K] angular terms)
+REBO_TWIN_ATOMS = 16384
+#: D on seeded rows: K and W, N rows of six kinds each (select_k_rows)
+WIDE_SELECT_K = dict(ks=(320, 512, 1024), ws=(2048, 4096), rows=1998)
+#: D' on an lj/cut deck of ~1,400 neighbours a row, and on NTYPES types
+LJ_WIDE = dict(n=12, cut=7.0, skin=0.3)
+NTYPES = 21
+
+
+def wide_melt(n, dtype=torch.float32, device=None):
+    """charged_melt(n)'s deck with lj/cut/coul/cut 6 12 and skin 2."""
+    from lammps_plugins_tpu_torch.api.scenes import charged_melt
+    from lammps_plugins_tpu_torch.potentials.ljcut import PairLJCutCoulCut
+    deck = charged_melt(n, bz=MELT_BZ, dtype=dtype, device=device)
+    pair = PairLJCutCoulCut(WIDE["cut_lj"], WIDE["cut_coul"], ntypes=2,
+                            qqr2e=deck.units.qqr2e, dtype=dtype,
+                            device=device)
+    pair.set_coeff(1, 1, 0.01, 2.5)
+    pair.set_coeff(2, 2, 0.01, 3.4)
+    return dataclasses.replace(deck, pair=pair, skin=WIDE["skin"])
+
+
+def wide_run(eng):
+    """eng.run(WIDE steps) with thermo rows every WIDE["thermo"] steps;
+    returns (rows, [(step, K)])."""
+    rows, ks = [], []
+
+    def note(row):
+        rows.append(row)
+        ks.append((row["step"], dict(eng._plan.k_caps)["main"]))
+
+    eng.run(WIDE["steps"], thermo_every=WIDE["thermo"], on_thermo=note)
+    return rows, ks
+
+
+def wide_melt_path(dev, modules, gpu):
+    """The 65,536-ion wide-cut melt through the graph loop with the
+    counters reset: K past 256, D' launched (the only kernel), finite
+    thermo, the state equal to an eager Engine's bit for bit; both loops'
+    windows in turns; D' on a rebuild of the run exact against its twin."""
+    eng = wide_melt(DECKS["melt"], device=dev).engine()
+    natoms = eng.state.natoms
+    torch.cuda.reset_peak_memory_stats()
+    for m in modules.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    rows, ks = wide_run(eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {m: mod.launches for m, mod in modules.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"wide melt (graph loop): {natoms} ions, {WIDE['steps']} steps in "
+          f"{wall:.2f} s, K by thermo row {ks}, launches {launches}, "
+          f"rebuilds {eng.rebuilds}, peak {peak:.3f} GiB")
+    if eng._loop is None or eng._loop.exec is None:
+        raise AssertionError("the wide melt did not run through the graph")
+    check_launches("wide melt", launches, ("select_candidates",))
+    if not min(k for _, k in ks) > 256:
+        raise AssertionError(f"the wide melt's K stayed within 256: {ks}")
+    for r in rows:
+        if not all(np.isfinite(v) for v in r.values()):
+            raise AssertionError(f"non-finite wide melt thermo row {r}")
+    if not torch.isfinite(eng.state.x).all() \
+            or not torch.isfinite(eng.state.f).all():
+        raise AssertionError("non-finite wide melt positions or forces")
+    ref = wide_melt(DECKS["melt"], device=dev).engine()
+    ref.fused_loop = False
+    wide_run(ref)
+    same = same_state(eng, ref)
+    print(f"wide melt graph vs eager loop: bit-identical {same}")
+    if not all(same.values()):
+        raise AssertionError("the wide melt's graph loop differs from the "
+                             "eager loop")
+    numbers = loop_numbers({"graph": eng, "eager": ref}, gpu,
+                           steps=WIDE["steps"],
+                           profile_steps=WIDE["profile_steps"],
+                           kernels=("select_candidates_kernel",))
+    del ref
+    torch.cuda.empty_cache()
+    out = dict(natoms=natoms, k_by_row=ks, rebuilds_main_run=eng.rebuilds,
+               launches=launches["select_candidates"], peak_gib=peak,
+               thermo=[{k: r[k] for k in ("step", "temp", "pe", "etotal")}
+                       for r in rows], graph_equals_eager=True, **numbers)
+    out["select_candidates"] = candidates_record(eng, "wide melt")
+    return out
+
+
+def rebo_vs_twin_in_chunks(eng):
+    """Kernel A on the run's own planes against its twin, the twin taken
+    REBO_TWIN_ATOMS atoms at a time (each output column depends on its
+    own column's inputs only); bar 5e-4 x scale.  plain_ms: the chunks'
+    twin times summed."""
+    from lammps_plugins_tpu_torch.ops import rebo
+    pair, st, nbr = eng.pair, eng.state, eng.nbr
+    planes = pair._rebo_planes(st.x, pair.el_of_type[st.type], nbr.ghosts,
+                               nbr.lists["rebo"], st.box.h)
+    cst = pair._rebo_consts
+    K, Np = planes[0].shape
+    gk = rebo.rebo_cotangents(*planes, cst)
+    err, scale, plain = 0.0, 0.0, 0.0
+    for c0 in range(0, Np, REBO_TWIN_ATOMS):
+        part = [p[:, c0:c0 + REBO_TWIN_ATOMS].contiguous()
+                for p in planes[:5]] + [planes[5][c0:c0 + REBO_TWIN_ATOMS]]
+        gt = rebo.rebo_cotangents_ref(*part, cst)
+        scale = max(scale, max(float(t.abs().max()) for t in gt))
+        err = max(err, max(float((a[:, c0:c0 + REBO_TWIN_ATOMS] - b)
+                                 .abs().max()) for a, b in zip(gk, gt)))
+        plain += device_ms(lambda: rebo.rebo_cotangents_ref(*part, cst))
+        del gt, part
+    work = rebo_work(planes, cst)
+    b_ms, b_by = bound(*work[:3])
+    out = dict(K=K, Np=Np, atoms_a_block=rebo.rebo_plan(K)[0],
+               max_abs_err=err, bar=5e-4 * scale,
+               ms=timed_ms(lambda: rebo.rebo_cotangents(*planes, cst), 20),
+               plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+               live_edges_hist=work[3], library_ms=None)
+    print(f"rebo_cotangents at K={K} on the run's planes: max_abs_err "
+          f"{err:.3e} (bar {out['bar']:.3e}), kernel {out['ms']:.4f} ms, "
+          f"twin {plain:.4f} ms in chunks, bound {b_ms:.4f} ms by {b_by}; "
+          f"live edges per atom "
+          f"{ {n: c for n, c in enumerate(work[3]) if c} }")
+    if not err <= out["bar"]:
+        raise AssertionError(f"rebo_cotangents disagrees with its twin at "
+                             f"K={K}")
+    return out
+
+
+def skin4_path(dev, modules):
+    """The bench scene at skin 4.0 through the graph loop with the counters
+    reset: the REBO K past 64, A, B, C and D' launched, the NVE drift, the
+    state equal to an eager Engine's bit for bit, A on the run's planes
+    against its twin, D' on a rebuild of the run."""
+    eng = bench_engine(dev, skin=SKIN4["skin"])
+    for m in modules.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    rows = eng.run(SKIN4["steps"], thermo_every=SKIN4["steps"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {m: mod.launches for m, mod in modules.items()}
+    K = dict(eng._plan.k_caps)["rebo"]
+    print(f"skin 4.0 (graph loop): {eng.state.natoms} atoms, "
+          f"{SKIN4['steps']} steps in {wall:.2f} s (sizing and capture "
+          f"included), K {dict(eng._plan.k_caps)}, LJ cell capacity "
+          f"{eng._plan.cell_capacity}, launches {launches}, rebuilds "
+          f"{eng.rebuilds}")
+    if eng._loop is None or eng._loop.exec is None:
+        raise AssertionError("the skin-4.0 run did not use the graph loop")
+    check_launches("skin 4.0", launches, MAIN_PATH)
+    if not K > 64:
+        raise AssertionError(f"the skin-4.0 REBO list has K = {K}")
+    drift = check_run(eng, rows)
+    ref = bench_engine(dev, skin=SKIN4["skin"])
+    ref.fused_loop = False
+    ref.run(SKIN4["steps"], thermo_every=SKIN4["steps"])
+    same = same_state(eng, ref)
+    print(f"skin 4.0 graph vs eager loop: bit-identical {same}")
+    if not all(same.values()):
+        raise AssertionError("the skin-4.0 graph loop differs from the "
+                             "eager loop")
+    del ref
+    torch.cuda.empty_cache()
+    out = dict(K=K, k_caps=dict(eng._plan.k_caps),
+               cell_capacity=eng._plan.cell_capacity,
+               drift_ev_per_step_atom=drift, rebuilds=eng.rebuilds,
+               wall_s_first_run=wall, graph_equals_eager=True,
+               launches={KERNEL_NAMES[m]: launches[m] for m in MAIN_PATH},
+               rebo_cotangents=rebo_vs_twin_in_chunks(eng))
+    out["select_candidates"] = candidates_record(eng, "skin 4.0")
+    return out
+
+
+def select_k_rows(dev, N, K, W):
+    """[N, W] keys (two payloads) whose rows cycle through six kinds: no
+    hit, K / 2, K, and 3K (past the hit buffer) hits of quantized keys
+    (ties), then K + 17 and 3K hits all tied; columns at random."""
+    g = torch.Generator(device=dev).manual_seed(K + W)
+    kinds = torch.arange(N, device=dev) % 6
+    counts = torch.tensor([0, K // 2, K, min(W, 3 * K), K + 17,
+                           min(W, 3 * K)], device=dev)[kinds]
+    u = torch.rand((N, W), generator=g, device=dev)
+    thr = torch.sort(u, dim=1).values.gather(
+        1, (counts - 1).clamp(min=0)[:, None])
+    hit = (u <= thr) & (counts > 0)[:, None]
+    vals = torch.round(torch.rand((N, W), generator=g, device=dev)
+                       * 64.0) / 16.0
+    vals = torch.where((kinds >= 4)[:, None], torch.full_like(vals, 1.5),
+                       vals)
+    keys = torch.where(hit, vals, torch.full_like(vals, float("inf")))
+    ids = torch.randint(0, 2 ** 24, (N, W), generator=g, device=dev).float()
+    typ = torch.randint(1, 3, (N, W), generator=g, device=dev).float()
+    return keys, ids, typ
+
+
+def select_k_wide(dev):
+    """D exact against its twin at each K and W of WIDE_SELECT_K on
+    select_k_rows, reruns identical; its time beside torch.topk's (the
+    yardstick, another tie order) and its bound."""
+    from lammps_plugins_tpu_torch.ops import select_k
+    out = {}
+    N = WIDE_SELECT_K["rows"]
+    for K in WIDE_SELECT_K["ks"]:
+        for W in WIDE_SELECT_K["ws"]:
+            keys, ids, typ = select_k_rows(dev, N, K, W)
+            sk = select_k.select_k(keys, K, payloads=(ids, typ))
+            st = select_k.select_k_ref(keys, K, payloads=(ids, typ))
+            again = select_k.select_k(keys, K, payloads=(ids, typ))
+            if not all(torch.equal(a, b) and torch.equal(a, c)
+                       for a, b, c in zip(sk, st, again)):
+                raise AssertionError(f"select_k differs from its twin at "
+                                     f"K={K} W={W}")
+            t = interleaved_ms({
+                "kernel": lambda: select_k.select_k(keys, K, (ids, typ)),
+                "topk": lambda: torch.topk(keys, K, dim=1, largest=False,
+                                           sorted=True)}, 10)
+            b_ms, b_by = bound(4 * N * W + 20 * N * K, N * W)
+            out[f"K{K}_W{W}"] = dict(
+                exact=True, ms=t["kernel"], library_ms=t["topk"],
+                plain_ms=timed_ms(lambda: select_k.select_k_ref(
+                    keys, K, (ids, typ)), 3),
+                bound_ms=b_ms, bound_by=b_by,
+                max_hits=int((keys < float("inf")).sum(dim=1).max()))
+            print(f"select_k K={K} W={W} ({N} rows of 0, K/2, K, 3K, K + 17 "
+                  f"tied and 3K tied hits): exact, kernel "
+                  f"{t['kernel']:.4f} ms, topk {t['topk']:.4f} ms, bound "
+                  f"{b_ms:.4f} ms")
+            del keys, ids, typ, sk, st, again
+    return out
+
+
+def lj_wide_engine(dev):
+    """lj_melt(12) (6,912 atoms) with lj/cut 7.0 and skin 0.3: ~1,400
+    neighbours a row and ~500-slot fine cells."""
+    from lammps_plugins_tpu_torch.api.scenes import lj_melt
+    from lammps_plugins_tpu_torch.potentials.ljcut import PairLJCut
+    deck = lj_melt(LJ_WIDE["n"], device=dev)
+    pair = PairLJCut(LJ_WIDE["cut"], ntypes=1, device=dev)
+    pair.set_coeff(1, 1, 1.0, 1.0)
+    return dataclasses.replace(deck, pair=pair,
+                               skin=LJ_WIDE["skin"]).engine()
+
+
+def mixture_engine(dev, ntypes, n=10, seed=21):
+    """A jiggled fcc lj/cut mixture of 4 n^3 atoms at the LJ melt's
+    density, ntypes types at random, every type pair with its own eps,
+    sigma and cut in [2.0, 3.0] (numpy seed), skin 0.3."""
+    from lammps_plugins_tpu_torch.core import units
+    from lammps_plugins_tpu_torch.core.box import Box
+    from lammps_plugins_tpu_torch.core.state import State
+    from lammps_plugins_tpu_torch.fixes.nve import FixNVE
+    from lammps_plugins_tpu_torch.potentials.ljcut import PairLJCut
+    from lammps_plugins_tpu_torch.run.simulation import Engine
+    rng = np.random.default_rng(seed)
+    a = (4.0 / 0.8442) ** (1.0 / 3.0)
+    base = a * np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5],
+                         [0, 0.5, 0.5]])
+    cells = a * np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"),
+                         -1).reshape(-1, 3)
+    x = (cells[:, None, :] + base[None]).reshape(-1, 3)
+    x = x + rng.uniform(-0.08, 0.08, x.shape)
+    types = rng.integers(1, ntypes + 1, len(x))
+    pair = PairLJCut(3.0, ntypes=ntypes, device=dev)
+    for i in range(1, ntypes + 1):
+        for j in range(i, ntypes + 1):
+            pair.set_coeff(i, j, rng.uniform(0.5, 1.5), rng.uniform(0.8, 1.2),
+                           rng.uniform(2.0, 3.0))
+    st = State.create(x=x, type=types,
+                      box=Box.orthogonal([n * a] * 3, device=dev),
+                      mass=np.ones(ntypes + 1))
+    return Engine(st, pair, [FixNVE()], units.LJ, skin=0.3)
+
+
+def wide_kernel_checks(dev):
+    """D' on lj_melt(12) with lj/cut 7.0 (K past 1,024, its 27 cells
+    staged in slices) and on the NTYPES-type mixture; D on select_k_rows
+    at the WIDE_SELECT_K shapes; each exact against its twin."""
+    from lammps_plugins_tpu_torch.ops.select_candidates import (
+        candidates_plan)
+    out = {}
+    for label, eng in (("lj_cut_7", lj_wide_engine(dev)),
+                       (f"types_{NTYPES}", mixture_engine(dev, NTYPES))):
+        args = capture_candidate_calls(eng)[-1]
+        K, Cf, nt = args[5], args[1].shape[1], args[4].shape[0]
+        warps, cap, cps, nbytes = candidates_plan(K, Cf, nt)
+        rec = candidates_record(eng, label, args=args)
+        rec.update(types=nt - 1, warps=warps, hit_buffer=cap,
+                   cells_staged=cps, shared_bytes=nbytes)
+        print(f"{label}: K={K} Cf={Cf} types {nt - 1}: {warps} warps a "
+              f"block, hit buffer {cap}, {cps} of 27 cells staged at once, "
+              f"{nbytes} bytes of shared memory")
+        out[label] = rec
+        del eng, args
+        torch.cuda.empty_cache()
+    if not (out["lj_cut_7"]["K"] > 1024 and out["lj_cut_7"]["cells_staged"]
+            < 27 and out[f"types_{NTYPES}"]["types"] >= 20):
+        raise AssertionError(f"the kernel checks missed their shapes: {out}")
+    out["select_k"] = select_k_wide(dev)
+    return out
+
+
+def phase11_wide(dev, modules):
+    """Lists past the card's former limits (`WIDE {json}`): the wide-cut
+    melt and the skin-4.0 REBOMOS scene through the graph loop, f32
+    forces of the wide-cut deck, and the kernel-only checks."""
+    gpu = sh("nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader")
+    free_card("phase 11")
+    with timed("phase 11 wide-cut melt"):
+        melt = wide_melt_path(dev, modules, gpu)
+    free_card("phase 11 f32 forces")
+    with timed("phase 11 f32 forces"):
+        accuracy = ljcut_f32_accuracy(dev, (("wide_melt", wide_melt, 8,
+                                             0.1),))
+    free_card("phase 11 skin 4.0")
+    with timed("phase 11 skin 4.0"):
+        skin4 = skin4_path(dev, modules)
+    free_card("phase 11 kernels")
+    with timed("phase 11 kernels"):
+        kernels = wide_kernel_checks(dev)
+    out = dict(gpu=gpu, melt=melt, f32_force_err_over_rms=accuracy,
+               skin4=skin4, kernels=kernels)
+    print("WIDE " + json.dumps(out))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--golden-rebo", default="",
@@ -3181,6 +3572,18 @@ def main():
     for m in MAIN_PATH:
         results[KERNEL_NAMES[m]]["sharded"] = dict(
             shard_kern[m], launches=shard_launches[m])
+    with timed("phase 11"):
+        wide = phase11_wide(dev, modules)
+    results["select_candidates"]["wide"] = dict(
+        wide["melt"]["select_candidates"],
+        launches=wide["melt"]["launches"],
+        skin4=dict(wide["skin4"]["select_candidates"],
+                   launches=wide["skin4"]["launches"]["select_candidates"]),
+        **{k: v for k, v in wide["kernels"].items() if k != "select_k"})
+    results["rebo_cotangents"]["skin4"] = dict(
+        wide["skin4"]["rebo_cotangents"],
+        launches=wide["skin4"]["launches"]["rebo_cotangents"])
+    results["select_k"]["wide"] = wide["kernels"]["select_k"]
     for m in MAIN_PATH:
         results[KERNEL_NAMES[m]]["monolayer"] = dict(
             {"rebo": mono["rebo_at_run_k"], "mirror": mono["mirror_at_run_k"],

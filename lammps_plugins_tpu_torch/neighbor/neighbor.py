@@ -94,6 +94,24 @@ def edge_components(x: torch.Tensor, ghosts: Ghosts, nlist: NeighborList,
     return dx, dy, dz, rsq_safe, nlist.mask
 
 
+def edge_vectors(x: torch.Tensor, ghosts: Ghosts, nlist: NeighborList,
+                 h: torch.Tensor, strain: torch.Tensor | None = None):
+    """Per-edge displacement vectors d[i, k] = x_neighbor - x_center.
+
+    `strain` (3x3, typically zeros) implements the virial as a strain
+    derivative, d' = d @ (1 + strain): every energy term depends on
+    positions only through these vectors, so W = -dE/dstrain.  Returns
+    (d [N, K, 3], rsq_safe [N, K], mask); rsq is 1.0 on masked slots so
+    that sqrt and reciprocals never see zero."""
+    x_all = ghosts.all_positions(x, h)
+    d = x_all[nlist.idx] - x[:, None, :]
+    if strain is not None:
+        d = d @ (torch.eye(3, dtype=d.dtype, device=d.device) + strain)
+    rsq = torch.sum(d * d, dim=-1)
+    rsq_safe = torch.where(nlist.mask, rsq, torch.ones_like(rsq))
+    return d, rsq_safe, nlist.mask
+
+
 def mirror_combine(gx, gy, gz, nlist: NeighborList) -> torch.Tensor:
     """Atom forces from [N, K] edge cotangents G = dE/dd through the
     mirror-edge bijection: F_i = sum_k G[i,k] - sum_k G[mirror(i,k)] —

@@ -42,15 +42,15 @@ build_log = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "lpt_rebo_cotangents": [_P] * 11 + [_I, _I, _P],
+    "lpt_rebo_cotangents": [_P] * 11 + [_I] * 4 + [_P],
     "lpt_mirror_combine": [_P] * 6 + [_I, _I, _P],
     "lpt_lj_cell_forces": [_P] * 3 + [_I] * 10 + [_P, _P, _I],
-    "lpt_select_k": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "lpt_select_k": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 5 + [_P],
     "lpt_pin_copy": [_P, _P, _I, _I, _P],
     "lpt_mirror_combine_rows": [_P] * 6 + [_I, _I, _P],
     "lpt_lj_cell_forces_half": [_P] * 4 + [_I] * 9 + [_P, _P, _I],
     "lpt_react_combine": [_P] * 5 + [_I] * 3 + [_P],
-    "lpt_select_candidates": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 6 + [_P],
+    "lpt_select_candidates": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 9 + [_P],
     "lpt_graph_if_then": [_P] * 4,
     "lpt_graph_instantiate": [_P, _P],
     "lpt_graph_launch": [_P, _P],

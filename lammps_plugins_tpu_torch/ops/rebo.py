@@ -8,7 +8,8 @@ gradient by hand; the twin is autograd of the port's REBO energy
 (potentials/rebomos.py::rebo_energy_rows).  With
 emit_rows the kernel also writes the interleaved [K, Np, 4] table
 (gx, gy, gz, 0) of the `rows` mirror combine, as the JAX kernel's
-emit_rows output does.
+emit_rows output does.  The kernel takes any K whose shared memory fits
+a block (rebo_plan).
 """
 
 from __future__ import annotations
@@ -17,13 +18,61 @@ import numpy as np
 import torch
 
 from . import build
+from .select_k import SMEM_LIMIT
 
 #: kernel launches (one per call that reached the CUDA kernel)
 launches = 0
 
 _PAIR_NAMES = ("rcmin", "inv_drc", "Q", "A", "alpha", "BIJc", "Beta")
-#: largest K csrc/rebo.cu takes (K is a run-time argument in [1, MAX_K])
-MAX_K = 64
+#: the constant vector's floats (rebo_constant_vector)
+N_CONST = 64
+#: a warp's compacted per-slot arrays in csrc/rebo.cu
+SLOT_ARRAYS = 13
+#: atoms (warps) a block, most first
+ATOMS = (8, 4, 2, 1)
+#: shared memory of one H100 SM (228 KB), for the occupancy of a plan
+SM_SMEM = 233_472
+
+
+def rebo_bytes(atoms: int, k: int, g: int) -> int:
+    """Shared memory of a launch (csrc/rebo.cu::rebo_bytes): the constants,
+    the input stage ([5, g] slots an atom; with g < k a [3, k] output stage
+    beside it), each warp's compacted arrays for k slots and its n x n g
+    and g' tables (n <= 32)."""
+    pitch, kc, m = atoms + 1, -(-k // 32) * 32, min(k, 32)
+    stage = (5 * g + 3 * k) * pitch if g < k else 5 * k * pitch
+    return 4 * (N_CONST + stage + atoms * (SLOT_ARRAYS * kc
+                                           + 2 * m * (m + 1)))
+
+
+def resident_warps(atoms: int, nbytes: int) -> int:
+    """Warps of `atoms`-warp blocks of nbytes of shared memory that one SM
+    holds (SM_SMEM, 1 KB reserved a block, at most 32 blocks and 64
+    warps)."""
+    return atoms * min(SM_SMEM // (nbytes + 1024), 32, 64 // atoms)
+
+
+def rebo_plan(k: int):
+    """(atoms a block, slots staged at once, shared bytes) at k: all k
+    slots staged, with the atoms a block that keep the most warps on an
+    SM (the most atoms among equals); else the planes in groups of a
+    multiple of 32 slots; a ValueError naming the limit when one atom with
+    a 32-slot group does not fit."""
+    fits = [(resident_warps(a, rebo_bytes(a, k, k)), a) for a in ATOMS
+            if rebo_bytes(a, k, k) <= SMEM_LIMIT]
+    if fits:
+        atoms = max(fits)[1]
+        return atoms, k, rebo_bytes(atoms, k, k)
+    for atoms in ATOMS:
+        g = -(-k // 32) * 32
+        while g >= 32 and rebo_bytes(atoms, k, g) > SMEM_LIMIT:
+            g -= 32
+        if g >= 32:
+            return atoms, g, rebo_bytes(atoms, k, g)
+    raise ValueError(f"rebo_cotangents: K={k} needs "
+                     f"{rebo_bytes(1, k, 32)} bytes of shared memory at one "
+                     f"atom a block (compacted slots for K edges), past the "
+                     f"H100's {SMEM_LIMIT}-byte block limit")
 
 
 def derive_rebo_constants(tables) -> dict:
@@ -96,8 +145,9 @@ def rebo_cotangents(dxT, dyT, dzT, jelT, mskT, ei, consts,
             g = g + (torch.stack([*g, torch.zeros_like(g[0])], dim=-1),)
         return g
     K, Np = dxT.shape
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"rebo_cotangents: K={K} outside [1, {MAX_K}]")
+    if K < 1:
+        raise ValueError(f"rebo_cotangents: K={K} must be at least 1")
+    atoms, group, _ = rebo_plan(K)
     dev, f32 = dxT.device, torch.float32
     ptrs = [build.check(t, n, (K, Np), f32, dev) for t, n in
             ((dxT, "dxT"), (dyT, "dyT"), (dzT, "dzT"), (jelT, "jelT"),
@@ -109,7 +159,8 @@ def rebo_cotangents(dxT, dyT, dzT, jelT, mskT, ei, consts,
             else None)
     status = build.lib().lpt_rebo_cotangents(
         *ptrs, cvec.data_ptr(), *[o.data_ptr() for o in out],
-        None if rows is None else rows.data_ptr(), K, Np, build.stream(dev))
+        None if rows is None else rows.data_ptr(), K, Np, atoms, group,
+        build.stream(dev))
     build.raise_on_error(status, "rebo_cotangents")
     launches += 1
     return tuple(out) + ((rows,) if emit_rows else ())

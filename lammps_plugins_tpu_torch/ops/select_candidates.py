@@ -18,7 +18,10 @@ dx = x_candidate - x_atom and cut[t_i, t_j] = fl(cm) + skin.
 
 The twin builds the [rows, W] keys and selects with select_k_ref, in
 chunks of rows; the kernel stages each fine cell's 27 neighbour cells in
-shared memory and writes only the [N, K] outputs.  On the card both give
+shared memory (in slices of 9, 3 or 1 cells when all 27 do not fit beside
+the hit buffers and the [T + 1, T + 1] cut table, candidates_plan) and
+writes only the [N, K] outputs.  Any K, any number of types and any cell
+capacity whose shared memory fits a block.  On the card both give
 the same lists, element for element.  A row whose cell has a negative
 coordinate (a pad row of the sharded engine's blocks) has no candidates:
 an empty list, and no share of a block's work.
@@ -29,12 +32,13 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .select_k import select_k_ref
+from .select_k import (SMEM_LIMIT, WARPS, buffer_bytes, hit_capacity,
+                       select_k_ref)
 
 #: kernel launches (one per call that reached the CUDA kernel)
 launches = 0
-MAX_K = 256         # the selection core's outputs per row (8 a lane)
-MAX_TYPES = 16      # cutoff table [T + 1, T + 1] in shared memory
+#: neighbour cells staged at once: all 27, else x-planes, rows, cells
+SLICES = (27, 9, 3, 1)
 
 #: the 27 neighbour-cell offsets, (a, b, c) lexicographic over {-1, 0, 1}
 OFFS27 = tuple((a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
@@ -119,6 +123,29 @@ def select_candidates_ref(xt_pad, dense_f, c3f, fdims, cut, k,
     return idx, jtype, mask, torch.stack([p[3] for p in parts]).max()
 
 
+def candidates_plan(k: int, Cf: int, nt: int):
+    """(warps, cap, cps, shared bytes) of a select_candidates launch: k's
+    hit buffers (select_k.hit_capacity), cps of the 27 neighbour cells'
+    Cf slots staged at once (24 bytes a slot: x, y, z, type, id, column)
+    and the [nt, nt] cut table in one block's shared memory, preferring
+    all 27 cells, then more warps; a ValueError naming the limit when one
+    cell and one warp do not fit."""
+    cap = hit_capacity(k)
+    fixed = 4 * nt * nt
+    for cps in SLICES:
+        for warps in WARPS:
+            nbytes = (24 * cps * Cf + buffer_bytes(warps, cap) + fixed
+                      + 8 * warps)
+            if nbytes <= SMEM_LIMIT:
+                return warps, cap, cps, nbytes
+    need = 24 * Cf + buffer_bytes(1, cap) + fixed + 8
+    raise ValueError(f"select_candidates: k={k} ({cap}-entry hit buffer), "
+                     f"{Cf} slots a cell and {nt} x {nt} cut table need "
+                     f"{need} bytes of shared memory even for one cell and "
+                     f"one warp, past the H100's {SMEM_LIMIT}-byte block "
+                     "limit")
+
+
 def prepare(dense_f, c3f, fdims, cut):
     """The kernel's int32 inputs: the cell table, the owned atoms ordered
     by fine cell (one block per cell takes its run [starts[c],
@@ -157,14 +184,15 @@ def select_candidates(xt_pad, dense_f, c3f, fdims, cut, k):
     d0, d1, d2 = (int(d) for d in fdims)
     Cf = dense_f.shape[1]
     nt = cut.shape[0]
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"select_candidates: k={k} outside [1, {MAX_K}]")
-    if not 1 <= nt <= MAX_TYPES or tuple(cut.shape) != (nt, nt):
+    if k < 1:
+        raise ValueError(f"select_candidates: k={k} must be at least 1")
+    if nt < 1 or tuple(cut.shape) != (nt, nt):
         raise ValueError(f"select_candidates: cut {tuple(cut.shape)} must "
-                         f"be square, at most {MAX_TYPES} types")
-    if m_all >= 2 ** 31 - 1 or n == 0 or 27 * Cf >= 2 ** 15:
+                         "be square")
+    if m_all >= 2 ** 31 - 1 or n == 0 or 27 * Cf >= 2 ** 31 - 1:
         raise ValueError(f"select_candidates: {n} owned of {m_all} rows, "
-                         f"{Cf} slots a cell")
+                         f"{Cf} slots a cell: ids and columns are int32")
+    warps, cap, cps, _ = candidates_plan(k, Cf, nt)
     xp = build.check(xt_pad, "xt_pad", (m_all + 1, 4), torch.float32, dev)
     if tuple(dense_f.shape) != (d0 * d1 * d2 + 2, Cf) \
             or dense_f.device != dev:
@@ -180,8 +208,8 @@ def select_candidates(xt_pad, dense_f, c3f, fdims, cut, k):
     status = build.lib().lpt_select_candidates(
         xp, table.data_ptr(), order.data_ptr(), starts.data_ptr(),
         cutc.data_ptr(), nt, idx.data_ptr(), jtype.data_ptr(),
-        mask.data_ptr(), cnt.data_ptr(), d0, d1, d2, Cf, m_all, k,
-        build.stream(dev))
+        mask.data_ptr(), cnt.data_ptr(), d0, d1, d2, Cf, m_all, k, warps,
+        cap, cps, build.stream(dev))
     build.raise_on_error(status, "select_candidates")
     launches += 1
     return idx, jtype, mask, cnt.max().to(torch.int64)

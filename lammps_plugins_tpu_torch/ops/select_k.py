@@ -5,6 +5,11 @@ row of keys [N, W] (+inf = invalid), the column positions of the K
 smallest keys in ascending order, ties to the lowest column, W for
 exhausted slots; payloads [N, W] are returned at the chosen positions
 (0 where exhausted).
+
+The kernel (csrc/select_k.cu) takes any K and any W that is a multiple of
+128; each warp's hit buffer in shared memory holds the next power of two
+>= max(K, 64) (key, column) pairs, so shared memory is the one limit left
+(select_k_plan).
 """
 
 from __future__ import annotations
@@ -15,8 +20,38 @@ from . import build
 
 #: kernel launches (one per call that reached the CUDA kernel)
 launches = 0
-MAX_W = 1024        # 8 float4 of keys per lane in registers
-MAX_K = 256         # 8 outputs per lane
+#: the shared memory one block may use on the H100 (227 KB, the opt-in
+#: limit cudaDevAttrMaxSharedMemoryPerBlockOptin)
+SMEM_LIMIT = 232_448
+#: a warp's radix-select histogram (256 int32 bins)
+HIST_BYTES = 256 * 4
+#: rows (D) or atoms (D') a block takes at once, most first
+WARPS = (4, 2, 1)
+
+
+def hit_capacity(k: int) -> int:
+    """A warp's hit buffer: the next power of two >= max(k, 64)."""
+    return max(64, 1 << (int(k) - 1).bit_length())
+
+
+def buffer_bytes(warps: int, cap: int) -> int:
+    """The hit buffers (float32 key, int32 column) and histograms of
+    `warps` warps."""
+    return warps * (8 * cap + HIST_BYTES)
+
+
+def select_k_plan(k: int):
+    """(warps, cap, shared bytes) of a select_k launch at k: the most warps
+    a block whose buffers fit SMEM_LIMIT; a ValueError naming the limit
+    when one warp's do not."""
+    cap = hit_capacity(k)
+    for warps in WARPS:
+        nbytes = buffer_bytes(warps, cap)
+        if nbytes <= SMEM_LIMIT:
+            return warps, cap, nbytes
+    raise ValueError(f"select_k: k={k} needs a {cap}-entry hit buffer, "
+                     f"{buffer_bytes(1, cap)} bytes of shared memory for one "
+                     f"warp, past the H100's {SMEM_LIMIT}-byte block limit")
 
 
 def select_k_ref(keys, k, payloads=()):
@@ -35,19 +70,20 @@ def select_k_ref(keys, k, payloads=()):
 def select_k(keys, k, payloads=()):
     """(pos [N, k] int32, *payloads at pos [N, k]).
 
-    keys [N, W] float; on CUDA W must be a multiple of 128 and at most
-    MAX_W, k at most MAX_K, keys 16-byte aligned, and at most two float32
-    payloads ride along.  CPU tensors take the twin; CUDA float32 tensors
-    the kernel."""
+    keys [N, W] float; on CUDA W must be a positive multiple of 128, keys
+    16-byte aligned, at most two float32 payloads ride along, and k's hit
+    buffers must fit shared memory (select_k_plan).  CPU tensors take the
+    twin; CUDA float32 tensors the kernel."""
     global launches
     if not build.use_kernel(keys, "select_k"):
         return select_k_ref(keys, k, payloads)
     N, W = keys.shape
-    if W % 128 or W > MAX_W:
-        raise ValueError(f"select_k: W={W} must be a multiple of 128 and "
-                         f"<= {MAX_W}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"select_k: k={k} outside [1, {MAX_K}]")
+    if W < 128 or W % 128:
+        raise ValueError(f"select_k: W={W} must be a positive multiple of "
+                         "128")
+    if k < 1:
+        raise ValueError(f"select_k: k={k} must be at least 1")
+    warps, cap, _ = select_k_plan(k)
     if len(payloads) > 2:
         raise ValueError("select_k: at most two payloads")
     if keys.data_ptr() % 16:
@@ -62,7 +98,7 @@ def select_k(keys, k, payloads=()):
     op = [o.data_ptr() for o in outs] + [None] * (2 - len(outs))
     status = build.lib().lpt_select_k(kp, pp[0], pp[1], len(payloads),
                                       pos.data_ptr(), op[0], op[1], N, W, k,
-                                      build.stream(dev))
+                                      warps, cap, build.stream(dev))
     build.raise_on_error(status, "select_k")
     launches += 1
     return (pos, *outs)

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import importlib
 import math
 import time
@@ -247,11 +248,21 @@ class GraphIteration:
         pool = torch.cuda.graph_pool_handle()
         rb = torch.cuda.CUDAGraph(keep_graph=True)
         seg = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(rb, pool=pool):
-            self._rebuild()
-        mid = _launch_counts()
-        with torch.cuda.graph(seg, pool=pool):
-            self._segment()
+        # A finalizer that the cyclic collector runs inside a capture (a
+        # CUDA object of an earlier loop released) can make a CUDA call
+        # that global capture mode refuses, and the capture is lost: the
+        # collector stays off until both captures end.
+        gc_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(rb, pool=pool):
+                self._rebuild()
+            mid = _launch_counts()
+            with torch.cuda.graph(seg, pool=pool):
+                self._segment()
+        finally:
+            if gc_enabled:
+                gc.enable()
         after = _launch_counts()
         for m, c in zip(kernel_modules(), before):
             m.launches = c

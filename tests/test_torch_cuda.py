@@ -218,12 +218,36 @@ def test_rebo_kernel_reruns_and_rows_are_bit_identical_at_k(cuda, K):
     assert not g4[..., 3].any()
 
 
-def test_rebo_kernel_rejects_k_outside_its_range(cuda):
-    planes, _ = synthetic_rebo_planes(8, 16)
-    wide = [torch.cat([p] * 9) for p in planes[:5]] + [planes[5]]
-    with pytest.raises(ValueError):
-        rebo.rebo_cotangents(*[p.to(cuda) for p in wide],
-                             rebo.derive_rebo_constants(sextic_tables()))
+@pytest.mark.parametrize("K", [96, 128, 256, 2688])
+def test_rebo_kernel_matches_twin_past_k64(cuda, K):
+    """Past the old K = 64 (eight atoms a block up to K = 256, fewer
+    above, and at K = 2688 the planes staged in 32-slot-multiple groups):
+    within 5e-4 x scale of the twin, dead slots exactly 0, reruns and the
+    emit_rows table bit-identical, and float64 still refused."""
+    wide = K > 256
+    if wide:
+        assert rebo.rebo_plan(K)[1] < K
+    planes, dead = synthetic_rebo_planes(K, 16 if wide else 8 * 37 + 3,
+                                         seed=K, dense=2 if wide else 8)
+    planes = [p.to(cuda) for p in planes]
+    consts = rebo.derive_rebo_constants(sextic_tables())
+    before = rebo.launches
+    gk = rebo.rebo_cotangents(*planes, consts)
+    *g3, g4 = rebo.rebo_cotangents(*planes, consts, emit_rows=True)
+    torch.cuda.synchronize()
+    assert rebo.launches == before + 2
+    gt = rebo.rebo_cotangents_ref(*planes, consts)
+    scale = max(float(g.abs().max()) for g in gt)
+    assert scale > 1e-3
+    dead = dead.to(cuda)
+    for a, b, c in zip(gk, gt, g3):
+        assert float((a - b).abs().max()) <= 5e-4 * scale
+        assert torch.equal(a, c) and not bool(a[dead].any())
+    for a in range(3):
+        assert torch.equal(g4[..., a], g3[a])
+    assert int(((~dead).sum(dim=0) > 32).sum()) >= 2
+    with pytest.raises(TypeError):
+        rebo.rebo_cotangents(*[p.double() for p in planes], consts)
 
 
 def test_rebo_kernel_rejects_float64(cuda, small):
@@ -363,19 +387,25 @@ def test_select_k_kernel_matches_twin_exactly(cuda):
     (200, 16, 512), (32, 40, 512), (100, 40, 1024), (300, 128, 384),
     ("tied", 16, 512), ("tied", 40, 128), ("tied", 20, 1024),
     (115, 144, 1024), (144, 144, 512), (200, 224, 1024), (256, 256, 512),
-    (257, 144, 512), (300, 256, 1024), ("tied", 144, 1024)])
+    (257, 144, 512), (300, 256, 1024), ("tied", 144, 1024),
+    (0, 320, 2048), (300, 320, 1024), (320, 320, 2048), (512, 320, 2048),
+    (600, 320, 2048), (1024, 1024, 4096), (1100, 1024, 4096),
+    (3000, 1024, 4096), ("tied", 512, 2048), ("tied_full", 320, 2048),
+    ("tied_full", 1024, 4096)])
 def test_select_k_kernel_by_hits_per_row(cuda, hits, K, W):
-    """Rows with 0, fewer than K, exactly 32, more than 32 and all-tied
-    finite keys (the lanes' bitonic sort up to 32 hits, the buffer's up to
-    256, the argmin rounds past it), K above 32 and 128 too: positions and
+    """Rows with 0, fewer than K, exactly 32, more than 32, exactly K, more
+    than K and all-tied finite keys (the lanes' bitonic sort up to 32
+    hits, the buffer's up to its next power of two >= max(K, 64), the
+    radix select past it), K above 32, 128 and 256 too: positions and
     payloads exact, reruns identical."""
     N = 67
     rng = np.random.default_rng(W + K)
     keys = np.full((N, W), np.inf, np.float32)
     for r in range(N):
-        n = min(W, rng.integers(1, 90)) if hits == "tied" else hits
+        n = (min(W, rng.integers(1, 90)) if hits == "tied"
+             else rng.integers(K, W) if hits == "tied_full" else hits)
         cols = rng.choice(W, size=n, replace=False)
-        keys[r, cols] = (1.5 if hits == "tied"
+        keys[r, cols] = (1.5 if hits in ("tied", "tied_full")
                          else np.round(rng.uniform(0.0, 4.0, n) * 4.0) / 4.0)
     ids = rng.integers(0, 2 ** 24, (N, W)).astype(np.float32)
     typ = rng.integers(1, 3, (N, W)).astype(np.float32)
@@ -391,10 +421,21 @@ def test_select_k_kernel_by_hits_per_row(cuda, hits, K, W):
         assert torch.equal(a, b) and torch.equal(a, c)
 
 
-def test_select_k_kernel_rejects_wide_rows(cuda):
-    keys = torch.zeros((4, select_k.MAX_W + 128), device=cuda)
-    with pytest.raises(ValueError):
-        select_k.select_k(keys, 8)
+@pytest.mark.parametrize("W,K", [(2048, 16), (2048, 320), (4096, 64),
+                                 (4096, 1024)])
+def test_select_k_kernel_on_wide_rows(cuda, W, K):
+    """Rows past the old W = 1024, read in 1,024-column chunks (~5 % of
+    the keys finite: rows of more hits than the buffer holds at K = 16
+    and 64 take the radix select): positions and payloads exact, reruns
+    identical."""
+    keys, ids, types = _keys(cuda, N=300, W=W, seed=W + K)
+    out_k = select_k.select_k(keys, K, payloads=(ids, types))
+    out_t = select_k.select_k_ref(keys, K, payloads=(ids, types))
+    again = select_k.select_k(keys, K, payloads=(ids, types))
+    for a, b, c in zip(out_k, out_t, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    hits = (keys < float("inf")).sum(dim=1)
+    assert int((hits > select_k.hit_capacity(K)).sum()) > 0 or K > 64
 
 
 def _candidate_call(scene, cand_capacity=None):
@@ -760,9 +801,10 @@ def test_graph_span_replays_without_host_sync(cuda):
 
 # -- AEAM + fix nvt ---------------------------------------------------------
 
-def _aeam_call(K):
+def _aeam_call(K, overflow=False):
     """The arguments of the select_candidates call of a float32 CPU
-    rebuild of the jiggled nc=5 Al-Si scene (skin 1.2) with K slots."""
+    rebuild of the jiggled nc=5 Al-Si scene (skin 1.2) with K slots (with
+    overflow: K below the rows' hits)."""
     from lammps_plugins_tpu_torch.api.scenes import alsi_sample
     from lammps_plugins_tpu_torch.fixes.nvt import FixNVT
     from lammps_plugins_tpu_torch.potentials.aeam import AEAM
@@ -781,16 +823,15 @@ def _aeam_call(K):
     (_, _, _, flags), calls = rebuild_with_spy(
         plan, st.x, st.image, st.type, *eng._box_dev,
         pair.neighbor_requests())
-    assert not bool(flags["k_overflow:main"])
+    assert bool(flags["k_overflow:main"]) == overflow
     return calls[0]
 
 
-@pytest.mark.parametrize("K", [144, 224, 256])
-def test_select_candidates_kernel_at_aeam_k(cuda, K):
-    """D' past K = 128 on an Al-Si rebuild (~115-135 hits a row): idx,
-    jtype, mask and kmax equal its twin's on the card and on the CPU."""
-    args, out_cpu = _aeam_call(K)
-    dargs = [a.to(cuda) if torch.is_tensor(a) else a for a in args]
+def _candidates_exact(args, out_cpu, dev):
+    """D' on the card on `args`: idx, jtype, mask and kmax equal to its
+    twin's on the card and on the CPU (out_cpu), reruns identical; returns
+    the kernel's outputs."""
+    dargs = [a.to(dev) if torch.is_tensor(a) else a for a in args]
     before = select_candidates.launches
     out_k = select_candidates.select_candidates(*dargs)
     torch.cuda.synchronize()
@@ -800,6 +841,104 @@ def test_select_candidates_kernel_at_aeam_k(cuda, K):
     for a, b, c, d in zip(out_k, out_t, out_cpu, again):
         assert torch.equal(a, b) and torch.equal(a.cpu(), c) \
             and torch.equal(a, d)
+    return out_k
+
+
+@pytest.mark.parametrize("K", [64, 100])
+def test_select_candidates_kernel_on_overflowing_rows(cuda, K):
+    """D' with K below the Al-Si rows' ~115-135 hits: rows past the hit
+    buffer (64 at K = 64, 128 at K = 100) take the radix select; the
+    K nearest, ties to the lowest column, exact against the twin."""
+    out_k = _candidates_exact(*_aeam_call(K, overflow=True), cuda)
+    assert int(out_k[3]) > K
+
+
+@pytest.mark.parametrize("cps", [9, 3, 1])
+@pytest.mark.parametrize("K", [144, 512])
+def test_select_candidates_kernel_in_staged_slices(cuda, monkeypatch, cps,
+                                                   K):
+    """D' with its 27 cells staged 9, 3 or 1 at a time (the plan forced to
+    slices): each warp keeps its hit buffer across the slices, exact
+    against the twin."""
+    monkeypatch.setattr(select_candidates, "SLICES", (cps,))
+    args, out_cpu = _aeam_call(K)
+    assert select_candidates.candidates_plan(
+        K, args[1].shape[1], args[4].shape[0])[2] == cps
+    _candidates_exact(args, out_cpu, cuda)
+
+
+def _lj_wide_call(n=8, cut=7.0, K=None):
+    """The select_candidates call of a float32 CPU rebuild of lj_melt(n)
+    with lj/cut `cut` (skin 0.3): ~1,400 neighbours a row and ~500-slot
+    fine cells, whose 27 do not fit a block's shared memory at once."""
+    from lammps_plugins_tpu_torch.api.scenes import lj_melt
+    from lammps_plugins_tpu_torch.potentials.ljcut import PairLJCut
+    st = lj_melt(n, dtype=torch.float32, device="cpu").state
+    pair = PairLJCut(cut, ntypes=1, dtype=torch.float32, device="cpu")
+    pair.set_coeff(1, 1, 1.0, 1.0)
+    pair.prepare(st.type.numpy())
+    eng = Engine(st, pair, [FixNVE()], units.LJ, skin=0.3)
+    eng.rebuild_neighbors()
+    plan = eng._plan if K is None else dataclasses.replace(
+        eng._plan, k_caps=(("main", K),))
+    st = eng.state
+    _, calls = rebuild_with_spy(plan, st.x, st.image, st.type,
+                                *eng._box_dev, pair.neighbor_requests())
+    return calls[0]
+
+
+@pytest.mark.parametrize("K", [None, 1024])
+def test_select_candidates_kernel_on_a_wide_lj_cut(cuda, K):
+    """D' on lj_melt(8) with lj/cut 7.0: K past 1,024 (or 1,024 below the
+    rows' hits, the radix select on sliced staging), the 27 cells staged
+    in x-planes; exact against the twin."""
+    args, out_cpu = _lj_wide_call(K=K)
+    k, Cf = args[5], args[1].shape[1]
+    assert select_candidates.candidates_plan(k, Cf, 2)[2] < 27
+    out_k = _candidates_exact(args, out_cpu, cuda)
+    assert int(out_k[3]) > 1024
+
+
+def _mixture_call(ntypes):
+    """The select_candidates call of a float32 CPU rebuild of
+    torch_parity.mixture_arrays(ntypes) (500 atoms, a cut per type
+    pair)."""
+    from lammps_plugins_tpu_torch.core.box import Box
+    from lammps_plugins_tpu_torch.core.state import State
+    from lammps_plugins_tpu_torch.potentials.ljcut import PairLJCut
+    from torch_parity import mixture_arrays
+    cpu = dict(dtype=torch.float32, device="cpu")
+    x, types, length, coeffs = mixture_arrays(ntypes)
+    pair = PairLJCut(3.0, ntypes=ntypes, **cpu)
+    for c in coeffs:
+        pair.set_coeff(*c)
+    pair.prepare(types)
+    st = State.create(x=x, type=types, box=Box.orthogonal([length] * 3,
+                                                          **cpu),
+                      mass=np.ones(ntypes + 1))
+    eng = Engine(st, pair, [FixNVE()], units.LJ, skin=0.3)
+    eng.rebuild_neighbors()
+    st = eng.state
+    _, calls = rebuild_with_spy(eng._plan, st.x, st.image, st.type,
+                                *eng._box_dev, pair.neighbor_requests())
+    return calls[0]
+
+
+@pytest.mark.parametrize("ntypes", [21, 64])
+def test_select_candidates_kernel_with_many_types(cuda, ntypes):
+    """D' past the old 15 types: a [T + 1, T + 1] cut table of per-pair
+    cuts in shared memory, exact against the twin."""
+    args, out_cpu = _mixture_call(ntypes)
+    assert tuple(args[4].shape) == (ntypes + 1, ntypes + 1)
+    _candidates_exact(args, out_cpu, cuda)
+
+
+@pytest.mark.parametrize("K", [144, 224, 256, 512, 1024])
+def test_select_candidates_kernel_at_aeam_k(cuda, K):
+    """D' past K = 128 (and past the old 256) on an Al-Si rebuild (~115-135
+    hits a row): idx, jtype, mask and kmax equal its twin's on the card
+    and on the CPU."""
+    out_k = _candidates_exact(*_aeam_call(K), cuda)
     assert 32 < int(out_k[3]) <= K
 
 

@@ -358,3 +358,62 @@ def test_mirror_table_equals_the_slot_by_slot_search(monkeypatch, deck):
         eng = getattr(scenes, deck)(5, **f32).engine()
     eng.run(40)
     assert len(same) >= 2 and all(same)
+
+
+# -- edge vectors ----------------------------------------------------------
+
+def _edge_inputs(rebuilt, strained):
+    """(JAX args, port args) of edge_vectors on the JAX rebuild's REBO
+    list, wrapped positions and box, with a seeded strain or none."""
+    from lammps_plugins_tpu.api.scenes import rebomos_bulk
+    (jxw, _, jnbr, _), _ = rebuilt
+    h = np.array(rebomos_bulk(dtype=jnp.float64).box.h)
+    strain = (np.random.default_rng(3).uniform(-0.01, 0.01, (3, 3))
+              if strained else None)
+    pnbr = convert.neighbor_data_from_numpy(jnbr)
+    jargs = (jxw, jnbr.ghosts, jnbr.lists["rebo"], jnp.asarray(h),
+             None if strain is None else jnp.asarray(strain))
+    pargs = (torch.from_numpy(np.array(jxw)), pnbr.ghosts,
+             pnbr.lists["rebo"], torch.from_numpy(h),
+             None if strain is None else torch.from_numpy(strain))
+    return jargs, pargs
+
+
+@pytest.mark.parametrize("strained", [False, True], ids=["plain", "strain"])
+def test_edge_vectors_match_jax(rebuilt, strained):
+    """d, rsq_safe (1 on masked slots) and the mask of the port's
+    edge_vectors against JAX's, with and without a strain."""
+    from lammps_plugins_tpu.neighbor.neighbor import edge_vectors as jev
+    from lammps_plugins_tpu_torch.neighbor.neighbor import edge_vectors
+    from torch_parity import rel_err
+    jargs, pargs = _edge_inputs(rebuilt, strained)
+    jd, jr, jm = jev(*jargs)
+    pd, pr, pm = edge_vectors(*pargs)
+    np.testing.assert_array_equal(pm.numpy(), np.asarray(jm))
+    assert pd.shape == (pm.shape[0], pm.shape[1], 3)
+    assert rel_err(pd.numpy(), jd) <= 1e-12
+    assert rel_err(pr.numpy(), jr) <= 1e-12
+    assert bool((pr[~pm] == 1.0).all()) and bool(pm.any())
+
+
+def test_edge_vectors_strain_virial_matches_jax(rebuilt):
+    """W = -dE/dstrain at zero strain through torch.autograd equals JAX's
+    gradient, for a pair energy of the masked edges' rsq."""
+    import jax
+    from lammps_plugins_tpu.neighbor.neighbor import edge_vectors as jev
+    from lammps_plugins_tpu_torch.neighbor.neighbor import edge_vectors
+    from torch_parity import rel_err
+    jargs, pargs = _edge_inputs(rebuilt, False)
+
+    def jenergy(strain):
+        _, rsq, mask = jev(*jargs[:4], strain)
+        return jnp.sum(jnp.where(mask, jnp.exp(-rsq / 4.0), 0.0))
+
+    jW = -jax.grad(jenergy)(jnp.zeros((3, 3), jnp.float64))
+    strain = torch.zeros((3, 3), dtype=torch.float64, requires_grad=True)
+    _, rsq, mask = edge_vectors(*pargs[:4], strain)
+    e = torch.sum(torch.where(mask, torch.exp(-rsq / 4.0),
+                              torch.zeros_like(rsq)))
+    W = -torch.autograd.grad(e, strain)[0]
+    assert float(np.abs(np.asarray(jW)).max()) > 1e-3
+    assert rel_err(W.numpy(), jW) <= 1e-10

@@ -259,3 +259,23 @@ def permute_cell_slots(P, seed=0):
     perm = torch.argsort(torch.rand(P.shape[:3] + P.shape[-1:], generator=g),
                          dim=-1)
     return torch.gather(P, -1, perm[..., None, :].expand(P.shape)), perm
+
+
+def mixture_arrays(ntypes, n=5, seed=21, jiggle=0.08):
+    """A jiggled fcc lattice of 4 n^3 atoms at the LJ melt's density with
+    ntypes atom types at random (numpy seed), and lj/cut coefficients
+    (i, j, eps, sigma, cut) for every type pair, cuts in [2.0, 3.0]:
+    (x, types, box length, coefficients)."""
+    rng = np.random.default_rng(seed)
+    a = (4.0 / 0.8442) ** (1.0 / 3.0)
+    base = a * np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5],
+                         [0, 0.5, 0.5]])
+    cells = a * np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"),
+                         -1).reshape(-1, 3)
+    x = (cells[:, None, :] + base[None]).reshape(-1, 3)
+    x = x + rng.uniform(-jiggle, jiggle, x.shape)
+    types = rng.integers(1, ntypes + 1, len(x))
+    coeffs = [(i, j, rng.uniform(0.5, 1.5), rng.uniform(0.8, 1.2),
+               rng.uniform(2.0, 3.0))
+              for i in range(1, ntypes + 1) for j in range(i, ntypes + 1)]
+    return x, types, n * a, coeffs

@@ -11,31 +11,38 @@ This repository is the first build ("this"); each PATH is another tree
 that holds lammps_plugins_tpu_torch/ (a `git archive` of the parent
 commit, or a scratch copy with another design of a kernel).  Each tree's
 own ops/build.py builds its csrc/*.cu into PATH/build/torch_kernels/, and
-each library's lpt_rebo_cotangents and lpt_pin_copy are called through
-ctypes with the same arguments (their C signatures are unchanged since
-the first port), and lpt_lj_cell_forces / lpt_lj_cell_forces_half with
-the arguments of the tree's own signature (the tile-culling designs
-take a packing scratch and Dx as two trailing arguments, the first
-designs do not; read from the tree's ops/build.py); likewise
-lpt_react_combine (the route-scan design reads the route tables, the
-target-table design rtgt).  lpt_select_k keeps one signature; a tree
-without lpt_select_candidates takes the candidate selection's unfused
-path (this tree's torch-built keys, then that tree's select_k).
+each library's entry points are called through ctypes with the arguments
+of the tree's own signature (chip_smoke.py's launchers read it from the
+tree's ops/build.py): lpt_rebo_cotangents, lpt_select_k and
+lpt_select_candidates with or without the launch plan (atoms and staged
+slots for A; warps, hit buffer and staged cells for D and D', from this
+tree's ops/*.py plans), lpt_lj_cell_forces / lpt_lj_cell_forces_half with
+or without a packing scratch and Dx, lpt_react_combine on the route
+tables or on rtgt.  A tree without lpt_select_candidates takes the
+candidate selection's unfused path (this tree's torch-built keys, then
+that tree's select_k).  A build whose entry point refuses a shape (the
+designs before any K: D and D' past K = 256, A past K = 64) is recorded
+as "refused" there.
 
-Inputs come from this tree: the 97,920-atom bench scene
-(chip_smoke.bench_engine) after one rebuild.  A runs on the rebuild's
+Inputs come from this tree.  The 97,920-atom bench scene
+(chip_smoke.bench_engine) after one rebuild: A runs on the rebuild's
 [K, Np] planes and on the same planes padded with empty slots to each
 larger K of --k (what the Engine's K re-size gives); H on chip_smoke's
 three phase-1 shapes; C (with and without the energy row) and E on the
-scene's packed cell planes; D on chip_smoke's seeded candidate-like keys,
-D' on the arguments of the bench rebuild's select_candidates call, G on
-the route tables of the spatially sorted scene's rebuild.  Every launch
-of every build is timed with CUDA
-events, one launch each per turn, the order reversed every other turn,
-and clone() takes its turn beside the pin copies; the medians of --reps
-turns are printed with each build's max error against this tree's twin
-(A, C, E, G) or exactness (H, D, D'; G's bit-identity with this tree's),
-and one line `RESULT {json}` with the card's name and power limit.
+scene's packed cell planes; D on chip_smoke's seeded candidate-like keys;
+G on the route tables of the spatially sorted scene's rebuild.  D' runs
+on the arguments of the rebuild of each cell's scene at its K: main (the
+bench scene, K = 16), aeam (32,000 atoms, K = 144), melt (65,536 ions,
+K = 128), lj (bench/in.lj, K = 120), and the wide shapes wide_melt
+(chip_smoke.wide_melt: lj/cut/coul/cut 6 12, skin 2, K past 256) and
+skin4 (the bench scene at skin 4.0), where A also runs on the rebuild's
+own REBO planes (K past 64).  Every launch of every build is timed with
+CUDA events, one launch each per turn, the order reversed every other
+turn, and clone() takes its turn beside the pin copies; the medians of
+--reps turns are printed with each build's max error against this tree's
+twin (A, C, E, G) or exactness (H, D, D'; G's bit-identity with this
+tree's), the bound of each D' and A shape, and one line `RESULT {json}`
+with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -82,7 +89,6 @@ def main():
     planes0 = pair._rebo_planes(st.x, pair.el_of_type[st.type], nbr.ghosts,
                                 nbr.lists["rebo"], st.box.h)
     cst = pair._rebo_consts
-    cvec = build.device_constants(tuple(rebo.rebo_constant_vector(cst)), dev)
     stream = build.stream(dev)
     K0, Np = planes0[0].shape
     out = {"rebo": {}, "pin": {}, "lj": {}}
@@ -91,37 +97,8 @@ def main():
             continue
         planes = [F.pad(p, (0, 0, 0, K - K0)).contiguous()
                   for p in planes0[:5]] + [planes0[5]]
-        gt = rebo.rebo_cotangents_ref(*planes, cst)
-        scale = max(float(t.abs().max()) for t in gt)
-        outs = {lab: [torch.empty((K, Np), device=dev) for _ in range(3)]
-                for lab in libs}
-
-        def launcher(lab):
-            ptrs = [p.data_ptr() for p in planes]
-            o = [t.data_ptr() for t in outs[lab]]
-
-            def fn():
-                status = libs[lab].lpt_rebo_cotangents(
-                    *ptrs, cvec.data_ptr(), *o, None, K, Np, stream)
-                build.raise_on_error(status, f"rebo {lab}")
-            return fn
-
-        fns = {lab: launcher(lab) for lab in libs}
-        for fn in fns.values():
-            fn()
-        torch.cuda.synchronize()
-        errs = {lab: max(float((a - b).abs().max())
-                         for a, b in zip(outs[lab], gt)) for lab in libs}
-        ms = cs.interleaved_ms(fns, args.reps)
-        work = cs.rebo_work(planes, cst)
-        b_ms, b_by = cs.bound(*work[:3])
-        out["rebo"][K] = dict(ms=ms, max_abs_err=errs, bar=5e-4 * scale,
-                              bound_ms=b_ms, bound_by=b_by,
-                              live_edges_hist=work[3])
-        print(f"rebo K={K}: " + ", ".join(
-            f"{lab} {ms[lab]:.4f} ms (err {errs[lab]:.3e})" for lab in libs)
-            + f"; bar {5e-4 * scale:.3e}; bound {b_ms:.4f} ms by {b_by}")
-        del planes, gt, outs
+        out["rebo"][K] = time_rebo(builds, planes, cst, args.reps, cs)
+        del planes
     g = rebo.rebo_cotangents_ref(*planes0, cst)
     stacked = torch.stack(g, dim=-1)
     flat = stacked.reshape(-1)
@@ -160,11 +137,123 @@ def main():
     out["lj"] = time_lj(builds, eng, args.reps, cs)
     del eng, planes0, g, stacked, flat, shapes
     out.update(time_select_react(builds, cand_args, K0, args.reps, cs, dev))
+    out.update(time_candidate_shapes(builds, cand_args, args.reps, cs, dev))
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print("RESULT " + json.dumps(dict(trees=trees, reps=args.reps, gpu=gpu,
                                       **out)))
+
+
+def refused_or(fn):
+    """fn() once; "refused" when the build's entry point refuses the
+    shape (a RuntimeError from its status), else None."""
+    try:
+        fn()
+    except RuntimeError as err:
+        print(f"  refused: {err}")
+        return "refused"
+    return None
+
+
+def time_rebo(builds, planes, cst, reps, cs):
+    """A of every build on the [K, Np] planes in turns: median ms, max
+    error against this tree's twin (taken chip_smoke.REBO_TWIN_ATOMS
+    atoms at a time), the bound; a build that refuses K is "refused"."""
+    import torch
+    from lammps_plugins_tpu_torch.ops import build, rebo
+    K, Np = planes[0].shape
+    cvec = build.device_constants(tuple(rebo.rebo_constant_vector(cst)),
+                                  planes[0].device)
+    fns = {lab: cs.rebo_launcher(b, planes, cvec, K, Np)
+           for lab, b in builds.items()}
+    refused = {lab: refused_or(fn) for lab, fn in fns.items()}
+    fns = {lab: fn for lab, fn in fns.items() if not refused[lab]}
+    outs = {lab: [o.clone() for o in fn()] for lab, fn in fns.items()}
+    scale, errs = 0.0, {lab: 0.0 for lab in fns}
+    for c0 in range(0, Np, cs.REBO_TWIN_ATOMS):
+        c1 = c0 + cs.REBO_TWIN_ATOMS
+        g = rebo.rebo_cotangents_ref(
+            *[p[:, c0:c1].contiguous() for p in planes[:5]],
+            planes[5][c0:c1], cst)
+        scale = max(scale, max(float(t.abs().max()) for t in g))
+        for lab, o in outs.items():
+            errs[lab] = max(errs[lab], max(float((a[:, c0:c1] - b).abs()
+                                                 .max())
+                                           for a, b in zip(o, g)))
+    del outs
+    torch.cuda.synchronize()
+    ms = cs.interleaved_ms(fns, reps)
+    work = cs.rebo_work(planes, cst)
+    b_ms, b_by = cs.bound(*work[:3])
+    print(f"rebo K={K}: " + ", ".join(
+        f"{lab} {ms[lab]:.4f} ms (err {errs[lab]:.3e})" for lab in fns)
+        + "".join(f", {lab} refused" for lab, r in refused.items() if r)
+        + f"; bar {5e-4 * scale:.3e}; bound {b_ms:.4f} ms by {b_by}")
+    return dict(ms={**ms, **{lab: r for lab, r in refused.items() if r}},
+                max_abs_err=errs, bar=5e-4 * scale, bound_ms=b_ms,
+                bound_by=b_by, live_edges_hist=work[3])
+
+
+def candidate_shapes(cs, dev, main_args):
+    """{label: (select_candidates arguments, engine)} of each cell's
+    rebuild at its K (see the module docstring); main: the bench
+    rebuild's main_args."""
+    shapes = {"main": (main_args, None)}
+
+    def grab(label, eng, K=None):
+        a = cs.capture_candidate_calls(eng)[-1]
+        shapes[label] = (a if K is None else a[:5] + (K,), eng)
+
+    grab("aeam", cs.aeam_engine(dev), 144)
+    grab("melt", cs.deck_engine(dev, "melt"), 128)
+    grab("lj", cs.deck_engine(dev, "lj"), 120)
+    grab("wide_melt", cs.wide_melt(cs.DECKS["melt"], device=dev).engine())
+    grab("skin4", cs.bench_engine(dev, skin=cs.SKIN4["skin"]))
+    return shapes
+
+
+def time_candidate_shapes(builds, main_args, reps, cs, dev):
+    """D' (or the unfused path) of every build in turns on each
+    candidate_shapes shape, exact against this tree's twin, with its
+    bound; then A on the skin-4.0 rebuild's REBO planes."""
+    import torch
+    from lammps_plugins_tpu_torch.ops import select_candidates
+    res = {"select_candidates": {}}
+    shapes = candidate_shapes(cs, dev, main_args)
+    for label, (cand_args, _) in shapes.items():
+        ref = select_candidates.select_candidates_ref(*cand_args)
+        fns, design = {}, {}
+        for lab, b in builds.items():
+            fns[lab], design[lab] = cs.candidates_launcher(b, cand_args)
+        refused = {lab: refused_or(fn) for lab, fn in fns.items()}
+        fns = {lab: fn for lab, fn in fns.items() if not refused[lab]}
+        exact = {lab: all(torch.equal(a, r) for a, r in zip(fn(), ref))
+                 for lab, fn in fns.items()}
+        ms = cs.interleaved_ms(fns, reps)
+        work = cs.candidate_work(cand_args)
+        b_ms, b_by = cs.bound(*work[:2])
+        K, Cf = cand_args[5], cand_args[1].shape[1]
+        res["select_candidates"][label] = dict(
+            ms={**ms, **{lab: r for lab, r in refused.items() if r}},
+            exact=exact, design=design, K=K, Cf=Cf,
+            n=cand_args[2].shape[0], kmax=int(ref[3]), bound_ms=b_ms,
+            bound_by=b_by)
+        print(f"select_candidates {label} (K={K}, Cf={Cf}, kmax "
+              f"{int(ref[3])}): " + ", ".join(
+                  f"{lab} ({design[lab]}) {t:.4f} ms" for lab, t in
+                  ms.items())
+              + "".join(f", {lab} refused" for lab, r in refused.items()
+                        if r)
+              + f"; exact {exact}; bound {b_ms:.4f} ms by {b_by}")
+        del ref, fns
+    eng = shapes["skin4"][1]
+    pair, st, nbr = eng.pair, eng.state, eng.nbr
+    planes = pair._rebo_planes(st.x, pair.el_of_type[st.type], nbr.ghosts,
+                               nbr.lists["rebo"], st.box.h)
+    res["rebo_skin4"] = time_rebo(builds, planes, pair._rebo_consts, reps,
+                                  cs)
+    return res
 
 
 def time_lj(builds, eng, reps, cs):
@@ -207,12 +296,11 @@ def time_lj(builds, eng, reps, cs):
 
 
 def time_select_react(builds, cand_args, K, reps, cs, dev):
-    """D on chip_smoke's keys, D' (or the unfused path) on the bench
-    rebuild's arguments, G on the sorted scene's tables, every build in
-    turns; each build's outputs against this tree's."""
+    """D on chip_smoke's keys (the bench rebuild's row count and width),
+    G on the sorted scene's tables, every build in turns; each build's
+    outputs against this tree's."""
     import torch
-    from lammps_plugins_tpu_torch.ops import (react, rebo,
-                                              select_candidates, select_k)
+    from lammps_plugins_tpu_torch.ops import react, rebo, select_k
     res = {}
     N = cand_args[2].shape[0]
     W = -(-27 * cand_args[1].shape[1] // 128) * 128
@@ -227,19 +315,6 @@ def time_select_react(builds, cand_args, K, reps, cs, dev):
     print("select_k: " + ", ".join(f"{lab} {t:.4f} ms" for lab, t in
                                    ms.items()) + f"; exact {exact}")
     del keys, ids, typ, ref, fns
-
-    ref = select_candidates.select_candidates_ref(*cand_args)
-    fns, design = {}, {}
-    for lab, b in builds.items():
-        fns[lab], design[lab] = cs.candidates_launcher(b, cand_args)
-    exact = {lab: all(torch.equal(a, r) for a, r in zip(fn(), ref))
-             for lab, fn in fns.items()}
-    ms = cs.interleaved_ms(fns, reps)
-    res["select_candidates"] = dict(ms=ms, exact=exact, design=design)
-    print("select_candidates: " + ", ".join(
-        f"{lab} ({design[lab]}) {t:.4f} ms" for lab, t in ms.items())
-        + f"; exact {exact}")
-    del ref, fns
 
     eng = cs.bench_engine(dev, sort=True, combine="react", react_gate=False)
     eng.rebuild_neighbors()
