@@ -20,13 +20,16 @@ Phases (any failure raises, so the script exits non-zero):
      reckoned with their own rule, beside the pairs inside the LJ window
      and the first design's count; the rebuild's fused candidate selection
      (D') on the arguments of the bench rebuild, exact against its twin and
-     against the unfused path (torch-built keys, then kernel D), whose time
-     in turns is D''s prev_design_ms; the reaction combine also against
-     the route tables' twin; with --prev-tree (a tree holding an earlier
+     against the unfused path (torch-built keys, then kernel D), in turns
+     with it (unfused_ms) and split into its parts (split_ms:
+     candidates_split); the reaction combine also against the route
+     tables' twin; with --prev-tree (a tree holding an earlier
      lammps_plugins_tpu_torch/, e.g. a `git archive` of the parent commit)
-     the LJ sweeps, select-k and the reaction combine of that tree's build
-     are timed in turns with this one's (prev_design_ms), and the reaction
-     combine's forces must equal that build's bit for bit
+     the LJ sweeps, select-k, D' (also split, and on every later path's
+     rebuild: candidates_record) and the reaction combine of that tree's
+     build are timed in turns with this one's (prev_design_ms), D''s lists
+     must equal that build's and the reaction combine's forces too, bit
+     for bit
   2. f32 forces of the 288-atom scene on the card (device rebuild +
      kernels) against the float64 CPU twin forces: max|dF| < 1e-2 RMS(F)
   3. the main path: Engine.run on the 97,920-atom scene (f32, skin 0.8,
@@ -180,8 +183,8 @@ Phases (any failure raises, so the script exits non-zero):
      planes within 5e-4 x scale of its twin (the twin REBO_TWIN_ATOMS
      atoms at a time), D' on a rebuild of the run; (d) kernel-only checks,
      each exact against its twin: D' on lj_melt(12) with lj/cut 7.0 (6,912
-     atoms, K past 1,024, its 27 cells staged in slices), D' on a
-     21-type lj/cut mixture with a cut per type pair, and D on seeded rows
+     atoms, K past 1,024, its cells too large to stage, read in place), D'
+     on a 21-type lj/cut mixture with a cut per type pair, and D on seeded rows
      of 0, K / 2, K, 3K, K + 17 tied and 3K tied hits at K = 320, 512 and
      1024 and W = 2048 and 4096
 
@@ -400,6 +403,11 @@ KERNEL_NAMES = {"rebo": "rebo_cotangents", "mirror": "mirror_combine",
                 "react": "react_combine", "pin": "pin_copy"}
 
 
+#: the builds D' is split and timed with: "this" (this tree's ops/build.py)
+#: and, with --prev-tree, "build" and "tree" of the earlier tree (main)
+PREV = {}
+
+
 def ops_modules():
     import importlib
     return {m: importlib.import_module(f"lammps_plugins_tpu_torch.ops.{m}")
@@ -507,41 +515,160 @@ def react_launcher(b, g3, rl):
     return fn
 
 
-def candidates_launcher(b, args):
-    """(fn, design) for the rebuild's candidate selection of the build `b`
-    on the select_candidates arguments `args`: its fused kernel D' where
-    the build has one ("fused"), else the keys built in torch by this
-    tree's twin and selected by the build's select_k ("unfused").  fn()
-    returns (idx, jtype, mask, kmax)."""
-    from lammps_plugins_tpu_torch.ops import select_candidates as sc
-    xt_pad, dense_f, c3f, fdims, cut, K = args
+def cell_block_plan(k, Cf, nt):
+    """(warps, cap, cps) of the one-block-a-cell design of D' (the
+    earlier design, the C entry point of 20 arguments): the hit buffers of
+    ops/select_k.py::hit_capacity, cps of the 27 neighbour cells' Cf
+    slots staged at once (24 bytes a slot) beside the buffers and the
+    [nt, nt] cut table, all 27 cells first, then the most warps."""
+    from lammps_plugins_tpu_torch.ops.select_k import (SMEM_LIMIT,
+                                                       buffer_bytes,
+                                                       hit_capacity)
+    cap = hit_capacity(k)
+    for cps in (27, 9, 3, 1):
+        for warps in (4, 2, 1):
+            if (24 * cps * Cf + buffer_bytes(warps, cap) + 4 * nt * nt
+                    + 8 * warps) <= SMEM_LIMIT:
+                return warps, cap, cps
+    raise ValueError(f"cell_block_plan: k={k}, Cf={Cf}, nt={nt} do not fit")
+
+
+def cell_block_prepare(dense_f, c3f, fdims, cut):
+    """The int32 inputs of the one-block-a-cell design of D': the cell
+    table, the owned atoms sorted by fine cell again (rows with a negative
+    cell past the last run) with each cell's run start, and the float32
+    cutoff table."""
+    d0, d1, d2 = (int(d) for d in fdims)
+    dev, i32 = c3f.device, torch.int32
+    cid = ((c3f[:, 0] * d1 + c3f[:, 1]) * d2 + c3f[:, 2]).to(i32)
+    cid = torch.where(torch.all(c3f >= 0, -1), cid,
+                      torch.full_like(cid, d0 * d1 * d2))
+    scid, order = torch.sort(cid)
+    starts = torch.searchsorted(scid, torch.arange(d0 * d1 * d2 + 1,
+                                                   dtype=i32, device=dev))
+    return (dense_f.to(i32).contiguous(), order.to(i32), starts.to(i32),
+            cut.to(device=dev, dtype=torch.float32).contiguous())
+
+
+def candidates_parts(b, args):
+    """{part: fn} of the rebuild's candidate selection of the build `b` on
+    the select_candidates arguments `args`, each fn launching only its
+    part on inputs made once: for the one-block-a-cell design (the C entry
+    point of 20 arguments) "prepare" (the sort of the owned atoms by cell,
+    the int32 table), "fills" (the four zero-filled outputs), "kernel" and
+    "kmax" (cnt.max()); for the brick design "gather" (the zeroed kmax
+    and, without staging, the positions in cell order) and "kernel".
+    "wrapper" runs every part in order and returns (idx, jtype, mask,
+    kmax); None where the build has no fused kernel (see
+    candidates_launcher)."""
+    sig = b._SIGNATURES.get("lpt_select_candidates")
+    if sig is None or len(sig) not in (20, 25):
+        return None
+    xt_pad, dense_f, c3f, fdims, cut, K = args[:6]
     dev = xt_pad.device
-    if "lpt_select_candidates" not in b._SIGNATURES:
-        def select(keys, k, payloads):
-            return select_k_launcher(b, keys, k, payloads)()
-        return (lambda: sc.select_candidates_ref(*args, select=select),
-                "unfused")
     lib = b.lib()
     n, m_all, Cf = c3f.shape[0], xt_pad.shape[0] - 1, dense_f.shape[1]
     d0, d1, d2 = fdims
-    outs = [torch.empty((n, K), dtype=dt, device=dev)
-            for dt in (torch.int64, torch.int64, torch.bool)]
-    cnt = torch.empty(n, dtype=torch.int32, device=dev)
+    if len(sig) == 25:
+        return brick_parts(b, args)
+    plan = cell_block_plan(K, Cf, cut.shape[0])
     stream = b.stream(dev)
-    # the designs that size their buffers and staging at launch (20
-    # arguments) take this tree's plan; the earlier ones refuse K > 256
-    plan = (sc.candidates_plan(K, Cf, cut.shape[0])[:3]
-            if len(b._SIGNATURES["lpt_select_candidates"]) == 20 else ())
+    inputs = cell_block_prepare(dense_f, c3f, fdims, cut)
 
-    def fn():
-        table, order, starts, cutc = sc.prepare(dense_f, c3f, fdims, cut)
+    def fills():
+        return ([torch.zeros((n, K), dtype=dt, device=dev)
+                 for dt in (torch.int64, torch.int64, torch.bool)]
+                + [torch.zeros(n, dtype=torch.int32, device=dev)])
+    outs = fills()
+
+    def kernel(ins=inputs, o=outs):
+        table, order, starts, cutc = ins
         b.raise_on_error(lib.lpt_select_candidates(
             xt_pad.data_ptr(), table.data_ptr(), order.data_ptr(),
             starts.data_ptr(), cutc.data_ptr(), cut.shape[0],
-            *(o.data_ptr() for o in outs), cnt.data_ptr(), d0, d1, d2, Cf,
-            m_all, K, *plan, stream), "select_candidates")
-        return (*outs, cnt.max().to(torch.int64))
-    return fn, "fused"
+            *(t.data_ptr() for t in o), d0, d1, d2, Cf, m_all, K, *plan,
+            stream), "select_candidates")
+
+    def wrapper():
+        ins = cell_block_prepare(dense_f, c3f, fdims, cut)
+        o = fills()
+        kernel(ins, o)
+        return (*o[:3], o[3].max().to(torch.int64))
+    return {"prepare": lambda: cell_block_prepare(dense_f, c3f, fdims, cut),
+            "fills": fills, "kernel": kernel,
+            "kmax": lambda: outs[3].max().to(torch.int64),
+            "wrapper": wrapper}
+
+
+def brick_parts(b, args, plan=None):
+    """candidates_parts of the brick design (the C entry point of 25
+    arguments), launched with `plan` or this tree's plan
+    (ops/select_candidates.py::candidates_plan) on the binning's runs
+    args[6]."""
+    from lammps_plugins_tpu_torch.ops import select_candidates as sc
+    xt_pad, dense_f, c3f, fdims, cut, K = args[:6]
+    runs = args[6]
+    dev = xt_pad.device
+    lib = b.lib()
+    n, m_all, Cf = c3f.shape[0], xt_pad.shape[0] - 1, dense_f.shape[1]
+    d0, d1, d2 = fdims
+    nt = cut.shape[0]
+    p = plan or sc.candidates_plan(K, Cf, nt)
+    stream = b.stream(dev)
+
+    def gather():
+        """the zeroed kmax and, without staging, the positions in cell
+        order"""
+        xs = None if p.staged else xt_pad.view(torch.complex128).view(
+            -1).index_select(0, runs.order)
+        return xs, torch.zeros((), dtype=torch.int64, device=dev)
+    ins = gather()
+    outs = [torch.empty((n, K), dtype=dt, device=dev)
+            for dt in (torch.int64, torch.int64, torch.bool)]
+
+    def kernel(ins=ins, o=outs):
+        xs, kmax = ins
+        b.raise_on_error(lib.lpt_select_candidates(
+            xt_pad.data_ptr(), None if xs is None else xs.data_ptr(),
+            runs.order.data_ptr(), runs.starts.data_ptr(), cut.data_ptr(),
+            runs.origin.data_ptr(), *(t.data_ptr() for t in o),
+            kmax.data_ptr(), float(runs.size), nt, d0, d1, d2, Cf, n, m_all,
+            K, p.warps, p.cap, int(p.bucket), p.bx, int(p.staged), stream),
+            "select_candidates")
+
+    def wrapper():
+        g = gather()
+        o = [torch.empty((n, K), dtype=dt, device=dev)
+             for dt in (torch.int64, torch.int64, torch.bool)]
+        kernel(g, o)
+        return (*o, g[1])
+    return {"gather": gather, "kernel": kernel, "wrapper": wrapper}
+
+
+def candidates_launcher(b, args):
+    """(fn, design) for the rebuild's candidate selection of the build `b`
+    on the select_candidates arguments `args`: its fused kernel D' where
+    the build has one ("fused": candidates_parts' wrapper), else the keys
+    built in torch by this tree's twin and selected by the build's
+    select_k ("unfused").  fn() returns (idx, jtype, mask, kmax)."""
+    from lammps_plugins_tpu_torch.ops import select_candidates as sc
+    if "lpt_select_candidates" not in b._SIGNATURES:
+        def select(keys, k, payloads):
+            return select_k_launcher(b, keys, k, payloads)()
+        return (lambda: sc.select_candidates_ref(*args[:6], select=select),
+                "unfused")
+    parts = candidates_parts(b, args)
+    if parts is None:
+        raise RuntimeError("select_candidates: a design before any K "
+                           "(refused here)")
+    return parts["wrapper"], "fused"
+
+
+def candidates_split(b, args, reps):
+    """Median device ms of each part of candidates_parts(b, args), in
+    turns; {} where the build has no fused kernel."""
+    parts = candidates_parts(b, args)
+    return interleaved_ms(parts, reps) if parts else {}
 
 
 def rebo_launcher(b, planes, cvec, K, Np):
@@ -580,22 +707,22 @@ def select_k_keys(dev, N, W):
 
 
 def candidate_work(args):
-    """(bytes, flops, candidate pairs) of one select_candidates call: the
-    kernel's inputs (positions, the int32 cell table, the atoms-by-cell
-    order and cell starts, the cutoff table) read once and its outputs
-    (idx and jtype int64, mask, the per-row count) written once; ~10
-    operations (3 sub, 3 mul, 3 add, 1 compare) per pair of an owned atom
-    and a real atom of its 27 cells."""
+    """(bytes, flops, candidate pairs) of one select_candidates call: its
+    inputs (the positions and types, the rows in cell order and each
+    cell's run start, the cutoff table) read once and its outputs (idx and
+    jtype int64, mask, kmax) written once; ~10 operations (3 sub, 3 mul,
+    3 add, 1 compare) per pair of an owned atom and a real atom of its 27
+    cells."""
     from lammps_plugins_tpu_torch.ops.select_candidates import (
         neighbour_cells)
-    xt_pad, dense_f, c3f, fdims, cut, K = args
-    n, m_all, Cf = c3f.shape[0], xt_pad.shape[0] - 1, dense_f.shape[1]
+    xt_pad, dense_f, c3f, fdims, cut, K = args[:6]
+    n, m_all = c3f.shape[0], xt_pad.shape[0] - 1
     ncf = int(np.prod(fdims))
     occ = (dense_f < m_all).sum(dim=1)
     occ[ncf:] = 0
     pairs = float(occ[neighbour_cells(c3f, fdims)].sum())
-    nbytes = (16 * (m_all + 1) + 4 * (ncf + 2) * Cf + 4 * n
-              + 4 * (ncf + 1) + 4 * cut.numel() + n * K * 17 + 4 * n)
+    nbytes = (16 * (m_all + 1) + 4 * m_all + 4 * (ncf + 1)
+              + 4 * cut.numel() + n * K * 17 + 8)
     return nbytes, 10 * pairs, pairs
 
 
@@ -654,7 +781,7 @@ def phase1_kernels(dev, prev_tree=""):
     eng = bench_engine(dev)
     cand_args = capture_candidate_calls(eng)[-1]
     pair, st, nbr = eng.pair, eng.state, eng.nbr
-    prev_build = load_build("prev", prev_tree) if prev_tree else None
+    prev_build = PREV.get("build") if prev_tree else None
     rl = nbr.lists["rebo"]
     K, Np = rl.idxT.shape
     Wp = -(-27 * eng._plan.cand_capacity // 128) * 128
@@ -912,8 +1039,9 @@ def phase1_kernels(dev, prev_tree=""):
 
     # D': the rebuild's fused candidate selection on the bench rebuild's
     # own arguments; exact against its twin and against the unfused path
-    # (the keys built in torch, then D), whose time in turns is
-    # prev_design_ms
+    # (the keys built in torch, then D), in turns with it and (prev_tree)
+    # with the earlier tree's design; each design's time split by part
+    from lammps_plugins_tpu_torch.ops import build as this_build
     ck = select_candidates.select_candidates(*cand_args)
     ct = select_candidates.select_candidates_ref(*cand_args)
 
@@ -921,35 +1049,43 @@ def phase1_kernels(dev, prev_tree=""):
         return select_candidates.select_candidates_ref(
             *cand_args, select=select_k.select_k)
 
-    cu = unfused()
+    fns = {"kernel": lambda: select_candidates.select_candidates(
+        *cand_args), "unfused": unfused}
+    if prev_build:
+        fns["prev"] = candidates_launcher(prev_build, cand_args)[0]
+    others = [ct] + [fn() for name, fn in fns.items() if name != "kernel"]
     again = select_candidates.select_candidates(*cand_args)
-    diffs = [float((a.long() - b.long()).abs().max()) for other in (ct, cu)
+    diffs = [float((a.long() - b.long()).abs().max()) for other in others
              for a, b in zip(ck, other)]
-    exact = all(torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
-                for a, b, c, d in zip(ck, ct, cu, again))
+    exact = all(torch.equal(a, b) for other in others + [again]
+                for a, b in zip(ck, other))
     if not exact:
-        raise AssertionError(f"select_candidates differs from its twin or "
-                             f"the unfused path: {diffs}")
-    xt_pad, dense_f, c3f, fdims, _, Kc = cand_args
+        raise AssertionError(f"select_candidates differs from its twin, the "
+                             f"unfused path or {prev_tree}: {diffs}")
+    xt_pad, dense_f, c3f, fdims, _, Kc = cand_args[:6]
     cwork = candidate_work(cand_args)
-    t = interleaved_ms({"kernel": lambda: select_candidates.select_candidates(
-        *cand_args), "unfused": unfused, "prepare": lambda:
-        select_candidates.prepare(*cand_args[1:5])}, 20)
+    t = interleaved_ms(fns, 20)
+    split = candidates_split(this_build, cand_args, 20)
+    prev_split = (candidates_split(prev_build, cand_args, 20) if prev_build
+                  else {})
     print(f"select_candidates: n={c3f.shape[0]} K={Kc} Cf={dense_f.shape[1]} "
           f"fine cells {fdims}, kmax {int(ck[3])}, candidate pairs "
-          f"{cwork[2]:.0f}")
+          f"{cwork[2]:.0f}; split {split}"
+          + (f"; {prev_tree} {t['prev']:.4f} ms, split {prev_split}"
+             if prev_build else ""))
     record("select_candidates", max(diffs), 0.0, t["kernel"],
            timed_ms(lambda: select_candidates.select_candidates_ref(
                *cand_args), reps=3),
            "lammps_plugins_tpu_torch/csrc/select_k.cu",
            "lammps_plugins_tpu/ops/select_k_pallas.py:99 with the keys of "
            "lammps_plugins_tpu/neighbor/device_build.py:718-784",
-           cwork[:2], prev_design_ms=t["unfused"], prepare_ms=t["prepare"],
-           K=Kc,
+           cwork[:2], unfused_ms=t["unfused"], split_ms=split, K=Kc,
            W=27 * dense_f.shape[1], kmax=int(ck[3]),
            candidate_pairs=cwork[2], exact_vs_twin=True,
-           exact_vs_unfused=True, reruns_bit_identical=True)
-    del ck, ct, cu, again, cand_args, xt_pad, dense_f, c3f
+           exact_vs_unfused=True, reruns_bit_identical=True,
+           **({"prev_design_ms": t["prev"], "prev_split_ms": prev_split,
+               "exact_vs_prev_design": True} if prev_build else {}))
+    del ck, ct, again, others, fns, cand_args, xt_pad, dense_f, c3f
     torch.cuda.empty_cache()
 
     # G: reaction combine on the route tables of the sorted scene's rebuild
@@ -1410,7 +1546,7 @@ def candidates_record(eng, label, ks=(), args=None):
     K = args[5]
     diffs, hits = [], None
     for k in (K, *ks):
-        a = args[:5] + (k,)
+        a = args[:5] + (k,) + args[6:]
         ck = select_candidates.select_candidates(*a)
         ct = select_candidates.select_candidates_ref(*a)
         again = select_candidates.select_candidates(*a)
@@ -1421,13 +1557,21 @@ def candidates_record(eng, label, ks=(), args=None):
             raise AssertionError(f"select_candidates of the {label} rebuild, "
                                  f"K={k}, differs from its twin: {diffs[-1]}")
         if hits is None:
-            hits, kmax = ck[2].sum(dim=1), int(ck[3])
+            hits, kmax, first = ck[2].sum(dim=1), int(ck[3]), ck
         print(f"{label} select_candidates K={k}: exact against its twin, "
               f"kmax {int(ck[3])}")
     n, Cf = args[2].shape[0], args[1].shape[1]
     work = candidate_work(args)
     b_ms, b_by = bound(*work[:2])
-    ms = timed_ms(lambda: select_candidates.select_candidates(*args), 20)
+    fns = {"kernel": lambda: select_candidates.select_candidates(*args)}
+    prev = PREV.get("build")
+    if prev:
+        fns["prev"] = candidates_launcher(prev, args)[0]
+        if not all(torch.equal(x, y) for x, y in zip(fns["prev"](), first)):
+            raise AssertionError(f"select_candidates of the {label} rebuild "
+                                 f"differs from {PREV['tree']}'s")
+    t = interleaved_ms(fns, 20)
+    ms = t["kernel"]
     plain = timed_ms(lambda: select_candidates.select_candidates_ref(*args),
                      3)
     out = dict(K=K, W=27 * Cf, Cf=Cf, n=n, kmax=kmax,
@@ -1435,12 +1579,19 @@ def candidates_record(eng, label, ks=(), args=None):
                mean_hits=float(hits.float().mean()), max_abs_err=max(diffs),
                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                bytes=work[0], flops=work[1], candidate_pairs=work[2],
-               exact_at_k=[K, *ks], library_ms=None)
+               exact_at_k=[K, *ks], library_ms=None,
+               split_ms=candidates_split(PREV["this"], args, 10))
+    if prev:
+        out.update(prev_design_ms=t["prev"],
+                   prev_split_ms=candidates_split(prev, args, 10))
     print(f"{label} select_candidates: n={n} K={K} Cf={Cf} fine cells "
           f"{args[3]}, hits a row mean {out['mean_hits']:.2f}, rows without "
           f"hits {out['rows_without_hits']}, candidate pairs {work[2]:.0f}; "
           f"kernel {ms:.4f} ms, twin {plain:.4f} ms, bound {b_ms:.4f} ms by "
-          f"{b_by} ({work[0] / 1e6:.2f} MB), share {b_ms / ms:.3f}")
+          f"{b_by} ({work[0] / 1e6:.2f} MB), share {b_ms / ms:.3f}; split "
+          f"{out['split_ms']}"
+          + (f"; {PREV['tree']} {out['prev_design_ms']:.4f} ms, split "
+             f"{out['prev_split_ms']}" if prev else ""))
     return out
 
 
@@ -3478,9 +3629,10 @@ def mixture_engine(dev, ntypes, n=10, seed=21):
 
 
 def wide_kernel_checks(dev):
-    """D' on lj_melt(12) with lj/cut 7.0 (K past 1,024, its 27 cells
-    staged in slices) and on the NTYPES-type mixture; D on select_k_rows
-    at the WIDE_SELECT_K shapes; each exact against its twin."""
+    """D' on lj_melt(12) with lj/cut 7.0 (K past 1,024, its cells too
+    large to stage, read in place) and on the NTYPES-type mixture; D on
+    select_k_rows at the WIDE_SELECT_K shapes; each exact against its
+    twin."""
     from lammps_plugins_tpu_torch.ops.select_candidates import (
         candidates_plan)
     out = {}
@@ -3488,18 +3640,21 @@ def wide_kernel_checks(dev):
                        (f"types_{NTYPES}", mixture_engine(dev, NTYPES))):
         args = capture_candidate_calls(eng)[-1]
         K, Cf, nt = args[5], args[1].shape[1], args[4].shape[0]
-        warps, cap, cps, nbytes = candidates_plan(K, Cf, nt)
+        p = candidates_plan(K, Cf, nt)
         rec = candidates_record(eng, label, args=args)
-        rec.update(types=nt - 1, warps=warps, hit_buffer=cap,
-                   cells_staged=cps, shared_bytes=nbytes)
-        print(f"{label}: K={K} Cf={Cf} types {nt - 1}: {warps} warps a "
-              f"block, hit buffer {cap}, {cps} of 27 cells staged at once, "
-              f"{nbytes} bytes of shared memory")
+        rec.update(types=nt - 1, warps=p.warps, hit_buffer=p.cap,
+                   bucket_sort=p.bucket, brick_cells=p.bx,
+                   staged=p.staged, shared_bytes=p.nbytes)
+        print(f"{label}: K={K} Cf={Cf} types {nt - 1}: {p.warps} warps a "
+              f"block, hit buffer {p.cap}, bucket sort {p.bucket}, bricks "
+              f"of {p.bx} cells, staged {p.staged}, {p.nbytes} bytes of "
+              f"shared memory")
         out[label] = rec
         del eng, args
         torch.cuda.empty_cache()
-    if not (out["lj_cut_7"]["K"] > 1024 and out["lj_cut_7"]["cells_staged"]
-            < 27 and out[f"types_{NTYPES}"]["types"] >= 20):
+    if not (out["lj_cut_7"]["K"] > 1024
+            and not out["lj_cut_7"]["staged"]
+            and out[f"types_{NTYPES}"]["types"] >= 20):
         raise AssertionError(f"the kernel checks missed their shapes: {out}")
     out["select_k"] = select_k_wide(dev)
     return out
@@ -3543,6 +3698,11 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device")
     dev = torch.device("cuda:0")
     modules = ops_modules()
+    from lammps_plugins_tpu_torch.ops import build
+    PREV["this"] = build
+    if args.prev_tree:
+        PREV.update(build=load_build("prev", args.prev_tree),
+                    tree=args.prev_tree)
     with timed("phase 0"):
         phase0_environment()
     with timed("phase 1"):

@@ -5,7 +5,7 @@
 // _make_kernel), which compacts each atom's cell-window candidates to its
 // K nearest in the device neighbor rebuild.  The TPU kernel read keys that
 // the rebuild had built in device memory; D keeps that interface, D' takes
-// the rebuild's fine-cell table instead and never writes a key.
+// the rebuild's fine cells instead and never writes a key.
 // Semantics: per row, the column positions of the K smallest keys in
 // ascending order; ties go to the lowest column (a stable sort); exhausted
 // slots (only +inf left) give pos = W and payload 0.  Any K and any row
@@ -15,21 +15,25 @@
 //
 // What bounds them on the H100.  D: reading the [N, W] keys once (~200 MB
 // at 98k atoms, W = 512).  D': its outputs (the [n, K] int64 index and
-// type lists); its inputs are the fine-cell table and the positions, a few
-// MB, read once per neighbouring cell from L2.
+// type lists); its inputs, the positions in cell order and the cells' run
+// starts, are a few MB.
 //
-// The selection core, shared.  A warp counts the row's hits (finite keys;
-// for D' the candidates inside the cutoff window) with a ballot per step,
+// The selection core.  A warp counts the row's hits (finite keys; for D'
+// the candidates inside the cutoff window) with a ballot per step,
 // visiting them in column order, and puts the first `cap` of them (key and
 // an int r that orders like the column) into its hit buffer in shared
 // memory; cap, the next power of two >= max(K, 64), is set at launch.
 //  * At most 32 hits (every row of the REBOMOS bench rebuild: 12-20 of
-//    ~430 candidates): one bitonic sort over the lanes' shuffles, lane k
+//    ~270 candidates): one bitonic sort over the lanes' shuffles, lane k
 //    writes output k.
-//  * At most cap hits (the AEAM rebuild's ~115 at K = 144, the wide-cut
-//    melt's ~330 at K = 336): the buffer, padded to a power of two, sorted
-//    in place by a bitonic sort whose compare-exchanges the lanes share;
-//    lane q writes outputs q, q + 32, ... straight from the buffer.
+//  * At most cap hits: D sorts the buffer, padded to a power of two, in
+//    place by a bitonic sort whose compare-exchanges the lanes share (a
+//    __syncwarp a step: 45 steps at 512).  D' takes a bucket sort where
+//    shared memory leaves room for a second buffer: each hit's bucket
+//    (256 ranges of rsq, cut^2 / 256 wide) counted, the hits scattered by
+//    bucket in push order, each hit's rank its bucket's start plus the
+//    hits of its bucket before it; every lane busy, a few steps whatever
+//    the count.  Lane q writes outputs q, q + 32, ... from the buffer.
 //  * More hits than the buffer holds (kmax > K, a rebuild that the Engine
 //    discards, or D's dense rows): a radix select finds the K-th smallest
 //    key.  Positive and negative float32s order as their sign-flipped
@@ -42,24 +46,30 @@
 // the stores are coalesced and no lane walks the K outputs alone.
 //
 // D: one warp per row; the row is read in 1,024-column chunks (8 float4 a
-// lane), so W is any multiple of 128.  D': one block per fine cell; the
-// real atoms among its 27 neighbour cells' slots (ids, then x, y, z, type
-// by cp.async from the position table) are staged in shared memory in
-// column order (column o * Cf + s: offset o of offs27, (a, b, c)
-// lexicographic over {-1, 0, 1}, and slot s), compacted by a ballot and a
-// block-wide prefix of the warps' counts; out-of-range cells are empty.
-// When the 27 cells do not fit beside the buffers, the block stages them
-// in slices of 9, 3 or 1 cells, and each warp keeps its hit buffer across
-// the slices (holding the column, from which the id is read again at the
-// end); a row that overflows it then reads its candidates from the cell
-// table directly for the radix passes.  One warp per owned atom of the
-// cell (taken from an owned-atoms-by-cell order, so an atom that the
-// capped cell table dropped still gets its row) computes rsq = ((0 + dx^2)
-// + dy^2) + dz^2 with dx = x_cand - x_centre in round-to-nearest
-// intrinsics (no FMA contraction, so rsq and its ties are those of the
-// PyTorch twin bit for bit), tests valid (id < m_all and id != own id) and
-// rsq < cut * cut against the [nt, nt] cut table, also in shared memory,
-// and selects.  Nothing [n, W]-sized exists.
+// lane), so W is any multiple of 128.
+//
+// D': the rebuild bins every row by fine cell with one stable sort
+// (neighbor/device_build.py::_bin_dense); the kernel reads that sort's order
+// and each cell's run start, so a cell's atoms are one contiguous run of the
+// order.  A block takes a brick, an x-column of bx cells (bx = 1 to 8, by cell
+// size), and stages the real atoms of the brick's (bx + 2) x 3 x 3 cells once,
+// their rows and then their positions by cp.async, where the one-block-a-cell
+// design staged each cell again for each of its 27 neighbours; several blocks
+// share an SM, so one block's copies overlap another's selection.  The union
+// is x-major, so an atom's 27 cells in column order (column o * Cf + s: offset
+// o of offs27, (a, b, c) lexicographic over {-1, 0, 1}, and slot s) are one
+// contiguous run of the staging, three planes of nine cells, and the staged
+// index orders like the column; cells too large to stage are read in place
+// (bricks of one cell).  From each plane the leading and trailing rows and
+// cells whose nearest point lies past the atom's largest cut are not tested:
+// at most ~15 % of the 27-cell cube lies inside the window.  rsq = ((0 + dx^2)
+// + dy^2) + dz^2 with dx = x_cand - x_centre in round-to-nearest intrinsics
+// (no FMA contraction, so rsq and its ties are those of the PyTorch twin bit
+// for bit), hit = not the atom's own slot and rsq < cut * cut against the [nt,
+// nt] table of squared cuts in shared memory.  Rows of at most 16 hits sort
+// within 16 lanes.  Each output element is written once, the rows in no cell
+// included, and kmax is one atomicMax a block at most.  Nothing [n, W]-sized
+// exists.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -68,7 +78,7 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxWarps = 4;            // rows (D) or atoms (D') at once
+constexpr int kMaxWarps = 4;            // D: rows a block
 constexpr int kBins = 256;              // radix-select histogram
 constexpr int kChunk = 1024;            // D: columns read per step
 constexpr int kSmemLimit = 232448;      // the H100's opt-in block limit
@@ -78,10 +88,12 @@ __device__ __forceinline__ bool before(float a, int ca, float b, int cb) {
   return a < b || (a == b && ca < cb);
 }
 
-// ascending bitonic sort of one (key, r) pair per lane
-__device__ __forceinline__ void bitonic32(float& k, int& c, int lane) {
+// ascending bitonic sort of one (key, r) pair per lane, within each group
+// of kWidth lanes (a power of two up to 32)
+template <int kWidth>
+__device__ __forceinline__ void bitonic(float& k, int& c, int lane) {
 #pragma unroll
-  for (int size = 2; size <= 32; size <<= 1) {
+  for (int size = 2; size <= kWidth; size <<= 1) {
 #pragma unroll
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       const float ok = __shfl_xor_sync(kFull, k, stride);
@@ -119,12 +131,16 @@ __device__ __forceinline__ void bitonic_buffer(float* bk, int* bc, int n2,
   }
 }
 
-// A warp's hit buffer: cap keys, cap r values, the radix histogram.
+// A warp's hit buffer: cap keys, cap r values, the radix histogram (D'
+// also sorts with it); D''s bucket sort adds cap keys and r values more
+// (k2, r2; null for D).
 struct HitBuf {
   float* k;
   int* r;
   int* hist;
   int cap;
+  float* k2;
+  int* r2;
 };
 
 // the buffers of `warps` warps laid out from `base`: keys, then r, then
@@ -135,7 +151,7 @@ __device__ __forceinline__ HitBuf warp_buf(void* base, int warp, int warps,
   int* r = reinterpret_cast<int*>(k + (size_t)warps * cap);
   int* hist = r + (size_t)warps * cap;
   return HitBuf{k + (size_t)warp * cap, r + (size_t)warp * cap,
-                hist + warp * kBins, cap};
+                hist + warp * kBins, cap, nullptr, nullptr};
 }
 
 // count this lane's hit and, among the row's first cap, put it in the
@@ -167,7 +183,7 @@ __device__ __forceinline__ void select_buffered(const HitBuf& b, int nh,
       k = b.k[lane];
       c = b.r[lane];
     }
-    bitonic32(k, c, lane);
+    bitonic<32>(k, c, lane);
     for (int q = lane; q < K; q += 32) emit(q, q < nh ? c : -1);
     __syncwarp();
     return;
@@ -190,14 +206,15 @@ __device__ __forceinline__ unsigned ordered(float f) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// The K smallest hits of a row of more than cap >= K hits.  item(q, key, r)
+// The K smallest hits of a row of more than cap >= K hits, gathered into
+// the buffer in column order; returns their count (K).  item(q, key, r)
 // returns whether item q in [0, n) is a hit (and its key and r); r must
 // grow with q, so that the first ties in q order are the lowest columns.
 // Four histogram passes fix the ordered bits of the K-th smallest key T;
 // a fifth gathers the hits below T and the first ties at T, K in all.
-template <typename Item, typename Emit>
-__device__ __forceinline__ void select_radix(const HitBuf& b, int n, int K,
-                                             int lane, Item item, Emit emit) {
+template <typename Item>
+__device__ __forceinline__ int radix_gather(const HitBuf& b, int n, int K,
+                                            int lane, Item item) {
   const unsigned below = (1u << lane) - 1u;
   unsigned prefix = 0u, pmask = 0u;
   int need = K;                          // rank of T among the bucket
@@ -272,14 +289,16 @@ __device__ __forceinline__ void select_radix(const HitBuf& b, int n, int K,
     taken += __popc(mt);
   }
   __syncwarp();
-  select_buffered(b, taken, K, lane, emit);
+  return taken;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;"
-               :: "r"(d), "l"(src) : "memory");
+// D's rows of more than cap hits: radix_gather, then select_buffered
+template <typename Item, typename Emit>
+__device__ __forceinline__ void select_radix(const HitBuf& b, int n, int K,
+                                             int lane, Item item, Emit emit) {
+  select_buffered(b, radix_gather(b, n, K, lane, item), K, lane, emit);
 }
+
 
 // Let the kernel take up to the block limit of dynamic shared memory.
 // Done once, at the entry point's first call (the Engine's first rebuild
@@ -350,199 +369,486 @@ select_k_kernel(const float* __restrict__ keys,
   }
 }
 
-// ---- D': candidates from the fine-cell table ----------------------------
+// ---- D': candidates from the positions in fine-cell order ----------------
+
+constexpr int kMaxCandWarps = 16;       // D': warps a block
+constexpr int kMinCandBlocks = 2;       // D': blocks an SM (64 registers)
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;"
+               :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(d), "l"(src) : "memory");
+}
 
 // (hit, rsq) of a candidate at p (x, y, z, type) against the centre ci:
 // rsq = ((0 + dx^2) + dy^2) + dz^2 rounded as the twin's separate torch
-// ops round it, and hit = rsq < cut * cut.
+// ops round it, and hit = rsq < cut * cut (row2: the centre type's row of
+// squared cuts, each squared once in round-to-nearest).
 __device__ __forceinline__ bool in_window(float4 p, float4 ci,
-                                          const float* crow, float& rsq) {
+                                          const float* row2, float& rsq) {
   const float dx = __fsub_rn(p.x, ci.x);
   const float dy = __fsub_rn(p.y, ci.y);
   const float dz = __fsub_rn(p.z, ci.z);
   rsq = __fadd_rn(__fadd_rn(__fadd_rn(0.f, __fmul_rn(dx, dx)),
                             __fmul_rn(dy, dy)),
                   __fmul_rn(dz, dz));
-  const float ct = crow[(int)p.w];
-  return rsq < __fmul_rn(ct, ct);
+  return rsq < row2[(int)p.w];
 }
 
-// The fine-cell geometry of one block: its cell (cx, cy, cz), the grid and
-// the table; col -> the id in the table's slot (m_all: empty or outside).
-struct Cells {
-  const int* table;
-  int cx, cy, cz, d0, d1, d2, Cf, m_all;
+// the bucket of a key in [0, kmax2): monotone in the key (a rounded product
+// and a truncation), so a bucket holds a range of keys
+__device__ __forceinline__ int bucket_of(float key, float inv) {
+  return min((int)__fmul_rn(key, inv), kBins - 1);
+}
 
-  __device__ __forceinline__ int id_at(int col) const {
-    const int o = col / Cf, s = col - o * Cf;
-    const int nx = cx + o / 9 - 1, ny = cy + (o / 3) % 3 - 1,
-              nz = cz + o % 3 - 1;
-    if (nx < 0 || nx >= d0 || ny < 0 || ny >= d1 || nz < 0 || nz >= d2)
-      return m_all;
-    return table[((size_t)(nx * d1 + ny) * d2 + nz) * Cf + s];
+// Sort the warp's nh (33 <= nh <= cap) hits by (key, r), all lanes at once:
+// count the keys of each of 256 buckets, scatter the hits by bucket
+// (stable: in the order they were pushed, which is column order), then
+// each hit's rank is its bucket's start plus the hits of its bucket before
+// it, by key and then by position.  The sorted r values end in b.r.
+__device__ void bucket_sort(const HitBuf& b, int nh, float inv, int lane) {
+  const unsigned below = (1u << lane) - 1u;
+  for (int t = lane; t < kBins; t += 32) b.hist[t] = 0;
+  __syncwarp();
+  for (int h = lane; h < nh; h += 32)
+    atomicAdd(&b.hist[bucket_of(b.k[h], inv)], 1);
+  __syncwarp();
+  int c[8], s = 0;
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    c[t] = b.hist[8 * lane + t];
+    s += c[t];
   }
+  int incl = s;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += v;
+  }
+  int run = incl - s;
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    b.hist[8 * lane + t] = run;
+    run += c[t];
+  }
+  __syncwarp();
+  for (int h0 = 0; h0 < nh; h0 += 32) {
+    const int h = h0 + lane;
+    const bool on = h < nh;
+    const int bk = on ? bucket_of(b.k[h], inv) : -1 - lane;
+    const unsigned peers = __match_any_sync(kFull, bk);
+    const int leader = __ffs(peers) - 1;
+    int base = 0;
+    if (on && lane == leader) base = atomicAdd(&b.hist[bk], __popc(peers));
+    base = __shfl_sync(kFull, base, leader);
+    if (on) {
+      const int q = base + __popc(peers & below);
+      b.k2[q] = b.k[h];
+      b.r2[q] = b.r[h];
+    }
+  }
+  __syncwarp();
+  // hist[bk] is now the end of bucket bk
+  for (int q = lane; q < nh; q += 32) {
+    const float key = b.k2[q];
+    const int bk = bucket_of(key, inv);
+    const int lo = bk ? b.hist[bk - 1] : 0, hi = b.hist[bk];
+    int rank = lo;
+    for (int t = lo; t < hi; ++t) {
+      const float kt = b.k2[t];
+      rank += (kt < key || (kt == key && t < q)) ? 1 : 0;
+    }
+    b.r[rank] = b.r2[q];
+  }
+  __syncwarp();
+}
+
+// Everything a launch of D' reads and writes.  xt [m_all + 1, 4] (x, y,
+// z, type of each row); order [m_all] the rows sorted by fine cell and xs
+// [m_all, 4] their xt rows in that order (read in place: without staging
+// only); starts [ncells + 1] each cell's first position (positions past
+// starts[ncells]: rows in no cell); cut [nt, nt]; origin [3] and size the
+// fine grid's; outputs idx, jtype [n, K] int64, mask [n, K] bool and kmax
+// (int64, zero at entry).
+struct CandArgs {
+  const float4* __restrict__ xt;
+  const float4* __restrict__ xs;
+  const int* __restrict__ order;
+  const int* __restrict__ starts;
+  const float* __restrict__ cut;
+  const float* __restrict__ origin;
+  long long* __restrict__ idx;
+  long long* __restrict__ jtype;
+  bool* __restrict__ mask;
+  unsigned long long* kmax;
+  float size;
+  int nt, d0, d1, d2, Cf, n, m_all, K, cap, bx;
 };
 
-// Stage the real atoms of the columns [col0, col0 + width) in column
-// order: ids, columns and (by cp.async) x, y, z, type.  Block-wide, with a
-// prefix of the warps' ballot counts per step (wcount: two rows of
-// `warps`); returns the count.
-__device__ int stage_columns(const Cells& g, const float4* __restrict__ xt,
-                             int col0, int width, float4* xs, int* ids,
-                             int* cols, int* wcount) {
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-  int running = 0;
-  for (int c0 = 0, it = 0; c0 < width; c0 += blockDim.x, ++it) {
-    const int l = c0 + threadIdx.x;
-    const int id = l < width ? g.id_at(col0 + l) : g.m_all;
-    const bool real = id < g.m_all;
-    const unsigned m = __ballot_sync(kFull, real);
-    int* wc = wcount + (it & 1) * warps;
-    if (lane == 0) wc[warp] = __popc(m);
-    __syncthreads();
-    int base = running, total = 0;
-    for (int w = 0; w < warps; ++w) {
-      const int v = wc[w];
-      base += w < warp ? v : 0;
-      total += v;
-    }
-    if (real) {
-      const int q = base + __popc(m & below);
-      ids[q] = id;
-      cols[q] = col0 + l;
-      cp_async16(xs + q, xt + id);
-    }
-    running += total;
-  }
-  asm volatile("cp.async.commit_group;" ::: "memory");
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-  __syncthreads();
-  return running;
+// Byte offsets of one block's shared memory: the staging of the brick's
+// union of cells (staged: S = U Cf slots, x, y, z, type, then the row),
+// its table (staged offsets off[U + 1], run starts gst[U], staged counts
+// occ[U], run ends lst[U], the brick's own cells' entry prefix opre[bx +
+// 1]), the squared cut table, the warps' buffers (keys, r, [bucket sort:
+// keys, r,] histogram), the block's kmax.
+struct CandLayout {
+  size_t xs, ids, meta, cut, bufs, kmax, total;
+  int U, S, meta_ints;
+};
+
+__host__ __device__ inline CandLayout cand_layout(int warps, int cap,
+                                                  int bucket, int bx,
+                                                  int staged, int Cf,
+                                                  int nt) {
+  CandLayout L;
+  L.U = (bx + 2) * 9;
+  L.S = staged ? L.U * Cf : 0;
+  L.meta_ints = (4 * L.U + bx + 2 + 3) & ~3;
+  const size_t per_warp =
+      (size_t)cap * (bucket ? 16 : 8) + (size_t)kBins * 4;
+  L.xs = 0;
+  L.ids = L.xs + (size_t)L.S * 16;
+  L.meta = L.ids + (((size_t)L.S * 4 + 15) & ~(size_t)15);
+  L.cut = L.meta + (size_t)L.meta_ints * 4;
+  L.bufs = L.cut + (((size_t)nt * nt * 4 + 15) & ~(size_t)15);
+  L.kmax = L.bufs + (size_t)warps * per_warp;
+  L.total = L.kmax + 16;
+  return L;
 }
 
-// cps: neighbour cells staged at once (27: all of them; 9, 3 or 1: slices
-// in column order); cap: each warp's hit buffer.  Shared memory: xs
-// [cps Cf] float4, the warps' buffers, ids and cols [cps Cf], the cut
-// table [nt, nt], the staging counts [2, warps].
-__global__ void __launch_bounds__(32 * kMaxWarps)
-select_candidates_kernel(const float4* __restrict__ xt,
-                         const int* __restrict__ table,
-                         const int* __restrict__ order,
-                         const int* __restrict__ starts,
-                         const float* __restrict__ cut, int nt,
-                         long long* __restrict__ idx,
-                         long long* __restrict__ jtype,
-                         bool* __restrict__ mask, int* __restrict__ cnt,
-                         int d0, int d1, int d2, int Cf, int m_all, int K,
-                         int cap, int cps) {
-  extern __shared__ float4 smem_c[];
-  const int c = blockIdx.x;
-  const int a0 = starts[c], a1 = starts[c + 1];
-  if (a0 == a1) return;                  // no owned atom in this cell
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-  const int Ws = cps * Cf;
-  float4* xs = smem_c;                               // [Ws]
-  const HitBuf b = warp_buf(xs + Ws, warp, warps, cap);
-  int* ids = reinterpret_cast<int*>(xs + Ws) +
-             (size_t)warps * (2 * cap + kBins);      // [Ws]
-  int* cols = ids + Ws;                              // [Ws]
-  float* cuts = reinterpret_cast<float*>(cols + Ws); // [nt * nt]
-  int* wcount = reinterpret_cast<int*>(cuts + nt * nt);
-  for (int t = threadIdx.x; t < nt * nt; t += blockDim.x) cuts[t] = cut[t];
-  const Cells g{table, c / (d1 * d2), (c / d2) % d1, c % d2,
-                d0, d1, d2, Cf, m_all};
-
-  if (cps == 27) {
-    // every candidate staged once; each warp takes its atoms alone.  r is
-    // the staged index, which grows with the column.
-    const int nc = stage_columns(g, xt, 0, Ws, xs, ids, cols, wcount);
-    for (int a = a0 + warp; a < a1; a += warps) {
-      const int i = order[a];
-      const float4 ci = xt[i];
-      const float* crow = cuts + (int)ci.w * nt;
-      auto item = [&](int q, float& rsq, int& r) {
-        r = q;
-        return ids[q] != i && in_window(xs[q], ci, crow, rsq);
-      };
-      int nh = 0;
-      for (int j0 = 0; j0 < nc; j0 += 32) {
-        const int q = j0 + lane;
-        float rsq = 0.f;
-        int r = q;
-        const bool hit = q < nc && item(q, rsq, r);
-        push_hit(hit, rsq, r, b, nh, below);
-      }
-      __syncwarp();
-      auto emit = [&](int k, int r) {
-        const size_t o = (size_t)i * K + k;
-        idx[o] = r >= 0 ? (long long)ids[r] : 0;
-        jtype[o] = r >= 0 ? (long long)xs[r].w : 0;
-        mask[o] = r >= 0;
-      };
-      if (nh <= cap)
-        select_buffered(b, nh, K, lane, emit);
-      else
-        select_radix(b, nc, K, lane, item, emit);
-      if (lane == 0) cnt[i] = nh;
-    }
+// D''s rows of at most 16 hits sort within 16 lanes (10 steps, not 15);
+// others go to select_buffered
+template <typename Emit>
+__device__ __forceinline__ void select_small(const HitBuf& b, int nh, int K,
+                                             int lane, Emit emit) {
+  if (nh > 16) {
+    select_buffered(b, nh, K, lane, emit);
     return;
   }
+  float k = INFINITY;
+  int c = INT_MAX;
+  if (lane < nh) {
+    k = b.k[lane];
+    c = b.r[lane];
+  }
+  bitonic<16>(k, c, lane);
+  for (int q = lane; q < K; q += 32) emit(q, q < nh ? c : -1);
+  __syncwarp();
+}
 
-  // sliced: the block's warps take `warps` atoms at a time through every
-  // slice; r is the column, and the buffers outlive the slices
-  for (int a_base = a0; a_base < a1; a_base += warps) {
-    const int a = a_base + warp;
-    const bool active = a < a1;           // warp-uniform
-    const int i = active ? order[a] : 0;
-    const float4 ci = xt[i];
-    const float* crow = cuts + (int)ci.w * nt;
-    int nh = 0;
-    for (int col0 = 0; col0 < 27 * Cf; col0 += Ws) {
-      __syncthreads();                    // the last slice is read
-      const int nc = stage_columns(g, xt, col0, Ws, xs, ids, cols, wcount);
-      if (!active) continue;
-      for (int j0 = 0; j0 < nc; j0 += 32) {
-        const int q = j0 + lane;
-        float rsq = 0.f;
-        const bool hit = q < nc && ids[q] != i &&
-                         in_window(xs[q], ci, crow, rsq);
-        push_hit(hit, rsq, q < nc ? cols[q] : 0, b, nh, below);
+// A brick is bx fine cells along x (an x-column, cells X0 ..  X0 + bx - 1 at
+// Y0, Z0); its union of cells is the (bx + 2) x 3 x 3 block around it,
+// x-major, so the 27 cells of an atom in own cell k, in column order, are the
+// union's cells 9 k ..  9 k + 26: one contiguous run of the staging, in three
+// planes of nine cells (a = -1, 0, 1).  One block a brick: warp 0 reads the
+// brick's table, then (kStaged) the block copies the real atoms of the union
+// by cp.async, each cell's first Cf rows of the order (at most Cf, as in the
+// cell table: past Cf the table's last slot holds the run's last row), then
+// their xt rows.  Several blocks share an SM, so one block's copies overlap
+// another's selection.  Without staging (cells too large; bricks of one cell)
+// the warps read the candidates from xs in device memory, cell by cell.  Each
+// warp takes the brick's owned atoms in turn; for one atom it walks its three
+// planes in column order, trimming from each plane the leading and trailing
+// rows and cells whose nearest point lies past the atom's largest cut (plus a
+// margin for the rounding of the binning), and selects: the hits pushed in
+// column order, sorted (kBucket: bucket_sort past 32 hits), the K nearest
+// written.  The rows in no cell get their empty lists from the same launch;
+// kmax is each warp's most hits, a block max, then an atomicMax where it is
+// larger than the one already there.
+template <bool kStaged, bool kBucket>
+__global__ void __launch_bounds__(32 * kMaxCandWarps, kMinCandBlocks)
+select_candidates_kernel(const CandArgs a) {
+  extern __shared__ float4 smem_c[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const CandLayout L =
+      cand_layout(warps, a.cap, kBucket, a.bx, kStaged, a.Cf, a.nt);
+  char* base = reinterpret_cast<char*>(smem_c);
+  float4* xd = reinterpret_cast<float4*>(base + L.xs);
+  int* idd = reinterpret_cast<int*>(base + L.ids);
+  float* cut2 = reinterpret_cast<float*>(base + L.cut);
+  int* blk_kmax = reinterpret_cast<int*>(base + L.kmax);
+  const int nt = a.nt, Cf = a.Cf, K = a.K, bx = a.bx, U = L.U;
+  // the brick's table: off (staged offsets), gst, occ, lst (each union
+  // cell's run start, staged count and run end), opre (the own cells'
+  // entry prefix)
+  int* off = reinterpret_cast<int*>(base + L.meta);
+  int* gst = off + U + 1;
+  int* occ = gst + U;
+  int* lst = occ + U;
+  int* opre = lst + U;
+  HitBuf hb;
+  {
+    const size_t per_warp = (size_t)a.cap * (kBucket ? 16 : 8) + kBins * 4;
+    char* w = base + L.bufs + warp * per_warp;
+    hb.k = reinterpret_cast<float*>(w);
+    hb.r = reinterpret_cast<int*>(hb.k + a.cap);
+    hb.k2 = kBucket ? reinterpret_cast<float*>(hb.r + a.cap) : nullptr;
+    hb.r2 = kBucket ? reinterpret_cast<int*>(hb.r + 2 * a.cap) : nullptr;
+    hb.hist = reinterpret_cast<int*>(hb.r + (kBucket ? 3 : 1) * a.cap);
+    hb.cap = a.cap;
+  }
+  const int brick = blockIdx.x;
+  const int X0 = brick / (a.d1 * a.d2) * bx, Y0 = brick / a.d2 % a.d1,
+            Z0 = brick % a.d2;
+  for (int t = threadIdx.x; t < nt * nt; t += blockDim.x) {
+    const float c = a.cut[t];
+    cut2[t] = __fmul_rn(c, c);
+  }
+  if (warp == 0) {
+    int carry = 0;
+    for (int u0 = 0; u0 < U; u0 += 32) {
+      const int u = u0 + lane;
+      int g = 0, e = 0;
+      if (u < U) {
+        const int ux = u / 9, uy = (u - 9 * ux) / 3, uz = u % 3;
+        const int gx = X0 + ux - 1, gy = Y0 + uy - 1, gz = Z0 + uz - 1;
+        if (gx >= 0 && gx < a.d0 && gy >= 0 && gy < a.d1 && gz >= 0 &&
+            gz < a.d2) {
+          const int c = (gx * a.d1 + gy) * a.d2 + gz;
+          g = a.starts[c];
+          e = a.starts[c + 1];
+        }
+        gst[u] = g;
+        lst[u] = e - 1;
+        if (uy == 1 && uz == 1 && ux >= 1 && ux <= bx) opre[ux] = e - g;
+      }
+      const int v = min(e - g, Cf);
+      if (u < U) occ[u] = v;
+      int incl = v;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int w = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += w;
+      }
+      if (u < U) off[u] = carry + incl - v;
+      carry += __shfl_sync(kFull, incl, 31);
+    }
+    if (lane == 0) {
+      off[U] = carry;
+      opre[0] = 0;
+      for (int k = 0; k < bx; ++k) opre[k + 1] += opre[k];
+      *blk_kmax = 0;
+    }
+  }
+  __syncthreads();
+  const int nA = opre[bx];              // entries of the own cells' runs
+  if (kStaged && nA > 0) {
+    // slot t of the staging: the cell u whose range [off[u], off[u + 1])
+    // holds it (a binary search), its slot s in that cell; the rows first,
+    // then their positions
+    const int T = off[U];
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      int lo = 0, hi = U;
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (off[mid] <= t) lo = mid; else hi = mid;
+      }
+      const int s = t - off[lo];
+      cp_async4(idd + t, a.order + (s == Cf - 1 ? lst[lo] : gst[lo] + s));
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    for (int t = threadIdx.x; t < T; t += blockDim.x)
+      cp_async16(xd + t, a.xt + idd[t]);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+  }
+  const float size = a.size;
+  const float ox = a.origin[0], oy = a.origin[1], oz = a.origin[2];
+  // the trimming keeps a cell unless its nearest point is past cut +
+  // slack: slack covers the rounding of (x - origin) / size in the binning
+  const float slack =
+      1e-3f * size +
+      ldexpf(fmaxf(fmaxf(fabsf(ox), fabsf(oy)), fabsf(oz)) +
+                 (float)max(max(a.d0, a.d1), a.d2) * size + size,
+             -16);
+  const float y0 = oy + (float)Y0 * size, z0 = oz + (float)Z0 * size;
+  int kw = 0;                           // this warp's most hits
+  for (int t0 = 0; t0 < nA; t0 += 32 * warps) {
+    // lane l of warp w reads entry t0 + w + warps l of the own cells'
+    // runs; the warp then takes its owned atoms (rows < n) one by one
+    const int q = t0 + warp + warps * lane;
+    int p = 0, i = a.n, k = 0;
+    float4 cq = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q < nA) {
+      while (opre[k + 1] <= q) ++k;
+      p = gst[9 * k + 13] + (q - opre[k]);
+      i = a.order[p];
+      if (i < a.n) cq = a.xt[i];
+    }
+    unsigned todo = __ballot_sync(kFull, i < a.n);
+    while (todo) {
+      const int src = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const int ai = __shfl_sync(kFull, i, src);
+      const int ap = __shfl_sync(kFull, p, src);
+      const int ak = __shfl_sync(kFull, k, src);
+      float4 ci;
+      ci.x = __shfl_sync(kFull, cq.x, src);
+      ci.y = __shfl_sync(kFull, cq.y, src);
+      ci.z = __shfl_sync(kFull, cq.z, src);
+      ci.w = __shfl_sync(kFull, cq.w, src);
+      const float* row2 = cut2 + (int)ci.w * nt;
+      float rmax2 = 0.f;
+      for (int t = 0; t < nt; ++t) rmax2 = fmaxf(rmax2, row2[t]);
+      const float lim = sqrtf(rmax2) + slack;
+      const float lim2 = lim * lim;
+      // squared distances from the atom to the low and high faces of its
+      // own cell along each axis
+      float lx2, hx2, ly2, hy2, lz2, hz2;
+      {
+        const float x0 = ox + (float)(X0 + ak) * size;
+        const float lo_x = fmaxf(ci.x - x0, 0.f),
+                    hi_x = fmaxf(x0 + size - ci.x, 0.f);
+        const float lo_y = fmaxf(ci.y - y0, 0.f),
+                    hi_y = fmaxf(y0 + size - ci.y, 0.f);
+        const float lo_z = fmaxf(ci.z - z0, 0.f),
+                    hi_z = fmaxf(z0 + size - ci.z, 0.f);
+        lx2 = lo_x * lo_x; hx2 = hi_x * hi_x;
+        ly2 = lo_y * lo_y; hy2 = hi_y * hi_y;
+        lz2 = lo_z * lo_z; hz2 = hi_z * hi_z;
+      }
+      // the atom's own staged slot (-1: past Cf, not staged), which the
+      // scan leaves out
+      int self = -1;
+      if (kStaged) {
+        const int ou = 9 * ak + 13, s = ap - gst[ou];
+        self = s < Cf - 1 ? off[ou] + s
+                          : (ap == lst[ou] ? off[ou] + Cf - 1 : -1);
+      }
+      int nh = 0;
+#pragma unroll 1
+      for (int oa = 0; oa < 3; ++oa) {
+        // plane a = oa - 1: cells c0 .. c1 - 1 of its nine, the leading
+        // and trailing rows (b) and cells (c) out of reach trimmed
+        const float fx = oa == 0 ? lx2 : (oa == 2 ? hx2 : 0.f);
+        if (fx > lim2) continue;
+        int c0 = fx + ly2 > lim2 ? 3 : 0;
+        int c1 = fx + hy2 > lim2 ? 6 : 9;
+        if (fx + (c0 ? 0.f : ly2) + lz2 > lim2) ++c0;
+        if (fx + (c1 == 9 ? hy2 : 0.f) + hz2 > lim2) --c1;
+        const int pb = 9 * (ak + oa);             // the plane's first cell
+        if (kStaged) {
+          // r is the staged index, which grows with the column
+          const int s0 = off[pb + c0], s1 = off[pb + c1];
+          for (int j0 = s0; j0 < s1; j0 += 32) {
+            const int j = j0 + lane;
+            float rsq = 0.f;
+            const bool hit =
+                j < s1 && j != self && in_window(xd[j], ci, row2, rsq);
+            push_hit(hit, rsq, j, hb, nh, below);
+          }
+        } else {
+          // r is the column o Cf + s
+          for (int cc = c0; cc < c1; ++cc) {
+            const int u = pb + cc;
+            const int g = gst[u], c = occ[u], last = lst[u];
+            const int col0 = (9 * oa + cc) * Cf;
+            for (int s0 = 0; s0 < c; s0 += 32) {
+              const int s = s0 + lane;
+              const int gp = s == Cf - 1 ? last : g + s;
+              float rsq = 0.f;
+              const bool hit = s < c && gp != ap &&
+                               in_window(a.xs[gp], ci, row2, rsq);
+              push_hit(hit, rsq, col0 + s, hb, nh, below);
+            }
+          }
+        }
+      }
+      __syncwarp();
+      kw = max(kw, nh);
+      auto emit = [&](int q, int r) {
+        const size_t o = (size_t)ai * K + q;
+        long long id = 0, jt = 0;
+        if (r >= 0) {
+          if (kStaged) {
+            id = idd[r];
+            jt = (long long)xd[r].w;
+          } else {
+            const int oo = r / Cf, s = r - oo * Cf;
+            const int u = 9 * ak + oo;
+            const int gp = s == Cf - 1 ? lst[u] : gst[u] + s;
+            id = a.order[gp];
+            jt = (long long)a.xs[gp].w;
+          }
+        }
+        a.idx[o] = id;
+        a.jtype[o] = jt;
+        a.mask[o] = r >= 0;
+      };
+      int nsel = nh;
+      if (nh > a.cap) {
+        // past the buffer: the radix select gathers the K nearest, over
+        // the atom's 27 cells again
+        if (kStaged) {
+          const int s0 = off[9 * ak];
+          nsel = radix_gather(hb, off[9 * ak + 27] - s0, K, lane,
+                              [&](int q, float& rsq, int& r) {
+            r = s0 + q;
+            return r != self && in_window(xd[r], ci, row2, rsq);
+          });
+        } else {
+          nsel = radix_gather(hb, 27 * Cf, K, lane,
+                              [&](int col, float& rsq, int& r) {
+            r = col;
+            const int o = col / Cf, s = col - o * Cf;
+            const int u = 9 * ak + o;
+            if (s >= occ[u]) return false;
+            const int gp = s == Cf - 1 ? lst[u] : gst[u] + s;
+            return gp != ap && in_window(a.xs[gp], ci, row2, rsq);
+          });
+        }
+      }
+      if (kBucket && nsel > 32) {
+        bucket_sort(hb, nsel, rmax2 > 0.f ? 256.f / rmax2 : 0.f, lane);
+        for (int q = lane; q < K; q += 32) emit(q, q < nsel ? hb.r[q] : -1);
+        __syncwarp();
+      } else {
+        select_small(hb, nsel, K, lane, emit);
       }
     }
-    if (!active) continue;
-    __syncwarp();
-    auto emit = [&](int k, int col) {
-      const size_t o = (size_t)i * K + k;
-      const int id = col >= 0 ? g.id_at(col) : 0;
-      idx[o] = id;
-      jtype[o] = col >= 0 ? (long long)xt[id].w : 0;
-      mask[o] = col >= 0;
-    };
-    if (nh <= cap) {
-      select_buffered(b, nh, K, lane, emit);
-    } else {
-      select_radix(b, 27 * Cf, K, lane, [&](int q, float& rsq, int& r) {
-        r = q;
-        const int id = g.id_at(q);
-        return id < m_all && id != i && in_window(xt[id], ci, crow, rsq);
-      }, emit);
-    }
-    if (lane == 0) cnt[i] = nh;
   }
+
+  // the rows in no cell (a pad row of a sharded block): empty lists
+  const int tail0 = a.starts[a.d0 * a.d1 * a.d2];
+  const int gw = blockIdx.x * warps + warp, tw = gridDim.x * warps;
+  for (int p0 = tail0 + gw * 32; p0 < a.m_all; p0 += tw * 32) {
+    const int p = p0 + lane;
+    const int i = p < a.m_all ? a.order[p] : a.n;
+    unsigned todo = __ballot_sync(kFull, i < a.n);
+    while (todo) {
+      const int src = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const int ai = __shfl_sync(kFull, i, src);
+      for (int q = lane; q < K; q += 32) {
+        const size_t o = (size_t)ai * K + q;
+        a.idx[o] = 0;
+        a.jtype[o] = 0;
+        a.mask[o] = false;
+      }
+    }
+  }
+  if (lane == 0 && kw > 0) atomicMax(blk_kmax, kw);
+  __syncthreads();
+  if (threadIdx.x == 0 && *blk_kmax > 0 &&
+      (unsigned long long)*blk_kmax > *(volatile unsigned long long*)a.kmax)
+    atomicMax(a.kmax, (unsigned long long)*blk_kmax);
 }
 
-// the pow2 hit buffer, a histogram and (D') the staging of one block
+// the pow2 hit buffer and a histogram of each warp of D
 size_t select_k_bytes(int warps, int cap) {
   return (size_t)warps * (2 * (size_t)cap + kBins) * 4;
-}
-
-size_t candidates_bytes(int warps, int cap, int cps, int Cf, int nt) {
-  return (size_t)cps * Cf * (16 + 4 + 4) + select_k_bytes(warps, cap) +
-         (size_t)nt * nt * 4 + 2 * (size_t)warps * 4;
 }
 
 bool valid_cap(int cap, int K) {
@@ -574,36 +880,62 @@ extern "C" int lpt_select_k(const float* keys, const float* pay0,
   return (int)cudaGetLastError();
 }
 
-// D'.  xt [m_all + 1, 4] (x, y, z, type; row m_all the pad), table
-// [d0 d1 d2 + 2, Cf] int32 (m_all = empty), order [n] / starts [d0 d1 d2 + 1]
-// the owned atoms by fine cell, cut [nt, nt] (cm + skin, squared here),
-// outputs idx / jtype [n, K] int64, mask [n, K] bool, cnt [n] int32 (hits
-// per row).  warps (1, 2 or 4) atoms a block at once, cap the hit buffer,
-// cps (27, 9, 3 or 1) the neighbour cells staged at once, as
-// ops/select_candidates.py::candidates_plan sizes them.  Returns -1 for
-// arguments outside these ranges or more shared memory than a block has.
-extern "C" int lpt_select_candidates(const float* xt, const int* table,
-                                     const int* order, const int* starts,
-                                     const float* cut, int nt, void* idx,
-                                     void* jtype, void* mask, int* cnt,
-                                     int d0, int d1, int d2, int Cf,
-                                     int m_all, int K, int warps, int cap,
-                                     int cps, void* stream) {
+// D'.  xt [m_all + 1, 4] (x, y, z, type of each row), order [m_all] the
+// rows in fine-cell order and xs their xt rows in that order (read only
+// without staging; null otherwise), starts [d0 d1 d2 + 1] each cell's
+// first position,
+// cut [nt, nt] (cm + skin), origin [3] and size the fine grid's; outputs
+// idx / jtype [n, K] int64, mask [n, K] bool, kmax a zeroed int64.  warps
+// (1-16) a block, cap (a power of two >= max(K, 64)) each warp's hit
+// buffer, bucket (1: room for the bucket sort), bx the brick's cells along
+// x and staged (0: read in place, bricks of one cell) as
+// ops/select_candidates.py::candidates_plan sizes them; one block a brick.
+// Returns -1 for arguments outside these ranges or more shared memory
+// than a block has.
+extern "C" int lpt_select_candidates(
+    const float* xt, const float* xs, const int* order, const int* starts,
+    const float* cut,
+    const float* origin, void* idx, void* jtype, void* mask, void* kmax,
+    float size, int nt, int d0, int d1, int d2, int Cf, int n, int m_all,
+    int K, int warps, int cap, int bucket, int bx, int staged,
+    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (K < 1 || nt < 1 || Cf < 1 || warps < 1 || warps > kMaxWarps ||
-      !valid_cap(cap, K) || (cps != 27 && cps != 9 && cps != 3 && cps != 1))
+  if (K < 1 || nt < 1 || Cf < 1 || n < 1 || m_all < n || warps < 1 ||
+      warps > kMaxCandWarps || !valid_cap(cap, K) ||
+      (bucket != 0 && bucket != 1) || bx < 1 || bx > 16 ||
+      (staged != 0 && staged != 1) || !(size > 0.f))
     return -1;
+  if (!staged && (bx != 1 || xs == nullptr)) return -1;
   if ((long long)27 * Cf >= INT_MAX) return -1;   // a column is an int
-  const long long ncells = (long long)d0 * d1 * d2;
-  if (ncells == 0) return 0;
-  static bool opted = false;
-  const int err = opt_in(select_candidates_kernel, opted);
+  if ((long long)(bx + 2) * 9 * Cf >= INT_MAX) return -1;
+  if ((long long)d0 * d1 * d2 >= INT_MAX) return -1;
+  const long long grid = (long long)((d0 + bx - 1) / bx) * d1 * d2;
+  if (grid < 1 || grid >= INT_MAX) return -1;
+  const CandLayout L = cand_layout(warps, cap, bucket, bx, staged, Cf, nt);
+  if (L.total > (size_t)kSmemLimit) return -1;
+  const CandArgs a{reinterpret_cast<const float4*>(xt),
+                   reinterpret_cast<const float4*>(xs), order, starts, cut,
+                   origin, static_cast<long long*>(idx),
+                   static_cast<long long*>(jtype), static_cast<bool*>(mask),
+                   static_cast<unsigned long long*>(kmax), size, nt, d0, d1,
+                   d2, Cf, n, m_all, K, cap, bx};
+  // all four kernels opt in at the first call, so that a later one that a
+  // graph captures (a re-sized plan may take another) only launches
+  static bool opted[4] = {false, false, false, false};
+  int err = opt_in(select_candidates_kernel<true, true>, opted[0]);
+  if (!err) err = opt_in(select_candidates_kernel<true, false>, opted[1]);
+  if (!err) err = opt_in(select_candidates_kernel<false, true>, opted[2]);
+  if (!err) err = opt_in(select_candidates_kernel<false, false>, opted[3]);
   if (err) return err;
-  const size_t bytes = candidates_bytes(warps, cap, cps, Cf, nt);
-  if (bytes > (size_t)kSmemLimit) return -1;
-  select_candidates_kernel<<<(unsigned)ncells, 32 * warps, bytes, s>>>(
-      reinterpret_cast<const float4*>(xt), table, order, starts, cut, nt,
-      static_cast<long long*>(idx), static_cast<long long*>(jtype),
-      static_cast<bool*>(mask), cnt, d0, d1, d2, Cf, m_all, K, cap, cps);
+  const dim3 blocks((unsigned)grid), threads(32 * warps);
+  if (staged && bucket)
+    select_candidates_kernel<true, true><<<blocks, threads, L.total, s>>>(a);
+  else if (staged)
+    select_candidates_kernel<true, false><<<blocks, threads, L.total, s>>>(a);
+  else if (bucket)
+    select_candidates_kernel<false, true><<<blocks, threads, L.total, s>>>(a);
+  else
+    select_candidates_kernel<false, false><<<blocks, threads, L.total, s>>>(
+        a);
   return (int)cudaGetLastError();
 }

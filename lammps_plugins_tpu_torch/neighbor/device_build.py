@@ -30,7 +30,7 @@ import torch
 from ..core.box import Box, matvec3
 from ..ops import build
 from ..ops.react import build_route_tables, route_by_target
-from ..ops.select_candidates import select_candidates
+from ..ops.select_candidates import CellRuns, select_candidates
 from .build import CellData, NeighborData
 from .neighbor import Ghosts, NeighborList
 
@@ -260,8 +260,12 @@ def _bin_dense(x_all, valid_row, mn, size, dims, capacity, m_all,
     of the atom's sub-cell on a sub x sub x sub grid of the cell's own
     frame (stable within a sub-cell), so that a run of consecutive slots
     is spatially compact; sub = 1 keeps the rows in input order.  Either
-    way a cell holds the same atoms.
-    Returns (dense, c3, occupancy, overflow)."""
+    way a cell holds the same atoms.  Past the capacity a cell's last slot
+    holds its run's last row (one writer a slot; the other rows of the
+    overflow go to the junk row).
+    Returns (dense, c3, occupancy, overflow, order, starts): order [m_all]
+    the rows by cell (the sort), starts [ncells + 1] each cell's first
+    position in it (rows with valid_row False sort past starts[ncells])."""
     dev = x_all.device
     ncells = dims[0] * dims[1] * dims[2]
     hi = build.device_constants(tuple(dims), dev, torch.int64) - 1
@@ -288,11 +292,16 @@ def _bin_dense(x_all, valid_row, mn, size, dims, capacity, m_all,
     slot = torch.arange(m_all, device=dev) - starts[cid_sorted]
     occ = torch.max(torch.where(cid_sorted < ncells, slot,
                                 torch.zeros_like(slot))) + 1
+    # the last row of each run: the next position holds another cell
+    last = cid_sorted != torch.cat([cid_sorted[1:],
+                                    cid_sorted.new_full((1,), -1)])
+    row = torch.where((slot < capacity - 1) | last, cid_sorted,
+                      torch.full_like(cid_sorted, ncells))
     slot = torch.clamp(slot, max=capacity - 1)
     dense = torch.full((ncells + 2, capacity), m_all, dtype=torch.int64,
                        device=dev)
-    dense[cid_sorted, slot] = order
-    return dense, c3, occ, occ > capacity
+    dense[row, slot] = order
+    return dense, c3, occ, occ > capacity, order, starts
 
 
 def _nbr_cell_ids(dims, offs) -> np.ndarray:
@@ -488,10 +497,13 @@ def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
     lists = {}
     if plan.k_caps:
         Cf = plan.cand_capacity
-        dense_f, c3f, occf, ovf = _bin_dense(
+        dense_f, c3f, occf, ovf, order_f, starts_f = _bin_dense(
             x_all, valid_row, mn, plan.cand_size, plan.cand_dims, Cf, m_all)
         flags["candcell_overflow"] = ovf
         flags["count:candcell"] = occf
+        # the binning's sort, which kernel D' reads in place of the table
+        runs = CellRuns(order_f.to(torch.int32), starts_f.to(torch.int32),
+                        mn, plan.cand_size)
         # (x, y, z, type) of every row and of the pad row, the one table the
         # candidate selection reads positions and types from
         xt_pad = torch.cat([x_pad, t_pad.to(dtype)[:, None]], dim=1)
@@ -505,7 +517,7 @@ def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
         for name, K in plan.k_caps:
             idx, jtype, mask, kmax = select_candidates(
                 xt_pad, dense_f, c3_own, plan.cand_dims, cst["cut"][name],
-                K)
+                K, runs)
             kw = {}
             if name in plan.mirror_tiers:
                 mirror = _mirror_table(idx, mask, owner, ghost_valid,
@@ -548,12 +560,12 @@ def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
             # strictly below 1 (f - floor(f) can round to 1.0 in f32)
             fb = torch.clamp(fw, 0.0, 1.0 - 2.0 ** -24)
             f_all = torch.cat([fb, fw[owner] + gshift])
-            dense_c, _, occc, ovc = _bin_dense(
+            dense_c, _, occc, ovc, _, _ = _bin_dense(
                 f_all, valid_row, cst["neg_s_vec"], cst["s_vec"],
                 plan.cell_dims, C, m_all, interior_first=n,
                 sub=LJ_CELL_SUB)
         else:
-            dense_c, _, occc, ovc = _bin_dense(
+            dense_c, _, occc, ovc, _, _ = _bin_dense(
                 x_all, valid_row, cst["cell_mn"] + lo_off, plan.cell_size,
                 plan.cell_dims, C, m_all, sub=LJ_CELL_SUB)
         flags["cell_overflow"] = ovc

@@ -50,7 +50,7 @@ _SIGNATURES = {
     "lpt_mirror_combine_rows": [_P] * 6 + [_I, _I, _P],
     "lpt_lj_cell_forces_half": [_P] * 4 + [_I] * 9 + [_P, _P, _I],
     "lpt_react_combine": [_P] * 5 + [_I] * 3 + [_P],
-    "lpt_select_candidates": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 9 + [_P],
+    "lpt_select_candidates": [_P] * 10 + [ctypes.c_float] + [_I] * 13 + [_P],
     "lpt_graph_if_then": [_P] * 4,
     "lpt_graph_instantiate": [_P, _P],
     "lpt_graph_launch": [_P, _P],

@@ -17,28 +17,49 @@ itself, and rsq = ((0 + dx^2) + dy^2) + dz^2 < cut * cut, with
 dx = x_candidate - x_atom and cut[t_i, t_j] = fl(cm) + skin.
 
 The twin builds the [rows, W] keys and selects with select_k_ref, in
-chunks of rows; the kernel stages each fine cell's 27 neighbour cells in
-shared memory (in slices of 9, 3 or 1 cells when all 27 do not fit beside
-the hit buffers and the [T + 1, T + 1] cut table, candidates_plan) and
-writes only the [N, K] outputs.  Any K, any number of types and any cell
-capacity whose shared memory fits a block.  On the card both give
-the same lists, element for element.  A row whose cell has a negative
-coordinate (a pad row of the sharded engine's blocks) has no candidates:
-an empty list, and no share of a block's work.
+chunks of rows.  The kernel reads the fine-cell binning's own sort
+(CellRuns, from neighbor/device_build.py::_bin_dense): the rows in cell
+order, each cell's run start, the grid's origin and cell width.  A block
+stages a brick of cells with their neighbours in shared memory once (or
+reads cells too large to stage in place), skips the cells that lie past
+an atom's largest cut, and writes only the [N, K] outputs
+(candidates_plan sizes bricks, warps and sort buffers).  Any K, any number
+of types and any cell capacity whose shared memory fits a block.  On the
+card both give the same lists, element for element.  A row whose cell has
+a negative coordinate (a pad row of the sharded engine's blocks: a row the
+binning put in no cell) has no candidates: an empty list.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import NamedTuple, Tuple
+
 import torch
 
 from . import build
-from .select_k import (SMEM_LIMIT, WARPS, buffer_bytes, hit_capacity,
-                       select_k_ref)
+from .select_k import HIST_BYTES, SMEM_LIMIT, hit_capacity, select_k_ref
 
 #: kernel launches (one per call that reached the CUDA kernel)
 launches = 0
-#: neighbour cells staged at once: all 27, else x-planes, rows, cells
-SLICES = (27, 9, 3, 1)
+#: bricks a block takes: x-columns of this many fine cells, largest first
+BRICKS = (8, 4, 2, 1)
+#: (staged, bricks) the plan may take: the brick's cells staged in shared
+#: memory, or read in place (bricks of one cell)
+MODES = ((True, BRICKS), (False, (1,)))
+#: warps a block
+CAND_WARPS = (16, 8, 4, 2, 1)
+#: one SM of the H100: shared memory (228 KB, of which each block keeps 1
+#: KB for itself), threads, registers; the kernel's registers a thread
+#: (its launch bounds); resident warps past TARGET_WARPS do not count, and
+#: a plan with MIN_WARPS resident warps an SM is enough
+SM_SMEM = 233_472
+BLOCK_SMEM = 1024
+SM_THREADS = 2048
+SM_REGS = 65_536
+REGS = 64
+TARGET_WARPS = 32
+MIN_WARPS = 16
 
 #: the 27 neighbour-cell offsets, (a, b, c) lexicographic over {-1, 0, 1}
 OFFS27 = tuple((a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
@@ -64,12 +85,27 @@ def neighbour_cells(c3f, fdims):
     return torch.where(in_rng, ncid, torch.full_like(ncid, ncf + 1))
 
 
-def select_candidates_ref(xt_pad, dense_f, c3f, fdims, cut, k,
+class CellRuns(NamedTuple):
+    """The fine-cell binning's sort, as the kernel reads it: order [m_all]
+    int32, the rows sorted by cell (stable: each run is in row order);
+    starts [ncf + 1] int32, each cell's first position (the rows past
+    starts[ncf] are in no cell); origin [3] and size, the grid's."""
+    order: torch.Tensor
+    starts: torch.Tensor
+    origin: torch.Tensor
+    size: float
+
+    def to(self, device):
+        return CellRuns(self.order.to(device), self.starts.to(device),
+                        self.origin.to(device), self.size)
+
+
+def select_candidates_ref(xt_pad, dense_f, c3f, fdims, cut, k, runs=None,
                           select=select_k_ref):
     """Twin: the keys of each chunk of rows [rows, 27 Cf], then `select`
     (select_k_ref; chip_smoke.py passes ops.select_k.select_k, kernel D,
-    to time the unfused path on the card).  Returns (idx, jtype, mask,
-    kmax) as select_candidates."""
+    to time the unfused path on the card); runs, the kernel's input, is
+    not read.  Returns (idx, jtype, mask, kmax) as select_candidates."""
     n = c3f.shape[0]
     m_all = xt_pad.shape[0] - 1
     dtype, dev = xt_pad.dtype, xt_pad.device
@@ -123,49 +159,115 @@ def select_candidates_ref(xt_pad, dense_f, c3f, fdims, cut, k,
     return idx, jtype, mask, torch.stack([p[3] for p in parts]).max()
 
 
-def candidates_plan(k: int, Cf: int, nt: int):
-    """(warps, cap, cps, shared bytes) of a select_candidates launch: k's
-    hit buffers (select_k.hit_capacity), cps of the 27 neighbour cells'
-    Cf slots staged at once (24 bytes a slot: x, y, z, type, id, column)
-    and the [nt, nt] cut table in one block's shared memory, preferring
-    all 27 cells, then more warps; a ValueError naming the limit when one
-    cell and one warp do not fit."""
+def cell_tested(xt_pad, c3f, runs, fdims, cut):
+    """[n, 27] bool: the kernel's cell test in torch float32, False where
+    neighbour cell o (OFFS27 order) of an owned row lies out of reach: the
+    squared distance from the atom to the cell's nearest point, taken
+    along each axis from the faces of the atom's own cell, is past
+    (sqrt(the row's largest cut^2) + slack)^2, slack = 1e-3 size + 2^-16
+    (max |origin| + max(fdims) size + size), which covers the rounding of
+    the binning's (x - origin) / size.  The kernel skips only cells this
+    marks False (the leading and trailing rows and cells of each plane)."""
+    f32 = torch.float32
+    x = xt_pad[:c3f.shape[0], :3].to(f32)
+    ti = xt_pad[:c3f.shape[0], 3].long()
+    org = runs.origin.to(device=x.device, dtype=f32)
+    size = torch.tensor(runs.size, dtype=f32)
+    cut2 = cut.to(f32) * cut.to(f32)
+    rmax2 = cut2.max(dim=1).values[ti]
+    slack = (torch.tensor(1e-3, dtype=f32) * size
+             + (org.abs().max() + float(max(fdims)) * size + size)
+             * 2.0 ** -16)
+    lim2 = (torch.sqrt(rmax2) + slack) ** 2
+    lo_face = org + c3f.clamp(min=0).to(f32) * size
+    lo = torch.clamp(x - lo_face, min=0.0) ** 2
+    hi = torch.clamp(lo_face + size - x, min=0.0) ** 2
+    zero = torch.zeros_like(lo)
+    face = torch.stack([lo, zero, hi], dim=-1)          # [n, 3 axes, 3]
+    d2 = (face[:, 0, :, None, None] + face[:, 1, None, :, None]
+          + face[:, 2, None, None, :]).reshape(-1, 27)
+    return d2 <= lim2[:, None]
+
+
+def candidates_bytes(warps, cap, bucket, bx, staged, Cf, nt):
+    """Shared memory of one block (csrc/select_k.cu::cand_layout): the
+    staging of the brick's union of (bx + 2) x 3 x 3 cells (x, y, z, type
+    and row: 20 bytes a slot), its table, the [nt, nt] squared cuts, each
+    warp's buffers (keys and r: 8 bytes an entry, 16 with the bucket
+    sort's second pair, and a 256-bin histogram) and the block's kmax."""
+    U = (bx + 2) * 9
+    S = U * Cf if staged else 0
+    meta_ints = (4 * U + bx + 2 + 3) & ~3
+    per_warp = cap * (16 if bucket else 8) + HIST_BYTES
+    return (S * 16 + ((S * 4 + 15) & ~15) + meta_ints * 4
+            + ((nt * nt * 4 + 15) & ~15) + warps * per_warp + 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class CandidatesPlan:
+    """A launch of D' (one block a brick): warps a block, each warp's hit
+    buffer (cap), the bucket sort or the bitonic one, the brick (bx cells
+    along x), staged or read in place, shared bytes a block and blocks
+    resident on an SM."""
+    warps: int
+    cap: int
+    bucket: bool
+    bx: int
+    staged: bool
+    nbytes: int
+    blocks_per_sm: int
+
+    @property
+    def resident_warps(self) -> int:
+        return self.warps * self.blocks_per_sm
+
+
+def candidates_plan(k: int, Cf: int, nt: int) -> CandidatesPlan:
+    """The launch of select_candidates at k, Cf slots a cell and an [nt,
+    nt] cut table: the bucket sort where one warp's second buffer fits
+    (else the bitonic one); among MODES, BRICKS and CAND_WARPS, where
+    MIN_WARPS warps an SM stay resident, the staged bricks first, then the
+    most resident warps (up to TARGET_WARPS), the fewest warps a block
+    (down to 4) and the longest brick; else the most warps a block, then
+    the most resident.  A ValueError naming the limit when one warp reading in
+    place does not fit.  (The order is what tools/torch_kernel_ab.py
+    --explore measured on the H100.)"""
     cap = hit_capacity(k)
-    fixed = 4 * nt * nt
-    for cps in SLICES:
-        for warps in WARPS:
-            nbytes = (24 * cps * Cf + buffer_bytes(warps, cap) + fixed
-                      + 8 * warps)
-            if nbytes <= SMEM_LIMIT:
-                return warps, cap, cps, nbytes
-    need = 24 * Cf + buffer_bytes(1, cap) + fixed + 8
-    raise ValueError(f"select_candidates: k={k} ({cap}-entry hit buffer), "
-                     f"{Cf} slots a cell and {nt} x {nt} cut table need "
-                     f"{need} bytes of shared memory even for one cell and "
-                     f"one warp, past the H100's {SMEM_LIMIT}-byte block "
-                     "limit")
+    for bucket in (True, False):
+        best = None
+        for staged, bricks in MODES:
+            for bx in bricks:
+                if staged and (bx + 2) * 9 * Cf >= 2 ** 31 - 1:
+                    continue
+                for warps in CAND_WARPS:
+                    nbytes = candidates_bytes(warps, cap, bucket, bx,
+                                              staged, Cf, nt)
+                    if nbytes > SMEM_LIMIT:
+                        continue
+                    blocks = min(SM_SMEM // (nbytes + BLOCK_SMEM),
+                                 SM_THREADS // (32 * warps),
+                                 SM_REGS // (REGS * 32 * warps))
+                    if blocks < 1:
+                        continue
+                    res = blocks * warps
+                    key = ((True, staged, min(res, TARGET_WARPS),
+                            -max(warps, 4), bx)
+                           if res >= MIN_WARPS
+                           else (False, staged, warps, res, bx))
+                    if best is None or key > best[0]:
+                        best = (key, CandidatesPlan(warps, cap, bucket, bx,
+                                                    staged, nbytes, blocks))
+        if best is not None:
+            return best[1]
+    need = candidates_bytes(1, cap, False, 1, False, Cf, nt)
+    raise ValueError(f"select_candidates: k={k} ({cap}-entry hit buffer) "
+                     f"and {nt} x {nt} cut table need {need} bytes of shared "
+                     f"memory even for one warp reading its cells in place, "
+                     f"past the H100's {SMEM_LIMIT}-byte block limit")
 
 
-def prepare(dense_f, c3f, fdims, cut):
-    """The kernel's int32 inputs: the cell table, the owned atoms ordered
-    by fine cell (one block per cell takes its run [starts[c],
-    starts[c + 1]) of `order`; rows with a negative cell sort past the
-    last run, which no block takes) and the float32 cutoff table."""
-    d0, d1, d2 = (int(d) for d in fdims)
-    dev, i32 = c3f.device, torch.int32
-    # int32 keys: half the radix passes of int64 ones
-    cid = ((c3f[:, 0] * d1 + c3f[:, 1]) * d2 + c3f[:, 2]).to(i32)
-    cid = torch.where(torch.all(c3f >= 0, -1), cid,
-                      torch.full_like(cid, d0 * d1 * d2))
-    scid, order = torch.sort(cid)
-    starts = torch.searchsorted(scid, torch.arange(d0 * d1 * d2 + 1,
-                                                   dtype=i32, device=dev))
-    return (dense_f.to(i32).contiguous(), order.to(i32),
-            starts.to(i32),
-            cut.to(device=dev, dtype=torch.float32).contiguous())
-
-
-def select_candidates(xt_pad, dense_f, c3f, fdims, cut, k):
+def select_candidates(xt_pad, dense_f, c3f, fdims, cut, k, runs=None,
+                      out=None):
     """(idx [n, k] int64, jtype [n, k] int64, mask [n, k] bool, kmax).
 
     xt_pad [m_all + 1, 4]: x, y, z and type of the owned+ghost rows (the
@@ -173,15 +275,24 @@ def select_candidates(xt_pad, dense_f, c3f, fdims, cut, k):
     [ncf + 2, Cf] int64: the fine-cell table (m_all in empty slots; row
     ncf + 1 empty); c3f [n, 3]: the fine cell of each owned atom (a
     negative coordinate: a row without candidates); fdims:
-    the fine grid; cut [T + 1, T + 1]: cm + skin per type pair.  CPU
-    tensors take the twin; CUDA float32 tensors the kernel."""
+    the fine grid; cut [T + 1, T + 1]: cm + skin per type pair; runs:
+    the binning's CellRuns of the same table, which the kernel reads in
+    place of the table; out: (idx, jtype, mask) to write into, each
+    element of them written.  CPU tensors take the twin; CUDA float32
+    tensors the kernel."""
     global launches
     if not build.use_kernel(xt_pad, "select_candidates"):
-        return select_candidates_ref(xt_pad, dense_f, c3f, fdims, cut, k)
+        res = select_candidates_ref(xt_pad, dense_f, c3f, fdims, cut, k)
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return (*out, res[3])
     dev = xt_pad.device
     n = c3f.shape[0]
     m_all = xt_pad.shape[0] - 1
     d0, d1, d2 = (int(d) for d in fdims)
+    ncf = d0 * d1 * d2
     Cf = dense_f.shape[1]
     nt = cut.shape[0]
     if k < 1:
@@ -189,27 +300,44 @@ def select_candidates(xt_pad, dense_f, c3f, fdims, cut, k):
     if nt < 1 or tuple(cut.shape) != (nt, nt):
         raise ValueError(f"select_candidates: cut {tuple(cut.shape)} must "
                          "be square")
-    if m_all >= 2 ** 31 - 1 or n == 0 or 27 * Cf >= 2 ** 31 - 1:
+    if m_all >= 2 ** 31 - 1 or n == 0 or 27 * Cf >= 2 ** 31 - 1 \
+            or ncf >= 2 ** 31 - 1:
         raise ValueError(f"select_candidates: {n} owned of {m_all} rows, "
-                         f"{Cf} slots a cell: ids and columns are int32")
-    warps, cap, cps, _ = candidates_plan(k, Cf, nt)
+                         f"{Cf} slots a cell, {ncf} cells: ids, cells and "
+                         "columns are int32")
+    if runs is None:
+        raise ValueError("select_candidates: the kernel reads the fine-cell "
+                         "binning's runs (runs=CellRuns)")
+    plan = candidates_plan(k, Cf, nt)
     xp = build.check(xt_pad, "xt_pad", (m_all + 1, 4), torch.float32, dev)
-    if tuple(dense_f.shape) != (d0 * d1 * d2 + 2, Cf) \
-            or dense_f.device != dev:
+    if tuple(dense_f.shape) != (ncf + 2, Cf) or dense_f.device != dev:
         raise ValueError(f"select_candidates: table {tuple(dense_f.shape)} "
-                         f"on {dense_f.device}, expected "
-                         f"({d0 * d1 * d2 + 2}, Cf) on {dev}")
-    table, order, starts, cutc = prepare(dense_f, c3f, fdims, cut)
-    # zeros: the rows no block takes keep an empty list
-    idx = torch.zeros((n, k), dtype=torch.int64, device=dev)
-    jtype = torch.zeros((n, k), dtype=torch.int64, device=dev)
-    mask = torch.zeros((n, k), dtype=torch.bool, device=dev)
-    cnt = torch.zeros(n, dtype=torch.int32, device=dev)
+                         f"on {dense_f.device}, expected ({ncf + 2}, Cf) on "
+                         f"{dev}")
+    order = build.check(runs.order, "order", (m_all,), torch.int32, dev)
+    starts = build.check(runs.starts, "starts", (ncf + 1,), torch.int32, dev)
+    origin = build.check(runs.origin, "origin", (3,), torch.float32, dev)
+    cutp = build.check(cut, "cut", (nt, nt), torch.float32, dev)
+    # without staging the kernel reads the positions in cell order: one
+    # 16-byte element a row
+    xs = None if plan.staged else xt_pad.view(torch.complex128).view(
+        -1).index_select(0, runs.order)
+    if out is None:
+        out = (torch.empty((n, k), dtype=torch.int64, device=dev),
+               torch.empty((n, k), dtype=torch.int64, device=dev),
+               torch.empty((n, k), dtype=torch.bool, device=dev))
+    idx, jtype, mask = out
+    for name, t, dt in (("idx", idx, torch.int64),
+                        ("jtype", jtype, torch.int64),
+                        ("mask", mask, torch.bool)):
+        build.check(t, name, (n, k), dt, dev)
+    kmax = torch.zeros((), dtype=torch.int64, device=dev)
     status = build.lib().lpt_select_candidates(
-        xp, table.data_ptr(), order.data_ptr(), starts.data_ptr(),
-        cutc.data_ptr(), nt, idx.data_ptr(), jtype.data_ptr(),
-        mask.data_ptr(), cnt.data_ptr(), d0, d1, d2, Cf, m_all, k, warps,
-        cap, cps, build.stream(dev))
+        xp, None if xs is None else xs.data_ptr(), order, starts, cutp,
+        origin, idx.data_ptr(),
+        jtype.data_ptr(), mask.data_ptr(), kmax.data_ptr(), float(runs.size),
+        nt, d0, d1, d2, Cf, n, m_all, k, plan.warps, plan.cap,
+        int(plan.bucket), plan.bx, int(plan.staged), build.stream(dev))
     build.raise_on_error(status, "select_candidates")
     launches += 1
-    return idx, jtype, mask, cnt.max().to(torch.int64)
+    return idx, jtype, mask, kmax

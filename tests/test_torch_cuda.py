@@ -440,15 +440,17 @@ def test_select_k_kernel_on_wide_rows(cuda, W, K):
 
 def _candidate_call(scene, cand_capacity=None):
     """The arguments and CPU (twin) result of the select_candidates call of
-    a float32 CPU rebuild: the jiggled 72-atom scene or the jiggled, sorted
-    2,304-atom one; cand_capacity cuts the fine cells (overflow)."""
-    sort = scene == "sorted2k"
+    a float32 CPU rebuild: the jiggled 72-atom scene, the jiggled, sorted
+    2,304-atom one, or that one on its perfect lattice (lattice2k: exact
+    ties of rsq); cand_capacity cuts the fine cells (overflow)."""
+    sort = scene != "small"
     nxyz = (12, 16, 2) if sort else (3, 4, 1)
     st = rebomos_bulk_commensurate(*nxyz, dtype=torch.float32, device="cpu",
                                    sort=sort)
-    rng = np.random.default_rng(6 if sort else 4)
-    x = st.x.numpy() + rng.uniform(-0.1, 0.1, st.x.shape)
-    st = st.replace(x=torch.as_tensor(x, dtype=torch.float32))
+    if scene != "lattice2k":
+        rng = np.random.default_rng(6 if sort else 4)
+        x = st.x.numpy() + rng.uniform(-0.1, 0.1, st.x.shape)
+        st = st.replace(x=torch.as_tensor(x, dtype=torch.float32))
     pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float32,
                              device="cpu")
     eng = Engine(st, pair, [FixNVE()], units.METAL)
@@ -465,12 +467,12 @@ def _candidate_call(scene, cand_capacity=None):
 
 
 @pytest.mark.parametrize("scene,cap", [("small", None), ("sorted2k", None),
-                                       ("sorted2k", 4)])
+                                       ("sorted2k", 4), ("lattice2k", None)])
 def test_select_candidates_kernel_matches_twin_exactly(cuda, scene, cap):
     """D' on the card: idx, jtype, mask and kmax equal to its twin's on the
     card and on the CPU, element for element; reruns identical."""
     args, out_cpu = _candidate_call(scene, cap)
-    dargs = [a.to(cuda) if torch.is_tensor(a) else a for a in args]
+    dargs = [a.to(cuda) if hasattr(a, "to") else a for a in args]
     before = select_candidates.launches
     out_k = select_candidates.select_candidates(*dargs)
     torch.cuda.synchronize()
@@ -831,7 +833,7 @@ def _candidates_exact(args, out_cpu, dev):
     """D' on the card on `args`: idx, jtype, mask and kmax equal to its
     twin's on the card and on the CPU (out_cpu), reruns identical; returns
     the kernel's outputs."""
-    dargs = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+    dargs = [a.to(dev) if hasattr(a, "to") else a for a in args]
     before = select_candidates.launches
     out_k = select_candidates.select_candidates(*dargs)
     torch.cuda.synchronize()
@@ -853,17 +855,18 @@ def test_select_candidates_kernel_on_overflowing_rows(cuda, K):
     assert int(out_k[3]) > K
 
 
-@pytest.mark.parametrize("cps", [9, 3, 1])
+@pytest.mark.parametrize("cps", [(True, 8), (True, 2), (False, 1)])
 @pytest.mark.parametrize("K", [144, 512])
 def test_select_candidates_kernel_in_staged_slices(cuda, monkeypatch, cps,
                                                    K):
-    """D' with its 27 cells staged 9, 3 or 1 at a time (the plan forced to
-    slices): each warp keeps its hit buffer across the slices, exact
-    against the twin."""
-    monkeypatch.setattr(select_candidates, "SLICES", (cps,))
+    """D' with the plan forced to one way of staging (bricks of 8 or 2
+    cells staged, cells read in place): exact against the twin."""
+    staged, bx = cps
+    monkeypatch.setattr(select_candidates, "MODES", ((staged, (bx,)),))
     args, out_cpu = _aeam_call(K)
-    assert select_candidates.candidates_plan(
-        K, args[1].shape[1], args[4].shape[0])[2] == cps
+    plan = select_candidates.candidates_plan(K, args[1].shape[1],
+                                             args[4].shape[0])
+    assert (plan.staged, plan.bx) == (staged, bx)
     _candidates_exact(args, out_cpu, cuda)
 
 
@@ -894,7 +897,7 @@ def test_select_candidates_kernel_on_a_wide_lj_cut(cuda, K):
     in x-planes; exact against the twin."""
     args, out_cpu = _lj_wide_call(K=K)
     k, Cf = args[5], args[1].shape[1]
-    assert select_candidates.candidates_plan(k, Cf, 2)[2] < 27
+    assert not select_candidates.candidates_plan(k, Cf, 2).staged
     out_k = _candidates_exact(args, out_cpu, cuda)
     assert int(out_k[3]) > 1024
 
@@ -940,6 +943,105 @@ def test_select_candidates_kernel_at_aeam_k(cuda, K):
     and on the CPU."""
     out_k = _candidates_exact(*_aeam_call(K), cuda)
     assert 32 < int(out_k[3]) <= K
+
+
+def _graded_call(K, valid_every=0):
+    """The select_candidates call of a float32 CPU rebuild (LJ units, two
+    types, lj/cut 2.5 with a cut per type pair, skin 0.3) of a periodic
+    box 30 sigma wide holding random blocks at densities 8, 1.5, 0.5 and
+    0.15 a cubic sigma and six isolated atoms: rows of up to ~700, ~140,
+    ~45, ~15 and no hits; K the list's slots; valid_every > 0 makes every
+    that-many-th row a pad row (valid False: in no cell)."""
+    from lammps_plugins_tpu_torch.core.box import Box
+    from lammps_plugins_tpu_torch.core.state import State
+    from lammps_plugins_tpu_torch.potentials.ljcut import PairLJCut
+    cpu = dict(dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(12)
+    blocks = (((1.0, 7.0), (1.0, 7.0), (1.0, 7.0), 8.0),
+              ((10.0, 16.0), (10.0, 16.0), (10.0, 16.0), 1.5),
+              ((20.0, 28.0), (1.0, 9.0), (1.0, 9.0), 0.5),
+              ((1.0, 13.0), (16.0, 28.0), (16.0, 28.0), 0.15))
+    x = [np.array([[20.0, 20.0, 20.0], [26.0, 20.0, 20.0],
+                   [20.0, 26.0, 20.0], [20.0, 20.0, 26.0],
+                   [26.0, 26.0, 26.0], [26.0, 26.0, 20.0]])]
+    for bx, by, bz, rho in blocks:
+        lo = np.array([bx[0], by[0], bz[0]])
+        hi = np.array([bx[1], by[1], bz[1]])
+        m = int(rho * np.prod(hi - lo))
+        x.append(rng.uniform(lo, hi, (m, 3)))
+    x = np.concatenate(x)
+    types = rng.integers(1, 3, len(x))
+    pair = PairLJCut(2.5, ntypes=2, **cpu)
+    pair.set_coeff(1, 1, 1.0, 1.0, 2.5)
+    pair.set_coeff(1, 2, 1.0, 1.0, 2.2)
+    pair.set_coeff(2, 2, 1.0, 1.0, 2.0)
+    pair.prepare(types)
+    st = State.create(x=x, type=types, box=Box.orthogonal([30.0] * 3, **cpu),
+                      mass=np.ones(3))
+    eng = Engine(st, pair, [FixNVE()], units.LJ, skin=0.3)
+    eng.rebuild_neighbors()
+    plan = dataclasses.replace(eng._plan, k_caps=(("main", K),))
+    st = eng.state
+    valid = None
+    if valid_every:
+        valid = torch.arange(st.natoms) % valid_every != 1
+    _, calls = rebuild_with_spy(plan, st.x, st.image, st.type,
+                                *eng._box_dev, pair.neighbor_requests(),
+                                valid=valid)
+    return calls[0]
+
+
+@pytest.mark.parametrize("K", [16, 144, 384, 1904])
+def test_select_candidates_kernel_by_hits_per_row(cuda, K):
+    """D' on rows of every kind at once: no hit (isolated atoms, and pad
+    rows in no cell), 1-32 hits (the bitonic sort over the lanes), 33 to
+    the hit buffer's cap (the bucket sort) and past it (the radix select);
+    idx, jtype, mask and kmax equal its twin's on the card and on the
+    CPU, written over buffers of 0x7f bytes (every element is written),
+    reruns identical."""
+    args, out_cpu = _graded_call(K, valid_every=9)
+    big = 27 * args[1].shape[1]
+    hits = select_candidates.select_candidates_ref(
+        *args[:5], big)[2].sum(dim=1)
+    cap = select_k.hit_capacity(K)
+    pads = args[2][:, 0] < 0
+    assert int(pads.sum()) > 0 and int((hits[~pads] == 0).sum()) > 0
+    assert int(((hits >= 1) & (hits <= 32)).sum()) > 0
+    assert int(((hits > 32) & (hits <= cap)).sum()) > 0
+    assert int((hits > cap).sum()) > 0 or int(hits.max()) <= cap
+    dargs = [a.to(cuda) if hasattr(a, "to") else a for a in args]
+    n = args[2].shape[0]
+    out = [torch.empty((n, K), dtype=dt, device=cuda)
+           for dt in (torch.int64, torch.int64, torch.bool)]
+    for o in out:
+        o.view(torch.uint8).fill_(0x7F)
+    out_k = select_candidates.select_candidates(*dargs, out=out)
+    torch.cuda.synchronize()
+    assert all(a.data_ptr() == o.data_ptr() for a, o in zip(out_k, out))
+    out_t = select_candidates.select_candidates_ref(*dargs)
+    again = select_candidates.select_candidates(*dargs)
+    for a, b, c, d in zip(out_k, out_t, out_cpu, again):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c) \
+            and torch.equal(a, d)
+    assert int(out_k[3]) == int(hits.max())
+    assert not out_k[2][pads.to(cuda)].any()
+
+
+@pytest.mark.parametrize("mode", [(True, 4), (True, 2), (True, 8),
+                                  (False, 1)])
+def test_select_candidates_kernel_on_ragged_bricks(cuda, monkeypatch, mode):
+    """D' with each brick (x-columns of bx cells) on the Al-Si rebuild,
+    whose fine grid is 5 cells long in x, not a whole number of bricks
+    (the ragged edge's bricks hold cells past the grid, which stay empty):
+    exact against the twin."""
+    staged, bx = mode
+    monkeypatch.setattr(select_candidates, "MODES", ((staged, (bx,)),))
+    args, out_cpu = _aeam_call(144)
+    assert args[3][0] % bx or bx == 1
+    plan = select_candidates.candidates_plan(144, args[1].shape[1],
+                                             args[4].shape[0])
+    assert (plan.staged, plan.bx) == mode
+    _candidates_exact(args, out_cpu, cuda)
 
 
 def _aeam_engine(dev, fused, si=0.05, skin=0.6):
@@ -1126,7 +1228,7 @@ def test_select_candidates_kernel_on_rows_without_hits(cuda, partners):
     idx and jtype equal to its twin's on the card and on the CPU; kmax is
     0 or 1; reruns identical."""
     args, out_cpu = _sparse_call(partners)
-    dargs = [a.to(cuda) if torch.is_tensor(a) else a for a in args]
+    dargs = [a.to(cuda) if hasattr(a, "to") else a for a in args]
     before = select_candidates.launches
     out_k = select_candidates.select_candidates(*dargs)
     torch.cuda.synchronize()

@@ -247,9 +247,10 @@ def test_bin_dense_orders_slots_by_subcell(sub, interior):
     valid = torch.as_tensor(rng.uniform(size=m) < 0.9)
     mn = torch.zeros(3, dtype=torch.float64)
     args = (x, valid, mn, size, dims, 64, m)
-    plain, c3, occ, ovf = pdb._bin_dense(*args, interior_first=interior)
-    table, c3s, occs, ovfs = pdb._bin_dense(*args, interior_first=interior,
-                                            sub=sub)
+    plain, c3, occ, ovf, _, _ = pdb._bin_dense(*args,
+                                               interior_first=interior)
+    table, c3s, occs, ovfs, _, _ = pdb._bin_dense(
+        *args, interior_first=interior, sub=sub)
     assert not bool(ovf) and int(occ) == int(occs) and not bool(ovfs)
     assert torch.equal(c3, c3s)
     u = x.numpy() / size - c3.numpy()
@@ -287,7 +288,7 @@ def test_rebuild_orders_lj_cells_by_subcell(monkeypatch):
     eng = port_engine("bulk", jiggle=0.05)
     eng.rebuild_neighbors()
     assert calls                      # the last one made eng.nbr
-    (x_all, valid, mn, size, dims, cap, m_all), kw, (table, c3, _, _) = \
+    (x_all, valid, mn, size, dims, cap, m_all), kw, (table, c3, *_) = \
         calls[-1]
     sub = kw["sub"]
     assert sub == pdb.LJ_CELL_SUB > 1

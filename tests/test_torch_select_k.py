@@ -149,7 +149,7 @@ def test_candidate_twin_equals_unfused_code(rebuilt):
     *_, calls, requests, skin = rebuilt
     assert len(calls) == 1
     args, (idx, jtype, mask, kmax) = calls[0]
-    xt_pad, dense_f, c3f, fdims, cut, K = args
+    xt_pad, dense_f, c3f, fdims, cut, K = args[:6]
     ref = _unfused(xt_pad, dense_f, c3f, fdims,
                    np.asarray(requests["rebo"], np.float64), skin, K)
     for a, b, c in zip((idx, jtype, mask), ref[:3],
@@ -187,7 +187,7 @@ def test_candidate_twin_equals_unfused_code_f32(cand_capacity):
     (_, _, _, flags), calls = rebuild_with_spy(
         plan, st.x, st.image, st.type, h, h_inv, lo, requests)
     assert bool(flags["candcell_overflow"]) == bool(cand_capacity)
-    (xt_pad, dense_f, c3f, fdims, cut, K), out = calls[0]
+    (xt_pad, dense_f, c3f, fdims, cut, K, _), out = calls[0]
     assert xt_pad.dtype == torch.float32
     ref = _unfused(xt_pad, dense_f, c3f, fdims,
                    np.asarray(requests["rebo"], np.float64), plan.skin, K)

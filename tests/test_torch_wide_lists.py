@@ -320,9 +320,10 @@ def test_many_types_rebuild_lists_equal_jax():
 
 def test_select_plans_size_buffers_and_slices_from_shared_memory():
     """D and D' size each warp's hit buffer from K (the next power of two
-    >= max(K, 64)) and stage D''s 27 cells in slices when they do not fit
-    a block; past the H100's shared memory each raises a ValueError that
-    names the limit.  No fixed K, W or type limit is left."""
+    >= max(K, 64)); D' stages bricks of cells with their neighbours, or
+    reads cells too large to stage in place; past the H100's shared memory
+    each raises a ValueError that names the limit.  No fixed K, W or type
+    limit is left."""
     from lammps_plugins_tpu_torch.ops import select_candidates as sc
     from lammps_plugins_tpu_torch.ops import select_k as sk
     assert [sk.hit_capacity(k) for k in (1, 16, 64, 65, 336, 1424, 2048)] \
@@ -331,15 +332,21 @@ def test_select_plans_size_buffers_and_slices_from_shared_memory():
     assert sk.select_k_plan(16384)[:2] == (1, 16384)
     with pytest.raises(ValueError, match=str(sk.SMEM_LIMIT)):
         sk.select_k_plan(16385)
-    # the bench rebuild: all 27 cells, four warps
-    assert sc.candidates_plan(16, 24, 3)[:3] == (4, 64, 27)
-    # lj_melt(12) with lj/cut 7.0: ~1,424 neighbours, 528-slot cells
-    warps, cap, cps, nbytes = sc.candidates_plan(1424, 528, 2)
-    assert (warps, cap, cps) == (4, 2048, 9) and nbytes <= sk.SMEM_LIMIT
-    assert sc.candidates_plan(64, 24, 65)[2] == 27          # 64 types
-    assert sc.candidates_plan(2048, 2000, 2)[2] == 3
+    # the bench rebuild: staged bricks of cells along x, 4 warps a block
+    p = sc.candidates_plan(16, 24, 3)
+    assert (p.warps, p.cap, p.bucket, p.staged) == (4, 64, True, True)
+    # lj_melt(12) with lj/cut 7.0: ~1,424 neighbours, 528-slot cells read
+    # in place
+    p = sc.candidates_plan(1424, 528, 2)
+    assert (p.cap, p.staged, p.bx) == (2048, False, 1)
+    assert p.nbytes <= sk.SMEM_LIMIT
+    assert sc.candidates_plan(64, 24, 65).staged             # 64 types
+    assert not sc.candidates_plan(2048, 2000, 2).staged
+    assert not sc.candidates_plan(16, 10000, 2).staged
     with pytest.raises(ValueError, match=str(sk.SMEM_LIMIT)):
-        sc.candidates_plan(16, 10000, 2)
+        sc.candidates_plan(16385, 24, 3)
+    with pytest.raises(ValueError, match=str(sk.SMEM_LIMIT)):
+        sc.candidates_plan(16, 24, 241)
     for name in ("MAX_K", "MAX_W", "MAX_TYPES"):
         assert not hasattr(sk, name) and not hasattr(sc, name)
 

@@ -5,7 +5,8 @@ selection (D') and the reaction combine (G) on one card, on the same
 inputs, timed in turns.
 
     python3 tools/torch_kernel_ab.py --tree LABEL=PATH [--tree ...]
-        [--reps 60] [--k 16,20]
+        [--reps 60] [--k 16,20] [--only-candidates] [--explore]
+        [--shapes main,aeam,melt,lj,wide_melt,skin4[,mono,shard0,ljcut7]]
 
 This repository is the first build ("this"); each PATH is another tree
 that holds lammps_plugins_tpu_torch/ (a `git archive` of the parent
@@ -15,8 +16,10 @@ each library's entry points are called through ctypes with the arguments
 of the tree's own signature (chip_smoke.py's launchers read it from the
 tree's ops/build.py): lpt_rebo_cotangents, lpt_select_k and
 lpt_select_candidates with or without the launch plan (atoms and staged
-slots for A; warps, hit buffer and staged cells for D and D', from this
-tree's ops/*.py plans), lpt_lj_cell_forces / lpt_lj_cell_forces_half with
+slots for A; warps and hit buffer for D, from this tree's ops/*.py plans;
+D' as the earlier one-block-a-cell design, its own sort and plan
+kept in chip_smoke.py, or the brick design with this tree's plan),
+lpt_lj_cell_forces / lpt_lj_cell_forces_half with
 or without a packing scratch and Dx, lpt_react_combine on the route
 tables or on rtgt.  A tree without lpt_select_candidates takes the
 candidate selection's unfused path (this tree's torch-built keys, then
@@ -36,7 +39,14 @@ bench scene, K = 16), aeam (32,000 atoms, K = 144), melt (65,536 ions,
 K = 128), lj (bench/in.lj, K = 120), and the wide shapes wide_melt
 (chip_smoke.wide_melt: lj/cut/coul/cut 6 12, skin 2, K past 256) and
 skin4 (the bench scene at skin 4.0), where A also runs on the rebuild's
-own REBO planes (K past 64).  Every launch of every build is timed with
+own REBO planes (K past 64); --shapes also takes mono (the 1,000,518-atom
+monolayer), shard0 (shard 0 of the bench scene in a 2 x 2 grid) and
+ljcut7 (lj_melt(12) with lj/cut 7.0).  Each fused D' is also split into
+its parts (chip_smoke.candidates_split: the sort, zero fills, kernel and
+cnt.max of the one-block-a-cell design; the gather and kernel of the
+brick design), and --explore times this build under every plan that fits
+(tools' plans_to_explore).  --only-candidates times D' alone.  Every
+launch of every build is timed with
 CUDA events, one launch each per turn, the order reversed every other
 turn, and clone() takes its turn beside the pin copies; the medians of
 --reps turns are printed with each build's max error against this tree's
@@ -62,7 +72,16 @@ def main():
                     help="LABEL=PATH of another build")
     ap.add_argument("--reps", type=int, default=60)
     ap.add_argument("--k", default="16,20")
+    ap.add_argument("--only-candidates", action="store_true",
+                    help="time D' alone (no A, H, C, E, D or G)")
+    ap.add_argument("--explore", action="store_true",
+                    help="also time this build's D' under every plan that "
+                         "fits (bricks, staged or not, 4, 8, 16 warps)")
+    ap.add_argument("--shapes", default=",".join(ALL_SHAPES),
+                    help="D' shapes, of " + ", ".join(ALL_SHAPES
+                                                      + MORE_SHAPES))
     args = ap.parse_args()
+    labels = [x for x in args.shapes.split(",") if x]
     sys.path.insert(0, REPO)
     import torch
     import torch.nn.functional as F
@@ -85,13 +104,20 @@ def main():
 
     eng = cs.bench_engine(dev)
     cand_args = cs.capture_candidate_calls(eng)[-1]
+    out = {}
+    if args.only_candidates:
+        del eng
+        out.update(time_candidate_shapes(builds, cand_args, args.reps, cs,
+                                         dev, labels, rebo_skin4=False,
+                                         explore=args.explore))
+        return result(trees, args.reps, out)
     pair, st, nbr = eng.pair, eng.state, eng.nbr
     planes0 = pair._rebo_planes(st.x, pair.el_of_type[st.type], nbr.ghosts,
                                 nbr.lists["rebo"], st.box.h)
     cst = pair._rebo_consts
     stream = build.stream(dev)
     K0, Np = planes0[0].shape
-    out = {"rebo": {}, "pin": {}, "lj": {}}
+    out.update(rebo={}, pin={}, lj={})
     for K in sorted({K0, *(int(k) for k in args.k.split(",") if k)}):
         if K < K0:
             continue
@@ -137,11 +163,17 @@ def main():
     out["lj"] = time_lj(builds, eng, args.reps, cs)
     del eng, planes0, g, stacked, flat, shapes
     out.update(time_select_react(builds, cand_args, K0, args.reps, cs, dev))
-    out.update(time_candidate_shapes(builds, cand_args, args.reps, cs, dev))
+    out.update(time_candidate_shapes(builds, cand_args, args.reps, cs, dev,
+                                     labels))
+    return result(trees, args.reps, out)
+
+
+def result(trees, reps, out):
+    """Print the RESULT line with the card's name and power limit."""
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    print("RESULT " + json.dumps(dict(trees=trees, reps=args.reps, gpu=gpu,
+    print("RESULT " + json.dumps(dict(trees=trees, reps=reps, gpu=gpu,
                                       **out)))
 
 
@@ -195,33 +227,98 @@ def time_rebo(builds, planes, cst, reps, cs):
                 bound_by=b_by, live_edges_hist=work[3])
 
 
-def candidate_shapes(cs, dev, main_args):
-    """{label: (select_candidates arguments, engine)} of each cell's
-    rebuild at its K (see the module docstring); main: the bench
-    rebuild's main_args."""
-    shapes = {"main": (main_args, None)}
-
-    def grab(label, eng, K=None):
-        a = cs.capture_candidate_calls(eng)[-1]
-        shapes[label] = (a if K is None else a[:5] + (K,), eng)
-
-    grab("aeam", cs.aeam_engine(dev), 144)
-    grab("melt", cs.deck_engine(dev, "melt"), 128)
-    grab("lj", cs.deck_engine(dev, "lj"), 120)
-    grab("wide_melt", cs.wide_melt(cs.DECKS["melt"], device=dev).engine())
-    grab("skin4", cs.bench_engine(dev, skin=cs.SKIN4["skin"]))
-    return shapes
+#: D' shapes: the rebuild of each cell's scene at its K (ALL_SHAPES), and
+#: three more that --shapes may name: the monolayer, shard 0 of the bench
+#: scene in a 2x2 grid, and lj/cut 7.0 (chip_smoke.lj_wide_engine)
+ALL_SHAPES = ("main", "aeam", "melt", "lj", "wide_melt", "skin4")
+MORE_SHAPES = ("mono", "shard0", "ljcut7")
 
 
-def time_candidate_shapes(builds, main_args, reps, cs, dev):
-    """D' (or the unfused path) of every build in turns on each
-    candidate_shapes shape, exact against this tree's twin, with its
-    bound; then A on the skin-4.0 rebuild's REBO planes."""
+def candidate_shape(cs, dev, label, main_args):
+    """(select_candidates arguments, engine) of the D' shape `label`."""
+    def grab(eng, K=None, run=None):
+        a = cs.capture_candidate_calls(eng, run)[0 if run else -1]
+        return (a if K is None else a[:5] + (K,) + a[6:]), eng
+
+    if label == "main":
+        return main_args, None
+    if label == "aeam":
+        return grab(cs.aeam_engine(dev), 144)
+    if label in ("melt", "lj"):
+        return grab(cs.deck_engine(dev, label), dict(melt=128, lj=120)[label])
+    if label == "wide_melt":
+        return grab(cs.wide_melt(cs.DECKS["melt"], device=dev).engine())
+    if label == "skin4":
+        return grab(cs.bench_engine(dev, skin=cs.SKIN4["skin"]))
+    if label == "mono":
+        return grab(cs.mono_engine(dev))
+    if label == "shard0":
+        se = cs.shard_bench(dev, (2, 2))
+        return grab(None, run=lambda: se._resettle(se.shards))
+    if label == "ljcut7":
+        return grab(cs.lj_wide_engine(dev))
+    raise ValueError(f"unknown D' shape {label}")
+
+
+def plans_to_explore(K, Cf, nt):
+    """Every D' plan that fits a block: the bucket sort (where it fits),
+    each mode and brick of ops/select_candidates.py, 4, 8 and 16 warps."""
+    from lammps_plugins_tpu_torch.ops import select_candidates as sc
+    cap = sc.hit_capacity(K)
+    bucket = sc.candidates_plan(K, Cf, nt).bucket
+    plans = []
+    for staged, bricks in sc.MODES:
+        for bx in bricks:
+            for warps in (16, 8, 4):
+                nb = sc.candidates_bytes(warps, cap, bucket, bx, staged, Cf,
+                                         nt)
+                if nb > sc.SMEM_LIMIT:
+                    continue
+                blocks = min(sc.SM_SMEM // (nb + sc.BLOCK_SMEM),
+                             sc.SM_THREADS // (32 * warps),
+                             sc.SM_REGS // (sc.REGS * 32 * warps))
+                plans.append(sc.CandidatesPlan(warps, cap, bucket, bx,
+                                               staged, nb, blocks))
+    return plans
+
+
+def explore_plans(b, cand_args, reps, cs):
+    """{plan label: median ms} of this build's D' under every plan of
+    plans_to_explore, in turns; each plan's lists exact against the
+    twin's."""
+    import torch
+    from lammps_plugins_tpu_torch.ops import select_candidates
+    K, Cf, nt = cand_args[5], cand_args[1].shape[1], cand_args[4].shape[0]
+    ref = select_candidates.select_candidates_ref(*cand_args)
+    fns = {}
+    for p in plans_to_explore(K, Cf, nt):
+        label = (f"{'staged' if p.staged else 'in place'} b{p.bx} "
+                 f"w{p.warps} x{p.blocks_per_sm}")
+        fns[label] = cs.brick_parts(b, cand_args, p)["wrapper"]
+        if not all(torch.equal(x, y) for x, y in zip(fns[label](), ref)):
+            raise AssertionError(f"D' under plan {label} differs")
+    ms = cs.interleaved_ms(fns, reps)
+    print("  plans: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                  sorted(ms.items(), key=lambda t: t[1])))
+    return ms
+
+
+def time_candidate_shapes(builds, main_args, reps, cs, dev, labels,
+                          rebo_skin4=True, explore=False):
+    """D' (or the unfused path) of every build in turns on each shape of
+    `labels`, exact against this tree's twin, with its bound and each
+    fused build's split (chip_smoke.candidates_split); explore: this
+    build under every plan (explore_plans); then A on the skin-4.0
+    rebuild's REBO planes."""
     import torch
     from lammps_plugins_tpu_torch.ops import select_candidates
     res = {"select_candidates": {}}
-    shapes = candidate_shapes(cs, dev, main_args)
-    for label, (cand_args, _) in shapes.items():
+    skin4 = None
+    for label in labels:
+        cand_args, eng = candidate_shape(cs, dev, label, main_args)
+        if label == "skin4":
+            skin4 = eng
+        del eng
         ref = select_candidates.select_candidates_ref(*cand_args)
         fns, design = {}, {}
         for lab, b in builds.items():
@@ -231,12 +328,14 @@ def time_candidate_shapes(builds, main_args, reps, cs, dev):
         exact = {lab: all(torch.equal(a, r) for a, r in zip(fn(), ref))
                  for lab, fn in fns.items()}
         ms = cs.interleaved_ms(fns, reps)
+        split = {lab: cs.candidates_split(b, cand_args, reps)
+                 for lab, b in builds.items() if not refused[lab]}
         work = cs.candidate_work(cand_args)
         b_ms, b_by = cs.bound(*work[:2])
         K, Cf = cand_args[5], cand_args[1].shape[1]
         res["select_candidates"][label] = dict(
             ms={**ms, **{lab: r for lab, r in refused.items() if r}},
-            exact=exact, design=design, K=K, Cf=Cf,
+            exact=exact, design=design, split=split, K=K, Cf=Cf,
             n=cand_args[2].shape[0], kmax=int(ref[3]), bound_ms=b_ms,
             bound_by=b_by)
         print(f"select_candidates {label} (K={K}, Cf={Cf}, kmax "
@@ -245,14 +344,21 @@ def time_candidate_shapes(builds, main_args, reps, cs, dev):
                   ms.items())
               + "".join(f", {lab} refused" for lab, r in refused.items()
                         if r)
-              + f"; exact {exact}; bound {b_ms:.4f} ms by {b_by}")
-        del ref, fns
-    eng = shapes["skin4"][1]
-    pair, st, nbr = eng.pair, eng.state, eng.nbr
-    planes = pair._rebo_planes(st.x, pair.el_of_type[st.type], nbr.ghosts,
-                               nbr.lists["rebo"], st.box.h)
-    res["rebo_skin4"] = time_rebo(builds, planes, pair._rebo_consts, reps,
-                                  cs)
+              + f"; exact {exact}; bound {b_ms:.4f} ms by {b_by}; split "
+              + "; ".join(f"{lab} " + ", ".join(
+                  f"{p} {t:.4f}" for p, t in sp.items())
+                  for lab, sp in split.items()))
+        if explore:
+            res["select_candidates"][label]["plans_ms"] = explore_plans(
+                builds["this"], cand_args, max(reps // 2, 5), cs)
+        del ref, fns, cand_args
+        torch.cuda.empty_cache()
+    if rebo_skin4 and skin4 is not None:
+        pair, st, nbr = skin4.pair, skin4.state, skin4.nbr
+        planes = pair._rebo_planes(st.x, pair.el_of_type[st.type],
+                                   nbr.ghosts, nbr.lists["rebo"], st.box.h)
+        res["rebo_skin4"] = time_rebo(builds, planes, pair._rebo_consts,
+                                      reps, cs)
     return res
 
 

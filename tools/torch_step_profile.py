@@ -5,7 +5,7 @@ one NVIDIA GPU.
     python3 tools/torch_step_profile.py [TREE] [--label NAME] [--trace PATH]
         [--lj full|half] [--combine mirror|rows|pin|pin2|react] [--sort]
         [--no-react-gate] [--eager] [--aeam [--poly]]
-        [--deck melt|lj|monolayer]
+        [--deck melt|lj|monolayer|wide_melt]
 
 TREE (default: this repository) holds chip_smoke.py and
 lammps_plugins_tpu_torch/; giving a second tree (for example a `git
@@ -20,7 +20,9 @@ step instead (chip_smoke.aeam_engine: 32,000 atoms, NVT 863 K, skin 1.2,
 check every 12; --poly for poly_mode), with a 288-step warm-up.  --deck
 profiles another main path of chip_smoke.py: melt (phase 7, the
 65,536-ion charged melt with fix bfield), lj (phase 7, bench/in.lj,
-32,000 atoms) or monolayer (phase 8, 1,000,518 atoms; 100-step windows).
+32,000 atoms), monolayer (phase 8, 1,000,518 atoms; 100-step windows) or
+wide_melt (phase 11, the melt with lj/cut/coul/cut 6 12 at skin 2;
+300-step windows).
 After
 100 warm-up steps of the 97,920-atom scene (chip_smoke.bench_engine) it
 measures
@@ -65,7 +67,7 @@ def main():
     ap.add_argument("--aeam", action="store_true")
     ap.add_argument("--poly", action="store_true")
     ap.add_argument("--deck", default="",
-                    choices=("", "melt", "lj", "monolayer"))
+                    choices=("", "melt", "lj", "monolayer", "wide_melt"))
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -93,8 +95,12 @@ def main():
         eng = cs.aeam_engine(dev, poly_mode=args.poly)
     elif args.deck:
         config = dict(deck=args.deck)
-        eng = (cs.mono_engine(dev) if args.deck == "monolayer"
-               else cs.deck_engine(dev, args.deck))
+        if args.deck == "monolayer":
+            eng = cs.mono_engine(dev)
+        elif args.deck == "wide_melt":
+            eng = cs.wide_melt(cs.DECKS["melt"], device=dev).engine()
+        else:
+            eng = cs.deck_engine(dev, args.deck)
     else:
         eng = cs.bench_engine(dev, **config)
     if args.eager:
@@ -117,7 +123,8 @@ def main():
     profiled = 240 if args.aeam else 200
     runs = []
     # a multiple of check_every
-    window = 1008 if args.aeam else 100 if args.deck == "monolayer" else 1000
+    window = (1008 if args.aeam else 100 if args.deck == "monolayer"
+              else 300 if args.deck == "wide_melt" else 1000)
     for _ in range(3):
         rb0 = eng.rebuilds
         ms = clock(lambda: eng.run(window), 1)
