@@ -22,8 +22,11 @@ Phases (any failure raises, so the script exits non-zero):
      (D') on the arguments of the bench rebuild, exact against its twin and
      against the unfused path (torch-built keys, then kernel D), in turns
      with it (unfused_ms) and split into its parts (split_ms:
-     candidates_split); the reaction combine also against the route
-     tables' twin; with --prev-tree (a tree holding an earlier
+     candidates_split); kernel C also with its virial rows (with_virial:
+     the launch of a thermo row and of stress/atom), within 2e-4 x their
+     scale of the twin's, its forces and energy row equal to the
+     with_energy launch's bit for bit; the reaction combine also against
+     the route tables' twin; with --prev-tree (a tree holding an earlier
      lammps_plugins_tpu_torch/, e.g. a `git archive` of the parent commit)
      the LJ sweeps, select-k, D' (also split, and on every later path's
      rebuild: candidates_record) and the reaction combine of that tree's
@@ -47,7 +50,8 @@ Phases (any failure raises, so the script exits non-zero):
      D' must show by name in the graph loop's profile), host-clock ms per
      rebuild, the peak memory (line `LOOPS {json}`); then the REBO kernel
      against its twin again on the run's own lists at the run's K
-  4. the other force configurations at the same width, each its own
+  4. (run last, after phase 11: see main()) the other force
+     configurations at the same width, each its own
      Engine through the graph loop: lj="half" with combine="rows",
      combine="react" on the spatially sorted scene (gate off),
      combine="pin", combine="pin2".  Each: step-0
@@ -99,11 +103,12 @@ Phases (any failure raises, so the script exits non-zero):
      skin 0.8, check every 10: 100 steps through the graph loop with the
      counters reset (A, B, C and D' must launch), the NVT conserved
      quantity's drift < 1e-6 eV/step/atom, A and B against their twins on
-     the run's own lists at its K, C against its twin on the run's own cell
-     grid (mostly empty in z), the state equal to an eager Engine's
-     bit for bit (the chain included), both loops' numbers (three 100-step
-     windows each), the peak memory, K and the ghost count, D' against its
-     twin and the rebuild's device time at this size
+     the run's own lists at its K, C (and its virial rows) against its
+     twin on the run's own cell grid (mostly empty in z), the state equal
+     to an eager Engine's bit for bit (the chain included), both loops'
+     numbers (three 100-step windows each), the peak memory, K and the
+     ghost count, D' against its twin and the rebuild's device time at
+     this size
 
   9. decks through the port's input-script interpreter (`SCRIPT {json}`),
      api/script.py's Script on the card with its defaults:
@@ -120,14 +125,23 @@ Phases (any failure raises, so the script exits non-zero):
      their twins (plain_kernels), a second run writing the same
      dump bytes and thermo rows, the same deck without its output lines
      giving the same thermo rows bit for bit, read_restart of the step-500 file plus 10
-     steps within 1e-3 A of the uninterrupted run; atom-steps/s with and
+     steps within 1e-3 A of the uninterrupted run; every thermo row of the
+     first run (REBOMoS.energy_virial: kernels A and C once each under
+     no_grad) held to the strain autograd on the same card tensors (pe
+     2e-5 relative, W 5e-4 x max|W|); atom-steps/s with and
      without the outputs, ms per dump frame (per-atom computes, host
-     copy, text), peak memory; (b) sample.in at full width (32,000 atoms,
+     copy, text), ms of a thermo row beside the autograd row it replaced,
+     of stress/atom and of the row's C launch, peak memory; then this
+     slice's path counted alone (a thermo row and a stress/atom frame with
+     every twin and torch.autograd.grad refused: A, B and C launch) and
+     energy_virial with A, B and C swapped for their twins (no launch,
+     the same pe and W); (b) sample.in at full width (32,000 atoms,
      phase 6's settings through `neigh_modify every 12`): 96 steps equal to
      phase 6's Engine bit for bit (D' must launch); then the deck with
      `fix nvt temp 863 900 0.1` run twice for 96 steps: the end points
      stay, each run re-anchors the window, the second window recaptures
-     the graph, and the state equals the eager loop's bit for bit; (c)
+     the graph, and the state equals the eager loop's bit for bit, and
+     the ms of one thermo row (the strain autograd AEAM keeps); (c)
      bench/in.lj (32,000
      atoms) read from a data file of the lattice moved by 0.05 sigma: FIRE
      on the card (MinResult, ms per iteration), then fix langevin + fix
@@ -135,13 +149,16 @@ Phases (any failure raises, so the script exits non-zero):
      drawn on the card at three steps = the CPU draw, D' launched; then
      the Langevin step's graph loop in turns with in.lj's plain NVE step
      (three 500-step windows each, capture excluded) and the device time
-     of one noise draw replayed alone in a graph
+     of one noise draw replayed alone in a graph, and the ms of one
+     thermo row (lj/cut's strain autograd)
 
   10. the sharded engine with its shards stacked on the card (`SHARDED
      {json}`, lammps_plugins_tpu_torch/parallel/): (a) the bench scene in
      a 2x2 grid and in four x-slabs on devices=[card] * 4: pe and forces
      of a copy jiggled by 0.05 A against the single-device Engine (2e-5
-     relative, 3e-4 x scale), A, B, C and D' against their twins on shard
+     relative, 3e-4 x scale), its thermo row too (A and C once a shard,
+     every twin and autograd refused; pe 2e-5 relative, the pressure
+     tensor 5e-4 of its scale), A, B, C and D' against their twins on shard
      0's own block, lists and cells (pad and halo rows, a slab box
      non-periodic in x; D' exact, its pad rows skipped), 300 steps
      through the sharded graph loop (every shard's resettle under the
@@ -161,7 +178,8 @@ Phases (any failure raises, so the script exits non-zero):
      pe/atom at step 0 against the bench scene's (1e-5), 100 steps through
      the graph loop (A, B, C and D' must launch), the NVE drift, a second
      100-step window's atom-steps/s, per-shard capacities and ghosts, the
-     peak memory; (d) the phase-9 REBOMOS deck without outputs through
+     peak memory, a thermo row's ms and its own peak; (d) the phase-9
+     REBOMOS deck without outputs through
      Script(n_devices=4, devices=[card] * 4) for 200 steps, its thermo
      rows against the single-device Script's (SHARD_ROW_BARS); (e) the
      entry checks of lammps_plugins_tpu_torch/entry.py with their
@@ -445,14 +463,16 @@ def lj_launchers(b, P, consts, a_range):
     out_e = torch.empty((Ax, Ay, Az, C, 3), device=dev)
     part = torch.empty((27, Ax * Ay * Az, 3, C), device=dev)
     scratch = torch.empty(lj_cells.scratch_floats(P.shape), device=dev)
-    extra = ((scratch.data_ptr(), Dx)
-             if len(b._SIGNATURES["lpt_lj_cell_forces"]) > 14 else ())
+    n_args = len(b._SIGNATURES["lpt_lj_cell_forces"])
+    extra = (scratch.data_ptr(), Dx) if n_args > 14 else ()
     stream = b.stream(dev)
 
     def c(energy):
+        # a tree with the virial rows takes (with_virial, vir) last
         b.raise_on_error(lib.lpt_lj_cell_forces(
             P.data_ptr(), cvec.data_ptr(), out_c.data_ptr(), Dy, Dz, C, x0,
-            y0, z0, Ax, Ay, Az, int(energy), stream, *extra), "lj C")
+            y0, z0, Ax, Ay, Az, int(energy), stream, *extra,
+            *((0, None) if n_args > 16 else ())), "lj C")
         return out_c
 
     def e():
@@ -771,6 +791,58 @@ def bench_engine(dev, sort=False, jiggle=0.0, skin=BENCH["skin"], **config):
                   check_every=BENCH["check_every"], skin=skin)
 
 
+#: flops of C's energy and virial rows per window pair, beside the 30 of
+#: its force: v (5) and its sum (1), six fp d_a d_b (2 each)
+LJ_ENERGY_VIRIAL_FLOPS = 18
+
+
+def lj_virial_record(P, lc, ar, ok, npairs, slabs=None, plain=True):
+    """Kernel C with with_virial (a thermo row's and stress/atom's launch)
+    on planes P: its six rows within 2e-4 x their scale of the twin's per
+    slot, the forces and energy row equal to `ok` (the with_energy
+    launch's) bit for bit, reruns bit-identical; its median time, the
+    twin's (unless plain is False) and the bound.  `slabs`: a_ranges along
+    x to run the twin in (default: the whole range)."""
+    from lammps_plugins_tpu_torch.ops import lj_cells
+    ov, vk = lj_cells.lj_cell_forces(P, lc, ar, with_energy=True,
+                                     with_virial=True)
+    again = lj_cells.lj_cell_forces(P, lc, ar, with_energy=True,
+                                    with_virial=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(ov, ok) and torch.equal(again[0], ov)
+            and torch.equal(again[1], vk)):
+        raise AssertionError("lj_cell_forces with_virial changed the forces "
+                             "or the energy row, or its reruns differ")
+    del again
+    x0 = ar[0][0]
+    err = scale = 0.0
+    for s in slabs or [ar]:
+        _, vt = lj_cells.lj_cell_forces_ref(P, lc, s, with_virial=True)
+        ks = vk[s[0][0] - x0:s[0][1] - x0]
+        err = max(err, float((ks - vt).abs().max()))
+        scale = max(scale, float(vt.abs().max()))
+        del vt, ks
+    b_ms, b_by = bound(4 * (P.numel() + ov.numel() + vk.numel()),
+                       (30 + LJ_ENERGY_VIRIAL_FLOPS) * npairs)
+    out = dict(max_abs_err=err, bar=2e-4 * scale,
+               ms=timed_ms(lambda: lj_cells.lj_cell_forces(
+                   P, lc, ar, with_energy=True, with_virial=True), reps=20),
+               plain_ms=(timed_ms(lambda: lj_cells.lj_cell_forces_ref(
+                   P, lc, ar, with_energy=True, with_virial=True), reps=3)
+                   if plain else None),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               forces_and_energy_bit_identical=True,
+               reruns_bit_identical=True)
+    print(f"lj_cell_forces with_virial: max_abs_err={err:.3e} (bar "
+          f"{out['bar']:.3e}), kernel {out['ms']:.4f} ms, twin "
+          f"{out['plain_ms']} ms, bound {b_ms:.4f} ms by {b_by}; forces and "
+          f"energy row equal to the with_energy launch's bit for bit")
+    if not err <= out["bar"]:
+        raise AssertionError("lj_cell_forces virial rows disagree with the "
+                             "twin's")
+    return out
+
+
 def phase1_kernels(dev, prev_tree=""):
     """Each kernel vs its twin on the bench scene's own tensors; with
     prev_tree, the LJ sweeps, select-k and the reaction combine of that
@@ -953,6 +1025,7 @@ def phase1_kernels(dev, prev_tree=""):
     if not erre <= 1e-4 * scale_e:
         raise AssertionError("lj_cell_forces energy row disagrees atom by "
                              "atom")
+    c_virial = lj_virial_record(P, lc, ar, ok, npairs)
     record("lj_cell_forces", errf,
            2e-4 * float(ot[..., :3, :].abs().max()), c_ms,
            timed_ms(lambda: lj_cells.lj_cell_forces_ref(P, lc, ar), reps=3),
@@ -964,7 +1037,7 @@ def phase1_kernels(dev, prev_tree=""):
            candidate_pairs_prev_design=ncand_prev, tested_groups=tested,
            live_groups=live, reruns_bit_identical=True,
            energy_ms=timed_ms(lambda: lj_cells.lj_cell_forces(
-               P, lc, ar, with_energy=True)),
+               P, lc, ar, with_energy=True)), with_virial=c_virial,
            **({"prev_design_ms": c_prev} if prev else {}))
 
     # E: Newton-half LJ, 2e-4 * scale vs its twin, and within 3e-4 * scale
@@ -1306,6 +1379,8 @@ def loop_numbers(engines, gpu, steps=TIMED_STEPS,
     seen = {k: any(k in op for op in graph_ops) for k in kernels}
     print(f"graph loop profile: kernels by name {seen}")
     if not all(seen.values()):
+        print("graph loop profile, device ops by count: "
+              + json.dumps(graph_ops.most_common()))
         raise AssertionError(f"kernels missing from the graph loop's "
                              f"profile: {seen}")
     if out["graph"]["host_calls"].get("cudaGraphLaunch", 0) == 0:
@@ -1465,6 +1540,13 @@ def phase4_configurations(dev, modules):
         if eng._loop is None or eng._loop.exec is None:
             raise AssertionError(f"config {name} did not run through the "
                                  "graph")
+        if "lj_cells" not in used:
+            # each thermo row launches C for its energy and virial rows
+            if launches["lj_cells"] != len(rows):
+                raise AssertionError(f"config {name}: C launched "
+                                     f"{launches['lj_cells']} times for "
+                                     f"{len(rows)} thermo rows")
+            launches = dict(launches, lj_cells=0)
         check_launches(f"config {name}", launches, used)
         check_run(eng, rows)
         p = eng._plan
@@ -2164,6 +2246,8 @@ def lj_cells_at_run(eng):
     if not (err <= out["bar"] and out["energy_rel_err"] <= 2e-5):
         raise AssertionError("lj_cell_forces disagrees with its twin at the "
                              "monolayer's size")
+    out["with_virial"] = lj_virial_record(P, lc, ar, ok, npairs,
+                                          slabs=slabs, plain=False)
     return out
 
 
@@ -2478,30 +2562,195 @@ def unwrapped(eng):
     return st.box.unmap(st.x, st.image).double().cpu().numpy()
 
 
-def output_parts_ms(eng, reps=3):
-    """Median wall ms (synchronised) on the Engine's final state of one
-    thermo row (the autograd energy and strain virial), pe/atom, the
-    per-atom virial, and the per-atom virial's LJ cell sweep alone."""
-    st, pair, nbr = eng.state, eng.pair, eng.nbr
-    fns = {"thermo_row": lambda: eng._thermo(st),
-           "energy_peratom": lambda: pair.energy_peratom(
-               st.x, st.type, nbr, st.box.h),
-           "virial_peratom": lambda: pair.virial_peratom(
-               st.x, st.type, nbr, st.box.h),
-           "lj_virial_cells": lambda: pair._lj_virial_cells(
-               st.x, nbr.ghosts, nbr.cells, st.box.h)}
-    out = {}
-    for name, fn in fns.items():
+def wall_ms(fns, reps=3):
+    """Median wall ms (synchronised) of each callable in `fns` (name ->
+    fn), one call each per turn, the order reversed every other turn,
+    after one call each to warm up."""
+    for fn in fns.values():
         fn()
-        times = []
-        for _ in range(reps):
+    times = {name: [] for name in fns}
+    names = list(fns)
+    for rep in range(reps):
+        for name in (names if rep % 2 == 0 else names[::-1]):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            fn()
+            fns[name]()
             torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-        out[name] = statistics.median(times)
+            times[name].append(1e3 * (time.perf_counter() - t0))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def output_parts_ms(eng, reps=3):
+    """Wall ms (synchronised; medians of `reps` in turns) on the Engine's
+    final state of one thermo row (kernels A and C, no autograd) and of the
+    row through the strain autograd it replaced (the yardstick), pe/atom
+    and the per-atom virial; and the device ms of the thermo row's C
+    launch (forces, energy and virial rows)."""
+    from lammps_plugins_tpu_torch.ops import lj_cells
+    from lammps_plugins_tpu_torch.potentials.base import PairStyle
+    from lammps_plugins_tpu_torch.run.thermo import thermo_row
+    st, pair, nbr = eng.state, eng.pair, eng.nbr
+
+    def autograd_row():
+        pe, w = PairStyle.energy_virial(pair, st.x, st.type, nbr, st.box.h)
+        return thermo_row(st, pe, w, eng.units)
+
+    out = wall_ms({"thermo_row": lambda: eng._thermo(st),
+                   "thermo_row_autograd": autograd_row}, reps)
+    out.update(wall_ms({"energy_peratom": lambda: pair.energy_peratom(
+        st.x, st.type, nbr, st.box.h), "virial_peratom":
+        lambda: pair.virial_peratom(st.x, st.type, nbr, st.box.h)}, reps))
+    P = pair._cell_planes(st.x, nbr.ghosts, nbr.cells, st.box.h)
+    out["lj_cells_energy_virial_device_ms"] = timed_ms(
+        lambda: lj_cells.lj_cell_forces(P, pair._lj_consts,
+                                        nbr.cells.a_range, with_energy=True,
+                                        with_virial=True), reps=20)
     return out
+
+
+#: a thermo row on the card against the strain autograd on the same card
+#: tensors: pe relative, W of max|W|
+THERMO_PE_BAR, THERMO_W_BAR = 2e-5, 5e-4
+
+
+@contextlib.contextmanager
+def watch_thermo(modules, rows, yardstick=True):
+    """REBOMoS.energy_virial wrapped for every thermo row taken inside the
+    block: the A, B and C launches of the row and whether autograd was on
+    at them, appended to `rows`; with yardstick, also (pe, W) against the
+    strain autograd it replaced on the same card tensors
+    (PairStyle.energy_virial, which launches no kernel)."""
+    from lammps_plugins_tpu_torch.potentials.base import PairStyle
+    from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
+    real = REBOMoS.energy_virial
+    names = ("rebo", "lj_cells", "mirror")
+
+    def probe(pair, x, types, nbr, h, center_mask=None):
+        c0 = {m: modules[m].launches for m in names}
+        grad = []
+        with spy_grad(grad):
+            e, w = real(pair, x, types, nbr, h, center_mask)
+        row = dict(launches={m: modules[m].launches - c0[m] for m in names},
+                   grad_enabled=any(grad), pe=float(e))
+        if yardstick:
+            ea, wa = PairStyle.energy_virial(pair, x, types, nbr, h,
+                                             center_mask=center_mask)
+            row.update(pe_autograd=float(ea),
+                       pe_rel_err=abs(float(e - ea)) / abs(float(ea)),
+                       w_err_of_max=float((w - wa).abs().max())
+                       / float(wa.abs().max()))
+        rows.append(row)
+        return e, w
+
+    REBOMoS.energy_virial = probe
+    try:
+        yield rows
+    finally:
+        REBOMoS.energy_virial = real
+
+
+@contextlib.contextmanager
+def spy_grad(seen):
+    """Record torch.is_grad_enabled() at each launch of A and C made
+    through potentials/rebomos.py inside the block."""
+    from lammps_plugins_tpu_torch.potentials import rebomos
+    saved = {n: getattr(rebomos, n) for n in ("rebo_cotangents",
+                                              "lj_cell_forces")}
+
+    def wrap(fn):
+        def spy(*a, **k):
+            seen.append(torch.is_grad_enabled())
+            return fn(*a, **k)
+        return spy
+
+    for n, fn in saved.items():
+        setattr(rebomos, n, wrap(fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(rebomos, n, fn)
+
+
+@contextlib.contextmanager
+def refuse_plain():
+    """Every twin of A, B and C, the 27-offset LJ sweeps of the twins and
+    the energy, and torch.autograd.grad raise inside the block."""
+    from lammps_plugins_tpu_torch.ops import lj_cells, mirror, rebo
+    from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
+
+    def refuse(*_, **__):
+        raise AssertionError("a plain path ran on the card")
+
+    swaps = [(rebo, "rebo_cotangents_ref"), (lj_cells, "lj_cell_forces_ref"),
+             (lj_cells, "pair_terms"), (mirror, "mirror_combine_ref"),
+             (REBOMoS, "_lj_energy_cells"), (torch.autograd, "grad")]
+    saved = [(m, n, getattr(m, n)) for m, n in swaps]
+    for m, n in swaps:
+        setattr(m, n, refuse)
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def check_thermo_rows(label, rows):
+    """Each watched row launched A and C once, B never, with autograd off,
+    and, where it was held to the autograd path, sits within the bars."""
+    if not rows:
+        raise AssertionError(f"{label}: no thermo row was taken")
+    for r in rows:
+        if r["launches"] != {"rebo": 1, "lj_cells": 1, "mirror": 0} \
+                or r["grad_enabled"]:
+            raise AssertionError(f"{label}: a thermo row launched "
+                                 f"{r['launches']} (grad on: "
+                                 f"{r['grad_enabled']}), not A and C once "
+                                 f"each under no_grad")
+        if "pe_rel_err" in r and not (r["pe_rel_err"] <= THERMO_PE_BAR
+                                      and r["w_err_of_max"] <= THERMO_W_BAR):
+            raise AssertionError(f"{label}: a thermo row is off the "
+                                 f"autograd path: {r}")
+
+
+def thermo_path(eng, modules):
+    """This slice's path on the deck's Engine at its final state, its
+    counters set to 0 just before and read just after: one thermo row and
+    one stress/atom (A and C must launch), under refuse_plain (no twin, no
+    autograd); then the same energy_virial with A, B and C swapped for
+    their twins (plain_kernels) launches nothing and agrees with it."""
+    st, pair, nbr = eng.state, eng.pair, eng.nbr
+    for m in modules.values():
+        m.launches = 0
+    rows = []
+    with refuse_plain(), watch_thermo(modules, rows, yardstick=False):
+        eng._thermo(st)
+        pair.virial_peratom(st.x, st.type, nbr, st.box.h)
+    torch.cuda.synchronize()
+    launches = {name: m.launches for name, m in modules.items()}
+    check_launches("thermo path", launches, ("rebo", "mirror", "lj_cells"))
+    check_thermo_rows("thermo path", rows)
+    e, w = pair.energy_virial(st.x, st.type, nbr, st.box.h)
+    for m in modules.values():
+        m.launches = 0
+    with plain_kernels():
+        ep, wp = pair.energy_virial(st.x, st.type, nbr, st.box.h)
+    torch.cuda.synchronize()
+    plain_launches = sum(m.launches for m in modules.values())
+    pe_err = abs(float(e - ep)) / abs(float(ep))
+    w_err = float((w - wp).abs().max()) / float(wp.abs().max())
+    print(f"thermo path: a thermo row and a stress/atom frame launched "
+          f"{ {k: v for k, v in launches.items() if v} } with every twin "
+          f"and torch.autograd.grad refused; energy_virial through the "
+          f"twins (plain_kernels) launched {plain_launches} kernels, pe rel "
+          f"{pe_err:.3e} (bar {THERMO_PE_BAR}), W {w_err:.3e} of max|W| "
+          f"(bar {THERMO_W_BAR}) against the kernels")
+    if plain_launches or not (pe_err <= THERMO_PE_BAR
+                              and w_err <= THERMO_W_BAR):
+        raise AssertionError("energy_virial through the twins launched a "
+                             "kernel or disagrees with the kernels")
+    return dict(launches=launches, plain_launches=plain_launches,
+                plain_pe_rel_err=pe_err, plain_w_err_of_max=w_err)
 
 
 def script_rebomos(dev, modules):
@@ -2524,7 +2773,14 @@ def script_rebomos(dev, modules):
         # second is the timed one
         frames = watch_frames(s, modules) if tag == "a" else None
         torch.cuda.reset_peak_memory_stats()
-        r, launches, wall = run_counted(s, REBO_STEPS, modules)
+        if tag == "a":
+            # every thermo row of the run (the deck's and the frames')
+            # held to the strain autograd on the same card tensors
+            with watch_thermo(modules, []) as thermo_rows:
+                r, launches, wall = run_counted(s, REBO_STEPS, modules)
+            check_thermo_rows("REBOMOS deck", thermo_rows)
+        else:
+            r, launches, wall = run_counted(s, REBO_STEPS, modules)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         eng = s.engine
         check_graph("REBOMOS deck", eng)
@@ -2537,7 +2793,9 @@ def script_rebomos(dev, modules):
             out.update(natoms=eng.state.natoms, launches_with_outputs={
                 KERNEL_NAMES[m]: launches[m] for m in MAIN_PATH},
                 frames=frames, peak_gib_with_outputs=peak,
-                rebuilds=eng.rebuilds)
+                rebuilds=eng.rebuilds, thermo_rows=thermo_rows,
+                thermo_bars=dict(pe_rel=THERMO_PE_BAR,
+                                 w_of_max=THERMO_W_BAR))
             check_launches("REBOMOS deck", launches, MAIN_PATH)
             run_a = launches
         del s, eng
@@ -2546,6 +2804,13 @@ def script_rebomos(dev, modules):
     print(f"REBOMOS deck through Script on {gpu}: {natoms} atoms, "
           f"{REBO_STEPS} steps, launches {run_a}, rebuilds "
           f"{out['rebuilds']}")
+    tr = out["thermo_rows"]
+    print(f"  {len(tr)} thermo rows (the deck's and the frames'), each A "
+          f"and C once under no_grad, against the strain autograd on the "
+          f"same tensors: pe rel at most "
+          f"{max(r['pe_rel_err'] for r in tr):.3e} (bar {THERMO_PE_BAR}), "
+          f"W at most {max(r['w_err_of_max'] for r in tr):.3e} of max|W| "
+          f"(bar {THERMO_W_BAR})")
     for f in out["frames"]:
         f["press_off_of_scale"] = (abs(f["press_from_vatom"] - f["press"])
                                    / f["press_scale"])
@@ -2596,6 +2861,7 @@ def script_rebomos(dev, modules):
         raise AssertionError(f"thermo rows differ with and without the "
                              f"outputs at {bad[:3]}")
     parts_ms = output_parts_ms(s.engine)
+    thermo = thermo_path(s.engine, modules)
     del s
     # uninterrupted run to 10 steps past the first restart file, and the
     # resume from that file
@@ -2621,9 +2887,10 @@ def script_rebomos(dev, modules):
           f"{with_dumps:.6g} with the dumps ({dumps[1].frames} frames, "
           f"{REBO_STEPS // REBO_RESTART_EVERY} restart files), "
           f"{without:.6g} "
-          f"without; ms per dump frame {frame_ms}; ms of one thermo row, "
-          f"pe/atom, the per-atom virial, its LJ sweep {parts_ms}; peak "
-          f"memory "
+          f"without; ms per dump frame {frame_ms}; ms of one thermo row "
+          f"(and through the strain autograd), pe/atom, the per-atom "
+          f"virial, and the device ms of the row's C launch {parts_ms}; "
+          f"peak memory "
           f"{out['peak_gib_with_outputs']:.3f} GiB with outputs, "
           f"{peak_plain:.3f} GiB without; thermo rows equal with and "
           f"without outputs, dump reruns byte-identical")
@@ -2631,6 +2898,7 @@ def script_rebomos(dev, modules):
                atom_steps_per_s_without=without,
                wall_s_with_dumps=walls, wall_s_without=wall_plain,
                ms_per_dump_frame=frame_ms, output_parts_ms=parts_ms,
+               thermo_path=thermo,
                peak_gib_without=peak_plain,
                resume_max_dx_A=resume_dx, rows_equal_without_outputs=True,
                dump_reruns_identical=True,
@@ -2654,6 +2922,8 @@ def script_sample(dev, modules):
                              "6's Engine")
     check_launches("sample.in deck", launches, ("select_candidates",))
     natoms = s.engine.state.natoms
+    # one thermo row on the path it has (AEAM: the strain autograd)
+    thermo_ms = wall_ms({"row": lambda: s.engine._thermo(s.engine.state)})
     del s
     ramped = SAMPLE_DECK.format(aeam=AEAM_FILE, t_stop=SAMPLE_RAMP_T)
     g = card_script(ramped)
@@ -2670,7 +2940,8 @@ def script_sample(dev, modules):
     same = same_state(g.engine, e.engine)
     print(f"sample.in through Script: {natoms} atoms, {SAMPLE_STEPS} steps "
           f"equal to phase 6's Engine bit for bit ({wall:.2f} s, launches "
-          f"{launches}); the ramped deck (temp 863 {SAMPLE_RAMP_T}) run "
+          f"{launches}; a thermo row {thermo_ms['row']:.3f} ms); the "
+          f"ramped deck (temp 863 {SAMPLE_RAMP_T}) run "
           f"twice: windows {windows}, end points {ends}, recaptured "
           f"{keys[0] != keys[1]}; graph vs eager bit-identical {same}")
     if ends[0] != ends[1] or ends[0] != (863.0, SAMPLE_RAMP_T):
@@ -2685,6 +2956,7 @@ def script_sample(dev, modules):
     out = dict(natoms=natoms, rows_equal_phase6=True,
                ramp_windows=windows, ramp_recaptured=True,
                ramp_graph_equals_eager=True, first_run_s=wall,
+               thermo_row_ms=thermo_ms["row"],
                launches_first_run={KERNEL_NAMES["select_candidates"]:
                                    launches["select_candidates"]})
     del g, e
@@ -2751,7 +3023,10 @@ def script_lj(dev, modules):
     check_graph("in.lj deck", g.engine)
     check_launches("in.lj deck", launches, ("select_candidates",))
     speed = langevin_speed(dev, g.engine, fix)
-    out = dict(natoms=g.engine.state.natoms,
+    # one thermo row on the path it has (lj/cut: the strain autograd)
+    thermo_ms = wall_ms({"row": lambda: g.engine._thermo(g.engine.state)})
+    print(f"in.lj: a thermo row {thermo_ms['row']:.3f} ms")
+    out = dict(natoms=g.engine.state.natoms, thermo_row_ms=thermo_ms["row"],
                min_result=dict(stop=res.stop_criterion,
                                iterations=res.iterations,
                                e_initial=res.e_initial, e_final=res.e_final,
@@ -3020,6 +3295,7 @@ def sharded_bench(dev, modules, gpu):
     with torch.no_grad():
         pe1 = float(jig.pair.energy(st.x, None, st.type, jig.nbr, st.box.h))
     f1 = st.f.clone()
+    row1 = jig._thermo(st)
     del jig, st
     single = bench_engine(dev)
     natoms = single.state.natoms
@@ -3044,6 +3320,7 @@ def sharded_bench(dev, modules, gpu):
         if not (pe_err <= SHARD_PE_BAR and f_err <= SHARD_F_BAR):
             raise AssertionError(f"sharded {label} pe or forces differ "
                                  "from the single-device Engine's")
+        thermo = sharded_thermo_check(se, row1, modules, label)
         kern = shard_kernels(se, label)
         del se
         torch.cuda.empty_cache()
@@ -3119,7 +3396,7 @@ def sharded_bench(dev, modules, gpu):
             graph_equals_eager=True, atom_steps_per_s=rates["sharded"],
             single_atom_steps_per_s=rates["single"], peak_gib=peak,
             resettle_eager_ms=resettle_ms, resettle_profile=rs_ops,
-            halo_refresh_ms=comm_ms,
+            halo_refresh_ms=comm_ms, thermo=thermo,
             capture_s=se._loop.capture_s,
             host_launch_calls_per_step=prof["host_launch_calls_per_step"],
             device_ms_per_step=prof["device_ms_per_step"],
@@ -3133,6 +3410,35 @@ def sharded_bench(dev, modules, gpu):
         torch.cuda.empty_cache()
     del single
     return out, launches0, kernels0, single_rows[0]["pe"] / natoms
+
+
+def sharded_thermo_check(se, ref, modules, label):
+    """The sharded thermo row and potential_energy under refuse_plain: A
+    and C once a shard each, no twin, no autograd; the row against the
+    single Engine's on the same positions (pe 2e-5 relative, pressure
+    tensor 5e-4 of its largest component); the row's wall ms."""
+    rows = []
+    with refuse_plain(), watch_thermo(modules, rows, yardstick=False):
+        row = se.thermo()
+        pe = se.potential_energy()
+    check_thermo_rows(f"sharded {label} thermo", rows)
+    if len(rows) != 2 * se.n_devices:
+        raise AssertionError(f"sharded {label}: {len(rows)} shard rows")
+    keys = ("pxx", "pyy", "pzz", "pxy", "pxz", "pyz")
+    scale = max(abs(ref[k]) for k in keys)
+    p_err = max(abs(row[k] - ref[k]) for k in keys + ("press",)) / scale
+    pe_err = abs(row["pe"] - ref["pe"]) / abs(ref["pe"])
+    ms = wall_ms({"row": se.thermo})["row"]
+    print(f"sharded {label} thermo row: pe {row['pe']:.6f} vs single "
+          f"{ref['pe']:.6f} (rel {pe_err:.3e}, bar {THERMO_PE_BAR}), "
+          f"pressure tensor off by {p_err:.3e} of its scale (bar "
+          f"{THERMO_W_BAR}); A and C once a shard, no twin, no autograd; "
+          f"{ms:.3f} ms a row")
+    if not (pe_err <= THERMO_PE_BAR and p_err <= THERMO_W_BAR
+            and abs(pe - row["pe"]) <= 1e-6 * abs(pe)):
+        raise AssertionError(f"sharded {label} thermo row differs from the "
+                             f"single Engine's")
+    return dict(pe_rel_err=pe_err, press_err_of_scale=p_err, ms=ms)
 
 
 def sharded_melt(dev, modules):
@@ -3240,6 +3546,10 @@ def sharded_scale(dev, modules, gpu, pe_atom_bench):
     torch.cuda.synchronize()
     rate = natoms * c["steps"] / (time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    thermo_ms = wall_ms({"row": se.thermo})["row"]
+    thermo_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     out = dict(natoms=natoms, shards=c["shards"], skin=c["skin"],
                n_cap=se.n_cap, Bhx=se.Bhx, n_loc=se.n_loc,
                B_mig=se.B_mig, k_caps=dict(se._plan.k_caps),
@@ -3251,6 +3561,8 @@ def sharded_scale(dev, modules, gpu, pe_atom_bench):
                rows=[{k: r[k] for k in ("step", "temp", "pe", "etotal",
                                         "press")} for r in rows],
                first_run_s=wall, atom_steps_per_s=rate, peak_gib=peak,
+               thermo_row_ms=thermo_ms, thermo_row_peak_gib=thermo_peak,
+               allocated_before_thermo_gib=base,
                resettles=se.resettles, regrows=se.regrows,
                capture_s=se._loop.capture_s, gpu=gpu,
                launches={KERNEL_NAMES[m]: launches[m] for m in MAIN_PATH})
@@ -3258,7 +3570,9 @@ def sharded_scale(dev, modules, gpu, pe_atom_bench):
           f"first resettle, capture and two thermo rows), NVE drift "
           f"{drift:.3e} eV/step/atom (bar 1e-6), {rate:.6g} atom-steps/s "
           f"(a second {c['steps']}-step window) on {gpu}, peak {peak:.3f} "
-          f"GiB, resettles {se.resettles}, launches {launches}")
+          f"GiB, resettles {se.resettles}, launches {launches}; a thermo "
+          f"row {thermo_ms:.3f} ms, peak {thermo_peak:.3f} GiB over it "
+          f"({base:.3f} allocated before)")
     if not drift < 1e-6:
         raise AssertionError("config 5 NVE drift above 1e-6 eV/step/atom")
     del se
@@ -3712,8 +4026,6 @@ def main():
     with timed("phase 3"):
         launches, at_run_k = phase3_main_path(dev, modules)
     results["rebo_cotangents"]["at_run_k"] = at_run_k
-    with timed("phase 4"):
-        by_config = phase4_configurations(dev, modules)
     phase5_golden(dev, args.golden_rebo)
     with timed("phase 6"):
         results["select_candidates"]["aeam"] = phase6_aeam(dev, modules)
@@ -3726,6 +4038,10 @@ def main():
     for m in MAIN_PATH:
         results[KERNEL_NAMES[m]]["script"] = dict(
             launches=script_launches[m])
+    # this slice's path: one thermo row and one stress/atom, counted alone
+    for m in ("rebo", "mirror", "lj_cells"):
+        results[KERNEL_NAMES[m]]["thermo_path"] = dict(
+            launches=script["rebomos"]["thermo_path"]["launches"][m])
     print("SCRIPT " + json.dumps(script))
     with timed("phase 10"):
         sharded, shard_launches, shard_kern = phase10_sharded(dev, modules)
@@ -3744,6 +4060,13 @@ def main():
         wide["skin4"]["rebo_cotangents"],
         launches=wide["skin4"]["launches"]["rebo_cotangents"])
     results["select_k"]["wide"] = wide["kernels"]["select_k"]
+    # phase 4 runs last: after a profiled run (phase 3), its four Engines'
+    # graphs leave torch.profiler recording no D' kernel inside the later
+    # graph loops' windows (phase 6 on, in this order; the graph runs it:
+    # graph = eager holds through those windows), in this tree and in the
+    # parent's; no later phase profiles
+    with timed("phase 4"):
+        by_config = phase4_configurations(dev, modules)
     for m in MAIN_PATH:
         results[KERNEL_NAMES[m]]["monolayer"] = dict(
             {"rebo": mono["rebo_at_run_k"], "mirror": mono["mirror_at_run_k"],

@@ -36,7 +36,13 @@
 // no atomics, and reruns are bit-identical.  The grid has a one-cell empty
 // halo ring, so neighbour indexing needs no boundary logic.
 // Output layout is the JAX one, [Ax, Ay, Az, 8, C]: rows 0-2 force, row 3
-// 0.5 * owned * sum_b V when with_energy (else 0), rows 4-7 zero.
+// 0.5 * owned * sum_b V when with_energy (else 0), rows 4-7 zero.  With
+// with_virial a second output [Ax, Ay, Az, 6, C] holds each A slot's
+// 0.5 * owned * sum_b fp d_a d_b (vatom order xx yy zz xy xz yz), summed in
+// the same lane and order as its force.  That instantiation (a thermo row
+// or a stress/atom frame) carries six more accumulators and is allowed 64
+// registers (8 blocks an SM); the per-step one (no energy, no virial) is
+// unchanged.
 
 #include "lj_common.cuh"
 
@@ -46,12 +52,12 @@ using namespace lj;
 
 constexpr int kNOff = 27;
 
-template <bool kEnergy>
-__global__ void __launch_bounds__(kThreads, 9) lj_cells_kernel(
+template <bool kEnergy, bool kVirial>
+__global__ void __launch_bounds__(kThreads, kVirial ? 8 : 9) lj_cells_kernel(
     const float* __restrict__ P, const float4* __restrict__ Q,
     const float4* __restrict__ box, const float* __restrict__ cst,
     float* __restrict__ out, int Dy, int Dz, int C, int T, int x0, int y0,
-    int z0, int Ay, int Az) {
+    int z0, int Ay, int Az, float* __restrict__ vout) {
   extern __shared__ float4 sh[];   // 2 x [T * 32 slots | T x boxes]
   __shared__ float4 c4[kNLj];
   const int stride = T * (kTile + kBoxes);
@@ -86,6 +92,7 @@ __global__ void __launch_bounds__(kThreads, 9) lj_cells_kernel(
     float a[kNLj], bb[kNLj];
     rows_a(c4, qa.w, a, bb);
     float fx = 0.f, fy = 0.f, fz = 0.f, en = 0.f;
+    float vir[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int o = 0; o < kNOff; ++o) {
       cp_async_wait_all();
       __syncthreads();                     // B cell o landed; o - 1 swept
@@ -95,8 +102,9 @@ __global__ void __launch_bounds__(kThreads, 9) lj_cells_kernel(
       const float4* bx = cell + T * kTile;
       for (int c = 0; c < T; ++c) {
         const float4* ch = cell + c * kTile;
-        sum_hits<kEnergy>(ch, window_mask(ch, bx + c * kBoxes, qa, a, bb),
-                          qa, a, bb, fx, fy, fz, en);
+        sum_hits<kEnergy, kVirial>(
+            ch, window_mask(ch, bx + c * kBoxes, qa, a, bb), qa, a, bb, fx,
+            fy, fz, en, vir);
       }
     }
     __syncthreads();                       // before the next round's stage
@@ -109,20 +117,37 @@ __global__ void __launch_bounds__(kThreads, 9) lj_cells_kernel(
           kEnergy ? 0.5f * P[acell * 8 * C + 4 * C + s] * en : 0.f;
 #pragma unroll
       for (int r = 4; r < 8; ++r) out[obase + r * C + s] = 0.f;
+      if (kVirial) {
+        const size_t vbase = ((size_t)(ax * Ay + ay) * Az + az) * 6 * C;
+        const float w = 0.5f * P[acell * 8 * C + 4 * C + s];
+#pragma unroll
+        for (int r = 0; r < 6; ++r) vout[vbase + r * C + s] = w * vir[r];
+      }
     }
   }
+}
+
+template <bool kEnergy, bool kVirial>
+void launch_sweep(const float* P, const float4* Q, const float4* B,
+                  const float* cst, float* out, float* vout, int Dy, int Dz,
+                  int C, int T, int x0, int y0, int z0, int Ax, int Ay,
+                  int Az, size_t shmem, cudaStream_t s) {
+  lj_cells_kernel<kEnergy, kVirial><<<Ax * Ay * Az, kThreads, shmem, s>>>(
+      P, Q, B, cst, out, Dy, Dz, C, T, x0, y0, z0, Ay, Az, vout);
 }
 
 }  // namespace
 
 // P: [Dx, Dy, Dz, 8, C]; out: [Ax, Ay, Az, 8, C] over the a_range cells
 // starting at (x0, y0, z0); scratch: Dx * Dy * Dz * ceil(C / 32) * 144
-// floats (the packed slots and group boxes).  C <= 1024.
+// floats (the packed slots and group boxes); vir: [Ax, Ay, Az, 6, C],
+// written when with_virial (else unused, may be null).  C <= 1024.
 extern "C" int lpt_lj_cell_forces(const float* P, const float* cst,
                                   float* out, int Dy, int Dz, int C, int x0,
                                   int y0, int z0, int Ax, int Ay, int Az,
                                   int with_energy, void* stream,
-                                  float* scratch, int Dx) {
+                                  float* scratch, int Dx, int with_virial,
+                                  float* vir) {
   cudaStream_t s = (cudaStream_t)stream;
   const int T = (C + kTile - 1) / kTile;
   const int ncells = Dx * Dy * Dz;
@@ -132,11 +157,11 @@ extern "C" int lpt_lj_cell_forces(const float* P, const float* cst,
   const float4* B =
       reinterpret_cast<const float4*>(scratch + q_floats(ncells, T));
   const size_t shmem = 2 * (size_t)T * (kTile + kBoxes) * sizeof(float4);
-  if (with_energy)
-    lj_cells_kernel<true><<<Ax * Ay * Az, kThreads, shmem, s>>>(
-        P, Q, B, cst, out, Dy, Dz, C, T, x0, y0, z0, Ay, Az);
-  else
-    lj_cells_kernel<false><<<Ax * Ay * Az, kThreads, shmem, s>>>(
-        P, Q, B, cst, out, Dy, Dz, C, T, x0, y0, z0, Ay, Az);
+  auto* go = with_virial
+                 ? (with_energy ? launch_sweep<true, true>
+                                : launch_sweep<false, true>)
+                 : (with_energy ? launch_sweep<true, false>
+                                : launch_sweep<false, false>);
+  go(P, Q, B, cst, out, vir, Dy, Dz, C, T, x0, y0, z0, Ax, Ay, Az, shmem, s);
   return (int)cudaGetLastError();
 }

@@ -223,15 +223,33 @@ __device__ __forceinline__ float pair_fp(const float* a, const float* b,
   return fp;
 }
 
-// F_own += sum of fp * (x_own - x_other) (and E_own += v) over the slots
-// `others[j]` of the set bits j of m, in ascending j.  Two pairs per step,
-// so that the two bodies' latencies overlap; the sums are taken in the
-// same order as one pair per step.  `a`, `b` are the own slot's rows.
-template <bool kEnergy>
+// vir += fp * d_a d_b of one pair, in vatom order xx yy zz xy xz yz.  The
+// products d_a d_b are __fmul_rn, which the compiler neither merges with
+// the plain products of r^2 and of the force sum nor contracts: a shared
+// product would keep it from fusing those sums into fmas, and the forces
+// would round otherwise with kVirial than without.
+__device__ __forceinline__ void add_virial(float* vir, float fp, float dx,
+                                           float dy, float dz) {
+  vir[0] = fmaf(fp, __fmul_rn(dx, dx), vir[0]);
+  vir[1] = fmaf(fp, __fmul_rn(dy, dy), vir[1]);
+  vir[2] = fmaf(fp, __fmul_rn(dz, dz), vir[2]);
+  vir[3] = fmaf(fp, __fmul_rn(dx, dy), vir[3]);
+  vir[4] = fmaf(fp, __fmul_rn(dx, dz), vir[4]);
+  vir[5] = fmaf(fp, __fmul_rn(dy, dz), vir[5]);
+}
+
+// F_own += sum of fp * (x_own - x_other) (and E_own += v; when kVirial
+// vir[0..5] += fp * d_a d_b in vatom order xx yy zz xy xz yz, d = x_own -
+// x_other) over the slots `others[j]` of the set bits j of m, in ascending
+// j.  Two pairs per step, so that the two bodies' latencies overlap; the
+// sums are taken in the same order as one pair per step.  `a`, `b` are the
+// own slot's rows.
+template <bool kEnergy, bool kVirial = false>
 __device__ __forceinline__ void sum_hits(const float4* others, unsigned m,
                                          float4 q, const float* a,
                                          const float* b, float& fx,
-                                         float& fy, float& fz, float& en) {
+                                         float& fy, float& fz, float& en,
+                                         float* vir = nullptr) {
   while (m) {
     const int j1 = __ffs(m) - 1;
     m &= m - 1;
@@ -250,11 +268,13 @@ __device__ __forceinline__ void sum_hits(const float4* others, unsigned m,
     fy += fp1 * dy1;
     fz += fp1 * dz1;
     if (kEnergy) en += v1;
+    if (kVirial) add_virial(vir, fp1, dx1, dy1, dz1);
     if (two) {
       fx += fp2 * dx2;
       fy += fp2 * dy2;
       fz += fp2 * dz2;
       if (kEnergy) en += v2;
+      if (kVirial) add_virial(vir, fp2, dx2, dy2, dz2);
     }
   }
 }

@@ -3,7 +3,7 @@ __graft_entry__.py): a single-device force pass and a sharded dryrun.
 
 entry(device="cuda", dtype=torch.float32): (fn, args) with fn(*args) one
 energy / force / virial evaluation of REBOMoS on the 288-atom
-in.rebomos-bulk scene, with the synthetic parameters
+in.rebomos-bulk scene and its rebuild lists, with the synthetic parameters
 tests/data/MoS.REBO.synthetic (the published set5b is not in the
 repository).
 
@@ -38,16 +38,18 @@ def _pair(dtype, device):
 
 def entry(device="cuda", dtype=torch.float32):
     """(fn, example_args): fn(x, types, nbr, h) -> (E, F, W) on the
-    288-atom scene and its host-built lists (skin 2.0)."""
+    288-atom scene and the Engine's rebuild lists (skin 2.0), the tables
+    its kernels read: on the card one launch each of the REBO cotangent
+    kernel, the mirror combine and the LJ cell sweep, no autograd."""
     from .api.scenes import rebomos_bulk
-    from .neighbor.build import build_neighbor_data
-    state = rebomos_bulk(dtype=dtype, device=device)
-    pair = _pair(dtype, device)
-    nbr = build_neighbor_data(state.x.detach().cpu().double().numpy(),
-                              state.type.cpu().numpy(), state.box,
-                              pair.neighbor_requests(), skin=2.0,
-                              dtype=dtype, device=device)
-    return pair.energy_force_virial, (state.x, state.type, nbr, state.box.h)
+    from .core import units
+    from .fixes.nve import FixNVE
+    from .run.simulation import Engine
+    eng = Engine(rebomos_bulk(dtype=dtype, device=device),
+                 _pair(dtype, device), [FixNVE()], units.METAL, skin=2.0)
+    eng.rebuild_neighbors()
+    st = eng.state
+    return eng.pair.energy_force_virial, (st.x, st.type, eng.nbr, st.box.h)
 
 
 def dryrun_multichip(n_devices: int, device="cuda",

@@ -44,7 +44,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "lpt_rebo_cotangents": [_P] * 11 + [_I] * 4 + [_P],
     "lpt_mirror_combine": [_P] * 6 + [_I, _I, _P],
-    "lpt_lj_cell_forces": [_P] * 3 + [_I] * 10 + [_P, _P, _I],
+    "lpt_lj_cell_forces": [_P] * 3 + [_I] * 10 + [_P, _P, _I, _I, _P],
     "lpt_select_k": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 5 + [_P],
     "lpt_pin_copy": [_P, _P, _I, _I, _P],
     "lpt_mirror_combine_rows": [_P] * 6 + [_I, _I, _P],

@@ -5,7 +5,10 @@ Input: packed cell planes P [Dx, Dy, Dz, 8, C] (rows x, y, z, element
 code 0 or 1, owned flag; pad slots parked at 1e7; one empty halo ring).
 Output: [Ax, Ay, Az, 8, C] over the a_range cells: rows 0-2 the force on
 each A slot from all 27 neighbour cells, row 3 0.5 * owned * sum_b V when
-with_energy, other rows 0.
+with_energy, other rows 0; with_virial adds a second output [Ax, Ay, Az,
+6, C], each A slot's 0.5 * owned * sum_b fp d_a d_b in LAMMPS's vatom
+order (xx yy zz xy xz yz, potentials/base.py VIRIAL_PAIRS), whose sum over
+the owned atoms is the LJ tier's strain virial.
 
 The kernel (csrc/lj_cells.cu) gives each warp a 32-slot A tile and skips
 every 16-slot group of B slots that no slot of the tile can reach
@@ -112,13 +115,16 @@ def pair_terms(A, B, consts, with_energy=False):
     return d, fp, v
 
 
-def lj_cell_forces_ref(P, consts, a_range, with_energy=False):
+def lj_cell_forces_ref(P, consts, a_range, with_energy=False,
+                       with_virial=False):
     """Twin: the closed-form sweep over the 27 offsets, one [cells, C, C]
     block per offset."""
+    from ..potentials.base import VIRIAL_PAIRS
     (x0, x1), (y0, y1), (z0, z1) = a_range
     A = P[x0:x1, y0:y1, z0:z1]                         # [Ax, Ay, Az, 8, C]
     f = [torch.zeros_like(A[..., 0, :]) for _ in range(3)]
     en = torch.zeros_like(A[..., 0, :])
+    vir = [torch.zeros_like(en) for _ in VIRIAL_PAIRS]
     for ox, oy, oz in itertools.product((-1, 0, 1), repeat=3):
         B = P[x0 + ox:x1 + ox, y0 + oy:y1 + oy, z0 + oz:z1 + oz]
         d, fp, v = pair_terms(A, B, consts, with_energy)
@@ -126,9 +132,15 @@ def lj_cell_forces_ref(P, consts, a_range, with_energy=False):
             f[a] = f[a] + (fp * d[a]).sum(dim=-1)
         if with_energy:
             en = en + v.sum(dim=-1)
+        if with_virial:
+            for c, (a, b) in enumerate(VIRIAL_PAIRS):
+                vir[c] = vir[c] + (fp * d[a] * d[b]).sum(dim=-1)
     erow = 0.5 * A[..., 4, :] * en if with_energy else torch.zeros_like(en)
     zero = torch.zeros_like(en)
-    return torch.stack(f + [erow, zero, zero, zero, zero], dim=-2)
+    out = torch.stack(f + [erow, zero, zero, zero, zero], dim=-2)
+    if not with_virial:
+        return out
+    return out, 0.5 * A[..., 4:5, :] * torch.stack(vir, dim=-2)
 
 
 def tile_planes(P):
@@ -209,12 +221,15 @@ def scratch_floats(shape) -> int:
     return Dx * Dy * Dz * -(-C // TILE) * (TILE + 2 * TILE // GROUP) * 4
 
 
-def lj_cell_forces(P, consts, a_range, with_energy=False):
-    """[Ax, Ay, Az, 8, C] forces (and energy row) from the cell planes.
+def lj_cell_forces(P, consts, a_range, with_energy=False,
+                   with_virial=False):
+    """[Ax, Ay, Az, 8, C] forces (and energy row) from the cell planes;
+    with_virial, (that, the [Ax, Ay, Az, 6, C] virial rows).
     CPU tensors take the twin; CUDA float32 tensors the kernel."""
     global launches
     if not build.use_kernel(P, "lj_cell_forces"):
-        return lj_cell_forces_ref(P, consts, a_range, with_energy)
+        return lj_cell_forces_ref(P, consts, a_range, with_energy,
+                                  with_virial)
     Dx, Dy, Dz, R, C = P.shape
     (x0, x1), (y0, y1), (z0, z1) = a_range
     if R != 8 or C > _MAX_C:
@@ -230,11 +245,14 @@ def lj_cell_forces(P, consts, a_range, with_energy=False):
         tuple(v for n in LJ_NAMES for v in consts[n]), dev)
     Ax, Ay, Az = x1 - x0, y1 - y0, z1 - z0
     out = torch.empty((Ax, Ay, Az, 8, C), dtype=f32, device=dev)
+    vir = (torch.empty((Ax, Ay, Az, 6, C), dtype=f32, device=dev)
+           if with_virial else None)
     scratch = torch.empty(scratch_floats(P.shape), dtype=f32, device=dev)
     status = build.lib().lpt_lj_cell_forces(
         p_ptr, cvec.data_ptr(), out.data_ptr(), Dy, Dz, C, x0, y0, z0,
         Ax, Ay, Az, int(with_energy), build.stream(dev),
-        scratch.data_ptr(), Dx)
+        scratch.data_ptr(), Dx, int(with_virial),
+        None if vir is None else vir.data_ptr())
     build.raise_on_error(status, "lj_cell_forces")
     launches += 1
-    return out
+    return (out, vir) if with_virial else out

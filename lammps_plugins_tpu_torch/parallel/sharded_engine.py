@@ -861,41 +861,31 @@ class ShardedEngine(LoopDriver):
         v = self._split(self.shards.valid)[d]
         return torch.cat([v, v.new_zeros(self.n_loc - self.n_cap)])
 
-    def _shard_energy(self, blocks, d: int, strain):
-        return self._pair_local(self.halo, d).energy(
-            blocks[d], strain, self.halo.t_loc[d], self.nbrs[d],
-            self._h_slab, center_mask=self._owned(d))
-
-    def potential_energy(self) -> float:
-        """The sum of the shards' owned-centre energies (JAX :978-984)."""
+    def _per_shard(self, method: str) -> list:
+        """The style's `method` (energy_value or energy_virial) on each
+        shard's local block with the shard's centre mask, so that each
+        directed edge is counted by the shard that owns its centre.
+        REBOMoS takes E and W from kernels A and C on each shard's rebuild
+        tables, no autograd; the other styles' energy_virial is one
+        autograd pass per shard (the peak memory is one shard's)."""
         if self.nbrs is None:
             self.resettle()
         with torch.no_grad():
             blocks = self._halo_blocks(self.shards.x, self.halo)
-            e = sum(self._shard_energy(blocks, d, None)
-                    for d in range(self.n_devices))
-        return float(e)
+            return [getattr(self._pair_local(self.halo, d), method)(
+                blocks[d], self.halo.t_loc[d], self.nbrs[d], self._h_slab,
+                center_mask=self._owned(d)) for d in range(self.n_devices)]
+
+    def potential_energy(self) -> float:
+        """The sum of the shards' owned-centre energies (JAX :978-984)."""
+        return float(sum(self._per_shard("energy_value")))
 
     def thermo(self) -> dict:
-        """One thermo row (run/thermo.thermo_row of the global State).  The
-        energy and the strain virial are taken shard by shard, each with
-        its own autograd pass, and summed: the peak memory is one
-        shard's."""
-        if self.nbrs is None:
-            self.resettle()
-        ss = self.shards
-        blocks = self._halo_blocks(ss.x.detach(), self.halo)
-        E = ss.x.new_zeros(())
-        W = ss.x.new_zeros((3, 3))
-        for d in range(self.n_devices):
-            with torch.enable_grad():
-                s = torch.zeros((3, 3), dtype=self.dtype, device=ss.x.device,
-                                requires_grad=True)
-                e = self._shard_energy(blocks, d, s)
-                (gs,) = torch.autograd.grad(e, (s,))
-            E = E + e.detach()
-            W = W - gs
-        return thermo_row(self.to_state(), E, W, self.units)
+        """One thermo row (run/thermo.thermo_row of the global State), the
+        energy and the strain virial summed over the shards."""
+        parts = self._per_shard("energy_virial")
+        return thermo_row(self.to_state(), sum(e for e, _ in parts),
+                          sum(w for _, w in parts), self.units)
 
     # -- LoopDriver's hooks -----------------------------------------------------
     def _host_rebuild(self):

@@ -188,14 +188,22 @@ class PairStyle:
             gx, gs = torch.autograd.grad(e, (x_, s))
         return e.detach(), -gx, -gs
 
-    def energy_virial(self, x, types, nbr, h):
-        """(E, W) without forces — for thermo rows."""
+    def energy_virial(self, x, types, nbr, h, center_mask=None):
+        """(E, W) without forces — for thermo rows; center_mask as in
+        energy() (the sharded engine's owned centres of one shard)."""
         with torch.enable_grad():
             s = torch.zeros((3, 3), dtype=x.dtype, device=x.device,
                             requires_grad=True)
-            e = self.energy(x.detach(), s, types, nbr, h)
+            e = self.energy(x.detach(), s, types, nbr, h,
+                            center_mask=center_mask)
             (gs,) = torch.autograd.grad(e, (s,))
         return e.detach(), -gs
+
+    def energy_value(self, x, types, nbr, h, center_mask=None):
+        """E alone, without gradients: the energy's forward pass."""
+        with torch.no_grad():
+            return self.energy(x, None, types, nbr, h,
+                               center_mask=center_mask)
 
     def energy_forces(self, x, types, nbr, h):
         """(E, F) without the virial (FIRE's iteration): the energy's

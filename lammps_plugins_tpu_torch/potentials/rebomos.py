@@ -27,22 +27,25 @@ and LPT_REACT flags) are constructor arguments here:
     Engine builds the tables, and a geometry its gate refuses raises (react_gate=False
     builds them at any size).
 
-Energy and virial (thermo rows) are autograd of `energy`.
+Energy and virial (thermo rows, energy_virial) on the rebuild's lists
+take no autograd: E is the REBO edge energy's forward pass plus the sum of
+kernel C's energy row; W = -dE/dstrain is -Σ_e d_e ⊗ G_e over the live
+REBO slots (kernel A's cotangents; the strain enters as d'_a = d_a +
+Σ_b d_b strain[b, a]) plus the sum of C's virial rows.  On host-built
+lists they are autograd of `energy`, on the CPU only.
 
 Per-atom tallies (compute pe/atom, stress/atom) keep the JAX package's
 half-half split with the directed p_ij.  On the rebuild's lists the
 REBO terms come in the kernels' [K, Np] layout (the cotangents G from
 kernel A) and are tallied through the mirror table (kernel B,
-base.half_half_mirror); the LJ energy is kernel C's energy row, and the
-LJ virial a torch sweep over the 27 cell offsets.  Host-built lists (a
-master list, no mirror table) take the JAX package's [N, K] path with
-the scatter twin, on the CPU only.
+base.half_half_mirror); the LJ energy and virial are kernel C's energy
+and virial rows.  Host-built lists (a master list, no mirror table) take
+the JAX package's [N, K] path with the scatter twin, on the CPU only.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import itertools
 import math
 
 import numpy as np
@@ -53,7 +56,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.device import resolve
 from ..neighbor.build import CellData, NeighborData
 from ..neighbor.neighbor import Ghosts, NeighborList, edge_components
-from ..ops.lj_cells import derive_lj_constants, lj_cell_forces, pair_terms
+from ..ops.lj_cells import derive_lj_constants, lj_cell_forces
 from ..ops.lj_half import lj_cell_forces_half
 from ..ops.mirror import mirror_combine
 from ..ops.mirror_rows import mirror_combine_rows
@@ -277,7 +280,7 @@ class REBOMoS(PairStyle):
         return max(float(np.max(t.rcLJmax)) + skin,
                    2.0 * (float(np.max(t.rcmax)) + skin))
 
-    # -- energy (autograd path: thermo, virial, host-list forces) ---------
+    # -- energy (autograd on host-built lists and in the tests) ------------
     def energy(self, x, strain, types, nbr: NeighborData, h,
                center_mask=None):
         """center_mask: [N] bool of the true owned centres (JAX
@@ -402,11 +405,7 @@ class REBOMoS(PairStyle):
         LJ through the configured cell kernel.  Host-built neighbor data
         (no cells, no mirror tables) falls back to autograd of the energy,
         on CPU tensors only."""
-        if nbr.cells is None or nbr.lists["rebo"].mirT is None:
-            if x.is_cuda:
-                raise RuntimeError("REBOMoS.forces on a CUDA tensor needs "
-                                   "the device rebuild's cell and mirror "
-                                   "tables")
+        if not self._tables_path(nbr):
             return super().forces(x, types, nbr, h)
         el_own = self.el_of_type[types]
         f = self._rebo_forces_mirror(x, el_own, nbr.ghosts,
@@ -418,7 +417,7 @@ class REBOMoS(PairStyle):
         with the LJ forces from one launch of kernel C (its energy row,
         summed) and the REBO energy from the row-local edge terms; on
         host-built lists, the base class's path."""
-        if nbr.cells is None or nbr.lists["rebo"].mirT is None:
+        if not self._tables_path(nbr):
             return super().energy_forces(x, types, nbr, h)
         with torch.no_grad():
             el_own = self.el_of_type[types]
@@ -426,9 +425,76 @@ class REBOMoS(PairStyle):
                                   nbr.lists["rebo"], h)
             f = self._rebo_forces_mirror(x, el_own, nbr.ghosts,
                                          nbr.lists["rebo"], h)
-            f_lj, e_lj = self._lj_cells(x, nbr.ghosts, nbr.cells, h,
-                                        with_energy=True)
+            f_lj, e_lj, _ = self._lj_cells(x, nbr.ghosts, nbr.cells, h,
+                                           with_energy=True)
             return e + e_lj.sum(), f + f_lj
+
+    def energy_virial(self, x, types, nbr: NeighborData, h,
+                      center_mask=None):
+        """(E, W) for a thermo row.  On the rebuild's lists, without
+        autograd: one launch each of kernels A and C (module docstring).
+        center_mask [N] bool (the sharded engine's owned centres) keeps
+        the REBO rows and C's rows of those centres alone, the weighting
+        energy() applies.  On host-built lists, the base class's
+        autograd (CPU tensors only)."""
+        if not self._tables_path(nbr):
+            return super().energy_virial(x, types, nbr, h, center_mask)
+        with torch.no_grad():
+            e, w, _ = self._energy_virial_tables(x, types, nbr, h,
+                                                 center_mask)
+        return e, w
+
+    def energy_value(self, x, types, nbr: NeighborData, h,
+                     center_mask=None):
+        """E alone: energy_virial's E on the rebuild's lists (kernels A
+        and C, no twin), the energy's forward pass on host-built ones."""
+        if not self._tables_path(nbr):
+            return super().energy_value(x, types, nbr, h, center_mask)
+        return self.energy_virial(x, types, nbr, h, center_mask)[0]
+
+    def energy_force_virial(self, x, types, nbr: NeighborData, h):
+        """(E, F, W): on the rebuild's lists the launches of
+        energy_virial, whose cotangents and C sweep also give the forces
+        (through the configured combine; kernel E's sweep with
+        lj="half"); on host-built lists, autograd (CPU tensors only)."""
+        if not self._tables_path(nbr):
+            return super().energy_force_virial(x, types, nbr, h)
+        with torch.no_grad():
+            e, w, f = self._energy_virial_tables(x, types, nbr, h, None,
+                                                 with_forces=True)
+        return e, f, w
+
+    def _energy_virial_tables(self, x, types, nbr: NeighborData, h,
+                              center_mask, with_forces=False):
+        """(E, W [3, 3], F [N, 3] or None) on the rebuild's tables: E and
+        W as energy_virial's, summed in the tensors' dtype."""
+        N = x.shape[0]
+        el_own = self.el_of_type[types]
+        rebo = nbr.lists["rebo"]
+        rebo_own = rebo if center_mask is None else dataclasses.replace(
+            rebo, mask=rebo.mask & center_mask[:, None])
+        e = self._rebo_energy(x, None, el_own, nbr.ghosts, rebo_own, h)
+        planes = self._rebo_planes(x, el_own, nbr.ghosts, rebo, h)
+        if with_forces:
+            f, g = self._rebo_combine(planes, rebo, N)
+        else:
+            f, g = None, rebo_cotangents(*planes, self._rebo_consts)
+        live = planes[4] > 0
+        if center_mask is not None:
+            live = live & torch.cat([center_mask, center_mask.new_zeros(
+                live.shape[1] - N)])[None]
+        w = -torch.stack([torch.stack([
+            torch.where(live, planes[a] * g[b], 0.0).sum()
+            for b in range(3)]) for a in range(3)])
+        f_lj, e_lj, v_lj = self._lj_cells(x, nbr.ghosts, nbr.cells, h,
+                                          with_energy=True, with_virial=True,
+                                          with_forces=with_forces)
+        if center_mask is not None:
+            e_lj = torch.where(center_mask, e_lj, 0.0)
+            v_lj = torch.where(center_mask[:, None], v_lj, 0.0)
+        v6 = v_lj.sum(dim=0)
+        w_lj = torch.stack([v6[[0, 3, 4]], v6[[3, 1, 5]], v6[[4, 5, 2]]])
+        return e + e_lj.sum(), w + w_lj, None if f is None else f + f_lj
 
     def _rebo_planes(self, x, el_own, ghosts, rebo, h):
         """Inputs of the cotangent kernel in the [K, Np] layout: the
@@ -448,9 +514,13 @@ class REBOMoS(PairStyle):
     def _rebo_forces_mirror(self, x, el_own, ghosts, rebo, h):
         """[K, Np]-layout REBO forces: cotangent kernel, then the combine
         (JAX rebomos.py:569-717)."""
-        N = x.shape[0]
         planes = self._rebo_planes(x, el_own, ghosts, rebo, h)
-        mirv = rebo.mirvT.to(x.dtype)
+        return self._rebo_combine(planes, rebo, x.shape[0])[0]
+
+    def _rebo_combine(self, planes, rebo, N):
+        """(F [N, 3], (gx, gy, gz)): the cotangent kernel on `planes`,
+        then the configured combine."""
+        mirv = rebo.mirvT.to(planes[0].dtype)
         if self.combine == "rows":
             gx, gy, gz, g4 = rebo_cotangents(*planes, self._rebo_consts,
                                              emit_rows=True)
@@ -465,14 +535,15 @@ class REBOMoS(PairStyle):
                     .view(torch.float32)
             else:
                 gmir4 = rows[idx]
-            return mirror_combine_rows(gx, gy, gz, gmir4.reshape(K, Np, 4),
-                                       mirv)[:N]
-        gx, gy, gz = rebo_cotangents(*planes, self._rebo_consts)
+            f = mirror_combine_rows(gx, gy, gz, gmir4.reshape(K, Np, 4),
+                                    mirv)
+            return f[:N], (gx, gy, gz)
+        g = gx, gy, gz = rebo_cotangents(*planes, self._rebo_consts)
         if self.combine == "react":
             if rebo.rtgt is None:
                 raise RuntimeError("combine='react' needs the rebuild's "
                                    "route tables (Engine builds them)")
-            return react_combine(gx, gy, gz, rebo.rtgt)[:N]
+            return react_combine(gx, gy, gz, rebo.rtgt)[:N], g
         if self.combine in ("pin", "pin2"):
             K, Np = gx.shape
             pin = pin_rows3 if self.combine == "pin" else pin_rows3_v2
@@ -481,8 +552,8 @@ class REBOMoS(PairStyle):
                 * mirv[..., None]
             f = torch.stack([gx.sum(dim=0), gy.sum(dim=0), gz.sum(dim=0)],
                             dim=-1) - gmir.sum(dim=0)
-            return f[:N]
-        return mirror_combine(gx, gy, gz, rebo.mirT, mirv)[:N]
+            return f[:N], g
+        return mirror_combine(gx, gy, gz, rebo.mirT, mirv)[:N], g
 
     def _cell_planes(self, x, ghosts, cells: CellData, h):
         """Packed [Dx, Dy, Dz, 8, C] planes for the LJ cell kernel: rows
@@ -504,23 +575,33 @@ class REBOMoS(PairStyle):
         """Cell-kernel LJ forces remapped to atoms by the aslot gather."""
         return self._lj_cells(x, ghosts, cells, h)[0]
 
-    def _lj_cells(self, x, ghosts, cells: CellData, h, with_energy=False):
-        """(forces [N, 3], per-atom energy [N] or None): the cell kernel's
-        outputs remapped to atoms by the aslot gather.  The energy is
-        kernel C's energy row (half of each pair's V to each endpoint);
-        with lj="half" the forces come from kernel E and the energy from
-        C."""
+    def _lj_cells(self, x, ghosts, cells: CellData, h, with_energy=False,
+                  with_virial=False, with_forces=True):
+        """(forces [N, 3], per-atom energy [N], per-atom virial [N, 6];
+        each None unless asked for): the cell kernel's outputs remapped to
+        atoms by the aslot gather.  The energy and virial are kernel C's
+        rows (half of each pair's V and fp d ⊗ d to each endpoint); with
+        lj="half" the forces come from kernel E, the energy and virial
+        from C."""
         P = self._cell_planes(x, ghosts, cells, h)
-        out = (lj_cell_forces(P, self._lj_consts, cells.a_range,
-                              with_energy=with_energy)
-               if self.lj != "half" or with_energy else None)
-        if self.lj == "half":
-            F3 = lj_cell_forces_half(P, self._lj_consts, cells.a_range)
-        else:
-            F3 = out[..., 0:3, :].permute(0, 1, 2, 4, 3)
+        out = vir = f = None
+        if self.lj != "half" or with_energy or with_virial:
+            out = lj_cell_forces(P, self._lj_consts, cells.a_range,
+                                 with_energy=with_energy,
+                                 with_virial=with_virial)
+            if with_virial:
+                out, vir = out
+        if with_forces:
+            if self.lj == "half":
+                F3 = lj_cell_forces_half(P, self._lj_consts, cells.a_range)
+            else:
+                F3 = out[..., 0:3, :].permute(0, 1, 2, 4, 3)
+            f = F3.reshape(-1, 3)[cells.aslot]
         e = (out[..., 3, :].reshape(-1)[cells.aslot] if with_energy
              else None)
-        return F3.reshape(-1, 3)[cells.aslot], e
+        v = (vir.transpose(-1, -2).reshape(-1, 6)[cells.aslot]
+             if with_virial else None)
+        return f, e, v
 
     # -- per-atom tallies (compute pe/atom, stress/atom) --------------------
     def _tables_path(self, nbr: NeighborData) -> bool:
@@ -529,9 +610,8 @@ class REBOMoS(PairStyle):
         if nbr.cells is not None and nbr.lists["rebo"].mirT is not None:
             return True
         if nbr.x_build.is_cuda:
-            raise RuntimeError("REBOMoS per-atom tallies on the card need "
-                               "the device rebuild's cell and mirror "
-                               "tables")
+            raise RuntimeError("REBOMoS on a CUDA tensor needs the device "
+                               "rebuild's cell and mirror tables")
         return False
 
     def energy_peratom(self, x, types, nbr: NeighborData, h):
@@ -551,7 +631,8 @@ class REBOMoS(PairStyle):
             eat = half_half_mirror([e.t().contiguous()], rebo.mirT,
                                    rebo.mirvT.to(x.dtype), N)[:, 0]
             return eat + self._lj_cells(x, nbr.ghosts, nbr.cells, h,
-                                        with_energy=True)[1]
+                                        with_energy=True,
+                                        with_forces=False)[1]
         dx, dy, dz, _, mask = edge_components(x, nbr.ghosts, rebo, h)
         e = 0.5 * rebo_edge_energy(dx, dy, dz, mask, el_own.to(x.dtype),
                                    self.el_of_type[rebo.jtype].to(x.dtype),
@@ -567,8 +648,8 @@ class REBOMoS(PairStyle):
     def virial_peratom(self, x, types, nbr: NeighborData, h):
         """[N, 6] vatom: the REBO tier through the edge cotangents G
         (v_e = -(d_e ⊗ G_e), tallied half-half), the LJ tier per pair
-        (w fpair d ⊗ d, half to each endpoint).  Sums to energy_virial()'s
-        W (JAX rebomos.py:1022)."""
+        (fpair d ⊗ d, half to each endpoint: kernel C's virial rows).
+        Sums to energy_virial()'s W (JAX rebomos.py:1022)."""
         N = x.shape[0]
         el_own = self.el_of_type[types]
         rebo = nbr.lists["rebo"]
@@ -579,7 +660,9 @@ class REBOMoS(PairStyle):
             v = [torch.where(live, -(planes[a] * g[b]), 0.0)
                  for a, b in VIRIAL_PAIRS]
             vat = half_half_mirror(v, rebo.mirT, rebo.mirvT.to(x.dtype), N)
-            return vat + self._lj_virial_cells(x, nbr.ghosts, nbr.cells, h)
+            return vat + self._lj_cells(x, nbr.ghosts, nbr.cells, h,
+                                        with_virial=True,
+                                        with_forces=False)[2]
         el_nbr = self.el_of_type[rebo.jtype]
         vat = self._list_virial(
             x, nbr, rebo, h,
@@ -605,21 +688,3 @@ class REBOMoS(PairStyle):
             g = torch.autograd.grad(energy_of_d(*d, mask), d)
         return edge_virial_peratom((dx, dy, dz), g, nlist, nbr.ghosts,
                                    x.shape[0])
-
-    def _lj_virial_cells(self, x, ghosts, cells: CellData, h):
-        """[N, 6] per-atom LJ virial over the cell grid: for each owned
-        atom a, 1/2 Σ_b fpair(a, b) d_ab ⊗ d_ab over the 27 neighbour
-        cells (kernel C's twin pair terms, pads and self pairs outside
-        the window), read at aslot.  Torch ops, one [cells, C, C] block
-        per offset; JAX rebomos.py:1068 tallies the same per pair."""
-        P = self._cell_planes(x, ghosts, cells, h)
-        (x0, x1), (y0, y1), (z0, z1) = cells.a_range
-        A = P[x0:x1, y0:y1, z0:z1]
-        acc = [torch.zeros_like(A[..., 0, :]) for _ in VIRIAL_PAIRS]
-        for ox, oy, oz in itertools.product((-1, 0, 1), repeat=3):
-            B = P[x0 + ox:x1 + ox, y0 + oy:y1 + oy, z0 + oz:z1 + oz]
-            d, fp, _ = pair_terms(A, B, self._lj_consts)
-            for c, (a, b) in enumerate(VIRIAL_PAIRS):
-                acc[c] = acc[c] + (fp * d[a] * d[b]).sum(dim=-1)
-        vat = 0.5 * torch.stack(acc, dim=-1)              # [Ax, Ay, Az, C, 6]
-        return vat.reshape(-1, 6)[cells.aslot]

@@ -73,6 +73,16 @@ equals its eager loop bit for bit and its noise on the card the CPU draw;
 a ramped fix nvt over two runs (the window re-anchored by each) captures
 anew and equals the eager loop bit for bit.
 
+The thermo row without autograd: REBOMoS.energy_virial on the card
+launches A and C once each under no_grad and reaches no twin and no
+torch.autograd.grad (lj="full" and "half"), within 2e-5 (pe) and 5e-4 x
+max|W| of the f64 CPU autograd; energy_force_virial adds only the
+combine; host-built lists raise; the sharded thermo and potential_energy
+launch A and C once a shard.  Kernel C's virial rows (with_virial) within
+2e-4 of their scale of the twin on every LJ sweep case, reruns
+bit-identical, the forces and energy row with the flag on equal to those
+without it.
+
 The sharded engine with its shards stacked on the card (864 atoms in four
 x-slabs, 1,296 in a 2x2 grid): the captured iteration (every shard's
 resettle under the conditional node, then the segment) equals the eager
@@ -313,7 +323,31 @@ def _lj_sweeps_match_twins(P, consts, a_range):
                                                    with_energy=True))
     assert torch.equal(fk, lj_cells.lj_cell_forces(P, consts, a_range))
     assert torch.equal(hk, lj_half.lj_cell_forces_half(P, consts, a_range))
+    _lj_virial_rows_match_twin(P, consts, a_range, ok, fk)
     return ok, hk
+
+
+def _lj_virial_rows_match_twin(P, consts, a_range, ok, fk):
+    """C with with_virial: the six rows against the twin's at 2e-4 x their
+    scale per slot, reruns bit-identical, and the forces and energy row
+    with the flag on equal to those with it off, bit for bit."""
+    before = lj_cells.launches
+    ov, vk = lj_cells.lj_cell_forces(P, consts, a_range, with_energy=True,
+                                     with_virial=True)
+    fv, vk2 = lj_cells.lj_cell_forces(P, consts, a_range, with_virial=True)
+    torch.cuda.synchronize()
+    assert lj_cells.launches == before + 2
+    _, vt = lj_cells.lj_cell_forces_ref(P, consts, a_range,
+                                        with_virial=True)
+    assert vk.shape == vt.shape == ok.shape[:3] + (6, ok.shape[-1])
+    vscale = float(vt.abs().max())
+    assert vscale > 1e-4
+    assert float((vk - vt).abs().max()) <= 2e-4 * vscale
+    assert torch.equal(ov, ok) and torch.equal(fv, fk)
+    assert torch.equal(vk, vk2)
+    again = lj_cells.lj_cell_forces(P, consts, a_range, with_energy=True,
+                                    with_virial=True)
+    assert torch.equal(again[0], ov) and torch.equal(again[1], vk)
 
 
 @pytest.mark.parametrize("C", [8, 33, 104, 200])
@@ -1356,6 +1390,136 @@ def test_peratom_on_card_matches_cpu_twin(cuda):
     assert np.abs(e32 - e64).max() <= 1e-4 * np.abs(e64).max()
     assert np.abs(v32 - v64).max() <= 5e-4 * np.abs(v64).max()
     assert abs(e32.sum() - pe64) <= 1e-5 * abs(pe64)
+
+
+def _thermo_engine(dev):
+    """The jiggled, sorted 2,304-atom scene on the card after a device
+    rebuild (float32)."""
+    st = rebomos_bulk_commensurate(12, 16, 2, dtype=torch.float32,
+                                   device=dev, sort=True)
+    rng = np.random.default_rng(6)
+    x = st.x.cpu().numpy() + rng.uniform(-0.08, 0.08, st.x.shape)
+    st = st.replace(x=torch.as_tensor(x, dtype=torch.float32, device=dev))
+    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float32,
+                             device=dev)
+    eng = Engine(st, pair, [FixNVE()], units.METAL)
+    eng.rebuild_neighbors()
+    return eng
+
+
+def _refuse_plain_paths(monkeypatch):
+    """Every twin and autograd entry that a kernel path must not reach
+    raises; returns a list that records torch.is_grad_enabled() at each
+    launch of A and C."""
+    from lammps_plugins_tpu_torch.potentials import rebomos as rb
+
+    def refuse(*_, **__):
+        raise AssertionError("a plain path ran on the card")
+
+    for mod, name in ((rebo, "rebo_cotangents_ref"),
+                      (lj_cells, "lj_cell_forces_ref"),
+                      (lj_cells, "pair_terms"), (torch.autograd, "grad")):
+        monkeypatch.setattr(mod, name, refuse)
+    monkeypatch.setattr(REBOMoS, "_lj_energy_cells", refuse)
+    grad_on = []
+    for name in ("rebo_cotangents", "lj_cell_forces"):
+        real = getattr(rb, name)
+
+        def spy(*a, _real=real, **k):
+            grad_on.append(torch.is_grad_enabled())
+            return _real(*a, **k)
+        monkeypatch.setattr(rb, name, spy)
+    return grad_on
+
+
+@pytest.mark.parametrize("lj", ["full", "half"])
+def test_thermo_row_on_card_launches_a_and_c(cuda, monkeypatch, lj):
+    """REBOMoS.energy_virial on a CUDA state: one launch each of A and C
+    (no E, no B), under no_grad, no twin and no autograd; (E, W) against
+    the float64 CPU autograd on the same lists: pe 2e-5 relative, W 5e-4
+    x max|W|.  energy_force_virial adds only the combine (B) and, with
+    lj="half", kernel E; stress/atom's LJ tier is C's virial rows."""
+    from lammps_plugins_tpu_torch.potentials.base import PairStyle
+    eng = _thermo_engine(cuda)
+    s, nbr = eng.state, eng.nbr
+    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float32,
+                             device=cuda, lj=lj)
+    pair64 = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float64,
+                               device="cpu")
+    s64 = dataclasses.replace(s, x=s.x.cpu().double(), type=s.type.cpu(),
+                              box=s.box.to("cpu", torch.float64))
+    e64, w64 = PairStyle.energy_virial(pair64, s64.x, s64.type,
+                                       _to_cpu64(nbr), s64.box.h)
+    grad_on = _refuse_plain_paths(monkeypatch)
+    mods = (rebo, lj_cells, mirror, lj_half)
+    before = [m.launches for m in mods]
+    e, w = pair.energy_virial(s.x, s.type, nbr, s.box.h)
+    torch.cuda.synchronize()
+    assert [m.launches - b for m, b in zip(mods, before)] == [1, 1, 0, 0]
+    assert grad_on == [False, False] and not e.requires_grad
+    w64 = w64.numpy()
+    assert abs(float(e) - float(e64)) <= 2e-5 * abs(float(e64))
+    assert np.abs(w.double().cpu().numpy() - w64).max() \
+        <= 5e-4 * np.abs(w64).max()
+    e2, w2 = pair.energy_virial(s.x, s.type, nbr, s.box.h)
+    assert torch.equal(e, e2) and torch.equal(w, w2)
+    before = [m.launches for m in mods]
+    ef, f, wf = pair.energy_force_virial(s.x, s.type, nbr, s.box.h)
+    torch.cuda.synchronize()
+    assert [m.launches - b for m, b in zip(mods, before)] == \
+        [1, 1, 1, int(lj == "half")]
+    assert torch.equal(ef, e) and torch.equal(wf, w)
+    assert torch.equal(f, pair.forces(s.x, s.type, nbr, s.box.h))
+    before = lj_cells.launches
+    v = pair.virial_peratom(s.x, s.type, nbr, s.box.h)
+    torch.cuda.synchronize()
+    assert lj_cells.launches == before + 1
+    assert np.abs(v.double().sum(0).cpu().numpy()
+                  - w64[[0, 1, 2, 0, 0, 1], [0, 1, 2, 1, 2, 2]]).max() \
+        <= 5e-4 * np.abs(w64).max()
+
+
+def test_thermo_row_on_host_built_lists_is_refused(cuda):
+    """energy_virial, energy_force_virial and energy_value raise on a
+    CUDA state with host-built lists (no cells, no mirror tables)."""
+    pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float32,
+                             device=cuda)
+    st = rebomos_bulk(dtype=torch.float32, device=cuda)
+    xw, _ = st.box.wrap_np(st.x.double().cpu().numpy())
+    host = build_neighbor_data(xw, st.type.cpu().numpy(), st.box,
+                               pair.neighbor_requests(), skin=1.0,
+                               dtype=torch.float32, device=cuda)
+    for call in (pair.energy_virial, pair.energy_force_virial,
+                 pair.energy_value):
+        with pytest.raises(RuntimeError):
+            call(st.x, st.type, host, st.box.h)
+
+
+def test_sharded_thermo_on_card_launches_a_and_c(cuda, monkeypatch):
+    """ShardedEngine.thermo and potential_energy: A and C once a shard, no
+    twin, no autograd; the row against the single Engine's (pe 2e-5
+    relative, pressure 5e-4 of the pressure tensor's scale)."""
+    se = _sharded(cuda, None, jiggle=0.05)
+    single = Engine(se.to_state(), REBOMoS.from_file(
+        SYNTH_REBO, ["M", "S"], dtype=torch.float32, device=cuda),
+        [FixNVE()], units.METAL, skin=se.skin)
+    single.rebuild_neighbors()
+    ref = single._thermo(single.state)
+    grad_on = _refuse_plain_paths(monkeypatch)
+    before = (rebo.launches, lj_cells.launches)
+    row = se.thermo()
+    pe = se.potential_energy()
+    torch.cuda.synchronize()
+    n = se.n_devices
+    assert (rebo.launches - before[0], lj_cells.launches - before[1]) == \
+        (2 * n, 2 * n)
+    assert not any(grad_on)
+    assert abs(row["pe"] - ref["pe"]) <= 2e-5 * abs(ref["pe"])
+    assert abs(pe - row["pe"]) <= 1e-6 * abs(row["pe"])
+    scale = max(abs(ref[k]) for k in ("pxx", "pyy", "pzz", "pxy", "pxz",
+                                      "pyz"))
+    for k in ("press", "pxx", "pyy", "pzz", "pxy", "pxz", "pyz"):
+        assert abs(row[k] - ref[k]) <= 5e-4 * scale, k
 
 
 def _card_script(text, fused=None):
