@@ -183,7 +183,26 @@ Phases (any failure raises, so the script exits non-zero):
      Script(n_devices=4, devices=[card] * 4) for 200 steps, its thermo
      rows against the single-device Script's (SHARD_ROW_BARS); (e) the
      entry checks of lammps_plugins_tpu_torch/entry.py with their
-     defaults (the card, float32): entry() and dryrun_multichip(4)
+     defaults (the card, float32): entry() and dryrun_multichip(4); (f)
+     the per-device placement (parallel/per_device.py), a stream a shard
+     on the card: a child process asks the card whether one shard's
+     capture may wait on another's event (the design question of its
+     graphs); config 5 per device (100 steps through the captured pieces,
+     pe/atom, drift, atom-steps/s beside (c)'s, the peak; a config that
+     does not fit is reported with the memory it reached and a shorter
+     one run); the bench scene's two layouts per device for 300 steps
+     with resettles: the state, halo tables and thermo rows equal to the
+     stacked layout's and to the placement's own eager run bit for bit,
+     A, B, C and D' launched by every shard, atom-steps/s in turns with
+     the stacked layout, host launch calls, graph launches and device ms
+     a step from profiled runs of both; config 2 per device against the
+     stacked layout (the trajectory bit for bit, fsum within FSUM_BAR,
+     rows within MELT_ROW_BARS, graph = eager, D' on every shard); the
+     [card, cpu] pair of two x-slabs (the 864-atom scene in f32, step-0
+     pe and forces against the stacked layout on the card at
+     SHARD_PE_BAR, SHARD_F_BAR, then eager steps); with several cards
+     the bench scene over min(count, 4) of them, else one line saying
+     that it did not run
 
   11. lists past the card's former size limits (`WIDE {json}`): (a) the
      wide-cut melt, config 2's 65,536-ion deck with lj/cut/coul/cut 6 12
@@ -3113,7 +3132,7 @@ def phase9_script(dev, modules):
     return record, launches
 
 
-# -- phase 10: the sharded engine, every shard on the one card -------------
+# -- phase 10: the sharded engine on the card ------------------------------
 
 #: the bench scene's two layouts of four shards: the reference's own 2x2x1
 #: processor grid (log.rebomos-bulk.4:22) and four x-slabs
@@ -3146,28 +3165,31 @@ PE_ATOM_BAR = 1e-5
 SCRIPT_SHARD_STEPS = 200
 
 
-def shard_engine(dev, state, pair, fixes, grid, fused=None, **kw):
-    """A ShardedEngine with every shard on `dev`; fused as in
-    aeam_engine."""
+def shard_engine(dev, state, pair, fixes, grid, fused=None, devices=None,
+                 **kw):
+    """A ShardedEngine with every shard on `dev` (or on `devices`, one a
+    shard; placement= passes through); fused as in aeam_engine."""
     from lammps_plugins_tpu_torch.core import units
     from lammps_plugins_tpu_torch.parallel import ShardedEngine
     se = ShardedEngine(state, pair, fixes, units.METAL,
-                       devices=[dev] * (grid[0] * grid[1]), grid=grid, **kw)
+                       devices=devices or [dev] * (grid[0] * grid[1]),
+                       grid=grid, **kw)
     se.fused_loop = fused
     return se
 
 
-def shard_bench(dev, grid, fused=None, jiggle=0.0):
+def shard_bench(dev, grid, fused=None, jiggle=0.0, **kw):
     """The bench scene (phase 3's state and pair) in `grid` (grid None:
     phase 3's Engine); jiggle moves every atom by uniform(-jiggle, jiggle)
     A (numpy seed 7), off the lattice sites where the forces are rounding
-    noise."""
+    noise; kw (devices, placement) to shard_engine."""
     from lammps_plugins_tpu_torch.fixes.nve import FixNVE
     eng = bench_engine(dev, jiggle=jiggle)
     if grid is None:
         return eng
     return shard_engine(dev, eng.state, eng.pair, [FixNVE()], grid, fused,
-                        check_every=BENCH["check_every"], skin=BENCH["skin"])
+                        check_every=BENCH["check_every"], skin=BENCH["skin"],
+                        **kw)
 
 
 def shard_view(se, d=0):
@@ -3277,10 +3299,10 @@ def windows_in_turns(engines, steps=SHARD_TIMED_STEPS, reps=TIMED_REPS):
             eng = engines[name]
             natoms = eng.natoms if hasattr(eng, "natoms") \
                 else eng.state.natoms
-            torch.cuda.synchronize()
+            sync_all()
             t0 = time.perf_counter()
             eng.run(steps)
-            torch.cuda.synchronize()
+            sync_all()
             out[name].append(natoms * steps / (time.perf_counter() - t0))
     return out
 
@@ -3494,26 +3516,33 @@ def sharded_melt(dev, modules):
                 launches=launches["select_candidates"])
 
 
-def sharded_scale(dev, modules, gpu, pe_atom_bench):
-    """(c) config 5: 7,999,488 atoms in eight x-slabs on the one card."""
+def scale_engine(dev, nx=SCALE_8M["nx"], **kw):
+    """Config 5's ShardedEngine (SCALE_8M; nx may shorten the slabs), kw
+    (devices, placement, fused) to shard_engine."""
     from lammps_plugins_tpu_torch.api.scenes import rebomos_bulk_commensurate
     from lammps_plugins_tpu_torch.core import units
     from lammps_plugins_tpu_torch.fixes.nve import FixNVE
     from lammps_plugins_tpu_torch.fixes.velocity import velocity_create
     from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
     c = SCALE_8M
-    free_card("phase 10 (c)")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    state = rebomos_bulk_commensurate(c["nx"], c["ny"], c["nz"],
+    state = rebomos_bulk_commensurate(nx, c["ny"], c["nz"],
                                       dtype=torch.float32, device=dev)
     state = velocity_create(state, units.METAL, BENCH["temp"], BENCH["seed"])
     pair = REBOMoS.from_file(REBO_FILE, ["M", "S"], dtype=torch.float32,
                              device=dev)
-    se = shard_engine(dev, state, pair, [FixNVE()], (c["shards"], 1),
-                      check_every=BENCH["check_every"], skin=c["skin"])
+    return shard_engine(dev, state, pair, [FixNVE()], (c["shards"], 1),
+                        check_every=BENCH["check_every"], skin=c["skin"],
+                        **kw)
+
+
+def sharded_scale(dev, modules, gpu, pe_atom_bench):
+    """(c) config 5: 7,999,488 atoms in eight x-slabs on the one card."""
+    c = SCALE_8M
+    free_card("phase 10 (c)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    se = scale_engine(dev)
     natoms = se.natoms
-    del state
     setup_s = time.perf_counter() - t0
     pe_atom = se.potential_energy() / natoms
     pe_err = abs(pe_atom - pe_atom_bench) / abs(pe_atom_bench)
@@ -3638,10 +3667,407 @@ def entry_checks():
     return out
 
 
+# -- phase 10 (f): the per-device placement ---------------------------------
+
+#: the [card, cpu] check: the 864-atom scene of tests/test_torch_sharded_rebo
+#: (four x-slabs there; two here, one a device) in f32, at step 0 against
+#: the stacked layout on the card (SHARD_PE_BAR, SHARD_F_BAR), then a few
+#: eager steps across the two devices, finite
+MIXED = dict(nx=12, ny=8, nz=1, temp=600.0, seed=3, skin=0.5, steps=20)
+
+
+def sync_all():
+    """Wait for every card (the per-device placement's streams)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def reset_peaks():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+
+
+def peaks_gib():
+    """Each card's peak allocated GiB since reset_peaks()."""
+    return [torch.cuda.max_memory_allocated(i) / 2 ** 30
+            for i in range(torch.cuda.device_count())]
+
+
+def per_device_launches(se, label):
+    """[{kernel: launches}] of each shard since reset_shard_launches; every
+    CUDA shard must have launched A, B, C and D' itself."""
+    out = []
+    for d, (dev, c) in enumerate(zip(se.group.devices, se.shard_launches())):
+        missing = [m for m in MAIN_PATH if c[m] <= 0]
+        if dev.type == "cuda" and missing:
+            raise AssertionError(f"{label}: shard {d} on {dev} launched no "
+                                 f"{missing}")
+        out.append({KERNEL_NAMES[m]: c[m] for m in MAIN_PATH})
+    return out
+
+
+def card_devices(n):
+    """n shard devices over min(device count, 4) distinct cards (one
+    stream a shard)."""
+    k = min(torch.cuda.device_count(), 4)
+    return [torch.device("cuda", i % k) for i in range(n)]
+
+
+def per_device_bench(dev, modules, gpu, devices_of):
+    """The bench scene per device in both layouts (devices_of(n): the
+    shards' devices): per-device graph = per-device eager = stacked on
+    `dev` bit for bit after SHARD_RUN_STEPS steps with resettles; A, B, C
+    and D' launched on every shard; atom-steps/s in turns with the stacked
+    layout; host launch calls a step; peak GiB."""
+    out = {}
+    for label, grid in SHARD_LAYOUTS:
+        n = grid[0] * grid[1]
+        devices = devices_of(n)
+        free_card(f"phase 10 (f) {label}")
+        stacked = shard_bench(dev, grid)
+        srows = stacked.run(SHARD_RUN_STEPS, thermo_every=SHARD_THERMO_EVERY)
+        sync_all()
+        reset_peaks()
+        se = shard_bench(dev, grid, devices=devices, placement="per_device")
+        se._setup_forces()
+        owner0 = shard_of_tag(se)
+        for m in modules.values():
+            m.launches = 0
+        se.reset_shard_launches()
+        t0 = time.perf_counter()
+        rows = se.run(SHARD_RUN_STEPS, thermo_every=SHARD_THERMO_EVERY)
+        sync_all()
+        wall = time.perf_counter() - t0
+        launches = {name: m.launches for name, m in modules.items()}
+        per_shard = per_device_launches(se, f"per-device {label}")
+        peak = peaks_gib()
+        if se._prog is None:
+            raise AssertionError(f"per-device {label} did not run through "
+                                 "its captured program")
+        check_launches(f"per-device {label}", launches, MAIN_PATH)
+        moved = int((shard_of_tag(se) != owner0).sum())
+        eager = shard_bench(dev, grid, fused=False, devices=devices,
+                            placement="per_device")
+        erows = eager.run(SHARD_RUN_STEPS, thermo_every=SHARD_THERMO_EVERY)
+        same_eager = shard_state_equal(se, eager)
+        same_stacked = shard_state_equal(se, stacked)
+        rows_equal = rows == srows and erows == srows
+        print(f"per-device {label} on {[str(d) for d in devices]}: "
+              f"{SHARD_RUN_STEPS} steps in {wall:.2f} s (the first resettle, "
+              f"the warm-up, the capture and thermo rows included), "
+              f"resettles {se.resettles}, regrows {se.regrows}, atoms that "
+              f"changed shard {moved}, launches {launches}, per shard "
+              f"{per_shard}; graph vs eager bit-identical {same_eager}; "
+              f"vs stacked {same_stacked}; thermo rows equal {rows_equal}; "
+              f"peak GiB by card {peak} (the stacked engine's included); "
+              f"a segment replays "
+              f"{se._prog.graph_launches()} graph launches and "
+              f"{len(se._prog.collectives)} collectives")
+        if not (all(same_eager.values()) and all(same_stacked.values())
+                and rows_equal):
+            raise AssertionError(f"per-device {label}: the graph run, the "
+                                 "eager run and the stacked run differ")
+        if moved <= 0:
+            raise AssertionError(f"per-device {label}: no atom changed shard")
+        del eager
+        free_card(f"phase 10 (f) {label} timing")
+        rates = windows_in_turns({"per_device": se, "stacked": stacked})
+        prof = profile_run(se, SHARD_PROFILE_STEPS)
+        sprof = profile_run(stacked, SHARD_PROFILE_STEPS)
+        med = {k: statistics.median(v) for k, v in rates.items()}
+        print(f"per-device {label} on {gpu}: atom-steps/s "
+              f"{rates['per_device']} (median {med['per_device']:.6g}) "
+              f"against the stacked layout's {rates['stacked']} (median "
+              f"{med['stacked']:.6g}) in turns; host launch calls a step "
+              f"{prof['host_launch_calls_per_step']:.3f} (stacked "
+              f"{sprof['host_launch_calls_per_step']:.3f}), graph launches "
+              f"a step {prof['graph_launches_per_step']:.3f}, device ms a "
+              f"step {prof['device_ms_per_step']:.4f} (stacked "
+              f"{sprof['device_ms_per_step']:.4f}), host syncs per 1,000 "
+              f"steps {prof['syncs_per_1000_steps']:.1f}")
+        out[label] = dict(
+            grid=list(grid), devices=[str(d) for d in devices],
+            natoms=se.natoms, resettles=se.resettles, regrows=se.regrows,
+            atoms_changed_shard=moved, graph_equals_eager=True,
+            equals_stacked=True, launches={KERNEL_NAMES[m]: launches[m]
+                                           for m in MAIN_PATH},
+            launches_per_shard=per_shard, peak_gib_by_card=peak,
+            first_run_s=wall,
+            atom_steps_per_s=rates["per_device"],
+            stacked_atom_steps_per_s=rates["stacked"],
+            host_launch_calls_per_step=prof["host_launch_calls_per_step"],
+            stacked_host_launch_calls_per_step=sprof[
+                "host_launch_calls_per_step"],
+            graph_launches_per_step=prof["graph_launches_per_step"],
+            device_ms_per_step=prof["device_ms_per_step"],
+            stacked_device_ms_per_step=sprof["device_ms_per_step"],
+            syncs_per_1000_steps=prof["syncs_per_1000_steps"],
+            segment_graph_launches=se._prog.graph_launches(),
+            segment_collectives=len(se._prog.collectives))
+        se.close()
+        del se, stacked
+        free_card(f"phase 10 (f) {label} done")
+    return out
+
+
+def per_device_melt(dev, modules):
+    """Config 2 in four x-slabs per device on the card against the stacked
+    layout: the trajectory bit for bit, fix bfield's fsum (a psum, in
+    another order) within FSUM_BAR, thermo rows within MELT_ROW_BARS,
+    graph = eager bit for bit, D' launched on every shard."""
+    from lammps_plugins_tpu_torch.api.scenes import charged_melt
+
+    def engine(**kw):
+        d = charged_melt(DECKS["melt"], bz=MELT_BZ, dtype=torch.float32,
+                         device=dev)
+        return shard_engine(dev, d.state, d.pair, d.fixes, (4, 1),
+                            skin=d.skin, **kw)
+
+    free_card("phase 10 (f) config 2")
+    stacked = engine()
+    srows = stacked.run(MELT_SHARD_STEPS, thermo_every=MELT_SHARD_EVERY)
+    se = engine(placement="per_device")
+    for m in modules.values():
+        m.launches = 0
+    se.reset_shard_launches()
+    rows = se.run(MELT_SHARD_STEPS, thermo_every=MELT_SHARD_EVERY)
+    launches = {name: m.launches for name, m in modules.items()}
+    if se._prog is None:
+        raise AssertionError("per-device melt did not run its program")
+    check_launches("per-device melt", launches, ("select_candidates",))
+    per_shard = [c["select_candidates"] for c in se.shard_launches()]
+    if min(per_shard) <= 0:
+        raise AssertionError(f"per-device melt: D' per shard {per_shard}")
+    key = se.fixes[0].key
+    fsum = se.fix_view_state().extras[key]["fsum"].cpu()
+    fsum_s = stacked.fix_view_state().extras[key]["fsum"].cpu()
+    fsum_err = float((fsum - fsum_s).abs().max() / fsum_s.abs().max())
+    gap = rows_gap(rows, srows)
+    eager = engine(placement="per_device", fused=False)
+    eager.run(MELT_SHARD_STEPS, thermo_every=MELT_SHARD_EVERY)
+    same_eager = shard_state_equal(se, eager)
+    same_stacked = {k: v for k, v in shard_state_equal(se, stacked).items()
+                    if not k.endswith(":fsum")}
+    print(f"per-device melt ({se.natoms} ions, 4 x-slabs): fsum "
+          f"{fsum.tolist()} vs stacked {fsum_s.tolist()} (max gap over max "
+          f"|fsum| {fsum_err:.3e}, bar {FSUM_BAR}); rows against the stacked "
+          f"run {gap} (bars {MELT_ROW_BARS}); graph vs eager bit-identical "
+          f"{same_eager}; vs stacked (fsum aside) {same_stacked}; D' per "
+          f"shard {per_shard}")
+    if not (fsum_err <= FSUM_BAR
+            and all(gap[k] <= MELT_ROW_BARS[k] for k in gap)
+            and all(same_eager.values()) and all(same_stacked.values())):
+        raise AssertionError("per-device melt differs from the stacked run "
+                             "or from its eager run")
+    se.close()
+    return dict(natoms=se.natoms, fsum=fsum.tolist(),
+                fsum_stacked=fsum_s.tolist(), fsum_rel_gap=fsum_err,
+                rows_gap=gap, graph_equals_eager=True,
+                trajectory_equals_stacked=True,
+                select_candidates_per_shard=per_shard)
+
+
+def per_device_scale(dev, modules, gpu, pe_atom_bench, stacked):
+    """Config 5 per device, eight x-slabs on the card: 100 steps through
+    the captured programs, pe/atom at step 0 against the bench scene's,
+    NVE drift, atom-steps/s of a second window (after (c)'s stacked run
+    in this call, not in turns: both do not fit at once) and the peak
+    beside (c)'s.  A config that does not fit the card is reported with
+    the memory it reached, and the next smaller one (three quarters of
+    the slabs' length) is run."""
+    c = dict(SCALE_8M)
+    refused = []
+    while True:
+        free_card(f"phase 10 (f) config 5 nx={c['nx']}")
+        reset_peaks()
+        se = None
+        try:
+            se = scale_engine(dev, c["nx"], devices=card_devices(c["shards"]),
+                              placement="per_device")
+            natoms = se.natoms
+            for m in modules.values():
+                m.launches = 0
+            se.reset_shard_launches()       # the first resettle counts
+            pe_atom = se.potential_energy() / natoms
+            t0 = time.perf_counter()
+            rows = se.run(c["steps"], thermo_every=c["steps"])
+            sync_all()
+            wall = time.perf_counter() - t0
+            launches = {name: m.launches for name, m in modules.items()}
+            per_shard = per_device_launches(se, "per-device config 5")
+            t0 = time.perf_counter()
+            se.run(c["steps"])
+            sync_all()
+            rate = natoms * c["steps"] / (time.perf_counter() - t0)
+            peak = max(peaks_gib())
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            peak = max(peaks_gib())
+            refused.append(dict(nx=c["nx"], peak_gib_reached=peak,
+                                error=str(e).splitlines()[0][:200]))
+            print(f"per-device config 5 at nx={c['nx']} does not fit the "
+                  f"card: {peak:.3f} GiB allocated at the failure "
+                  f"({refused[-1]['error']})")
+            if se is not None:
+                se.close()
+            del se
+            if len(refused) >= 3:
+                raise
+            c["nx"] = int(c["nx"] * 0.75) // 2 * 2
+    if se._prog is None:
+        raise AssertionError("per-device config 5 did not run its program")
+    check_launches("per-device config 5", launches, MAIN_PATH)
+    pe_err = abs(pe_atom - pe_atom_bench) / abs(pe_atom_bench)
+    drift = (abs(rows[-1]["etotal"] - rows[0]["etotal"])
+             / (rows[-1]["step"] - rows[0]["step"]) / natoms)
+    out = dict(natoms=natoms, nx=c["nx"], shards=c["shards"],
+               devices=[str(d) for d in se.group.devices],
+               refused=refused, pe_atom=pe_atom, pe_atom_rel_err=pe_err,
+               drift_ev_per_step_atom=drift, first_run_s=wall,
+               atom_steps_per_s=rate, peak_gib=peak,
+               peak_gib_by_card=peaks_gib(),
+               stacked_atom_steps_per_s=stacked["atom_steps_per_s"],
+               stacked_peak_gib=stacked["peak_gib"],
+               resettles=se.resettles, launches_per_shard=per_shard,
+               launches={KERNEL_NAMES[m]: launches[m] for m in MAIN_PATH},
+               gpu=gpu)
+    print(f"per-device config 5: {natoms} atoms in {c['shards']} x-slabs on "
+          f"{out['devices']}, pe/atom {pe_atom:.7f} (rel {pe_err:.3e} to the "
+          f"bench's, bar {PE_ATOM_BAR}), NVE drift {drift:.3e} (bar 1e-6), "
+          f"{rate:.6g} atom-steps/s (the stacked layout's "
+          f"{stacked['atom_steps_per_s']:.6g} earlier in this call) on "
+          f"{gpu}, peak {peak:.3f} GiB (stacked {stacked['peak_gib']:.3f}); "
+          f"resettles {se.resettles}")
+    if not (pe_err <= PE_ATOM_BAR and drift < 1e-6):
+        raise AssertionError("per-device config 5: pe/atom or drift off")
+    se.close()
+    del se
+    free_card("phase 10 (f) config 5 done")
+    return out
+
+
+def mixed_devices(dev):
+    """The [card, cpu] check: two x-slabs, shard 0 on the card, shard 1 on
+    the CPU (its kernels' twins, as every CPU tensor takes), every
+    cross-shard move a copy between the two; eager.  pe and forces at
+    step 0 against the stacked layout on the card (SHARD_PE_BAR,
+    SHARD_F_BAR), then MIXED["steps"] steps, finite and without a lost
+    atom."""
+    from lammps_plugins_tpu_torch.api.scenes import rebomos_bulk
+    from lammps_plugins_tpu_torch.core import units
+    from lammps_plugins_tpu_torch.fixes.nve import FixNVE
+    from lammps_plugins_tpu_torch.fixes.velocity import velocity_create
+    from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
+    c = MIXED
+
+    def engine(devices):
+        st = velocity_create(rebomos_bulk(c["nx"], c["ny"], c["nz"],
+                                          tilt_xy=0.0, dtype=torch.float32,
+                                          device=dev),
+                             units.METAL, c["temp"], c["seed"])
+        pair = REBOMoS.from_file(REBO_FILE, ["M", "S"], dtype=torch.float32,
+                                 device=dev)
+        return shard_engine(dev, st, pair, [FixNVE()], (2, 1),
+                            devices=devices, skin=c["skin"])
+
+    ref = engine([dev, dev])
+    mixed = engine([dev, torch.device("cpu")])
+    pe_r, pe_m = ref.potential_energy(), mixed.potential_energy()
+    ref._setup_forces()
+    mixed._setup_forces()
+    f_r = ref.to_state().f
+    f_m = mixed.to_state().f.to(dev)
+    pe_err = abs(pe_m - pe_r) / abs(pe_r)
+    f_err = float((f_m - f_r).abs().max()) / float(f_r.abs().max())
+    mixed.run(c["steps"])
+    end = mixed.to_state()
+    ok = bool(torch.isfinite(end.x).all() and torch.isfinite(end.v).all())
+    print(f"[card, cpu] two x-slabs ({mixed.natoms} atoms, f32): pe "
+          f"{pe_m:.6f} vs stacked on the card {pe_r:.6f} (rel {pe_err:.3e}, "
+          f"bar {SHARD_PE_BAR}), forces max|dF|/max|F| {f_err:.3e} (bar "
+          f"{SHARD_F_BAR}); {c['steps']} eager steps, {mixed.resettles} "
+          f"resettles, finite {ok}")
+    if not (pe_err <= SHARD_PE_BAR and f_err <= SHARD_F_BAR and ok):
+        raise AssertionError("[card, cpu] differs from the stacked layout")
+    return dict(natoms=mixed.natoms, devices=[str(dev), "cpu"],
+                pe_rel_err=pe_err, forces_rel_err=f_err,
+                steps=c["steps"], resettles=mixed.resettles)
+
+
+#: can one shard's capture wait on an event recorded inside another's (one
+#: CUDA graph per shard and segment, joined by events)?  Run in a child
+#: process: a capture that CUDA refuses leaves PyTorch's allocator routing
+#: to a graph pool that never closes, and the parent's memory could not be
+#: freed any more
+CAPTURE_PROBE = """
+import json, torch
+s0, s1 = torch.cuda.Stream(), torch.cuda.Stream()
+g0, g1 = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+x = torch.zeros(4, device="cuda")
+ev = torch.cuda.Event()
+torch.cuda.synchronize()
+out = {}
+with torch.cuda.stream(s0):
+    g0.capture_begin(capture_error_mode="thread_local")
+    x.add_(1)
+    ev.record(s0)
+with torch.cuda.stream(s1):
+    g1.capture_begin(capture_error_mode="thread_local")
+    try:
+        s1.wait_event(ev)
+        out["wait"] = "accepted"
+    except Exception as e:
+        out["wait"] = str(e).splitlines()[0]
+print(json.dumps(out))
+"""
+
+
+def capture_probe():
+    """The design question of the per-device placement's graphs, asked of
+    the card in a child process: the answer decides between one graph per
+    shard and segment and one per shard and piece between collectives."""
+    r = subprocess.run([sys.executable, "-c", CAPTURE_PROBE],
+                       capture_output=True, text=True, timeout=120)
+    lines = r.stdout.strip().splitlines()
+    answer = json.loads(lines[-1]) if r.returncode == 0 and lines else dict(
+        error=(r.stderr.strip().splitlines() or ["no output"])[-1])
+    print(f"capture probe: shard 1's capture waiting on an event of shard "
+          f"0's capture -> {answer}")
+    return answer
+
+
+def per_device_checks(dev, modules, gpu, pe_atom, scale):
+    """(f) the per-device placement: the bench scene's two layouts and
+    config 2 on the one card (a stream a shard), config 5, the [card, cpu]
+    check; on several cards the bench scene again over min(count, 4)."""
+    out = dict(capture_probe=capture_probe())
+    # config 5 first, on the emptiest card: eight streams on one card each
+    # cache their own freed memory
+    with timed("phase 10 (f) config 5 per device"):
+        out["scale"] = per_device_scale(dev, modules, gpu, pe_atom, scale)
+    with timed("phase 10 (f) bench scene per device"):
+        out["bench"] = per_device_bench(dev, modules, gpu,
+                                        lambda n: [dev] * n)
+    with timed("phase 10 (f) config 2 per device"):
+        out["melt"] = per_device_melt(dev, modules)
+    with timed("phase 10 (f) [card, cpu]"):
+        out["card_cpu"] = mixed_devices(dev)
+    n = torch.cuda.device_count()
+    if n >= 2:
+        with timed("phase 10 (f) several cards"):
+            out["cards"] = per_device_bench(dev, modules, gpu, card_devices)
+    else:
+        print(f"phase 10 (f) on several cards did not run: this machine has "
+              f"{n} CUDA device")
+        out["cards"] = None
+    return out
+
+
 def phase10_sharded(dev, modules):
     """The sharded engine on the card: (a) the bench scene, (b) config 2,
-    (c) config 5, (d) the sharded Script, (e) the entry checks.  Returns (record, launches of
-    the bench's 2x2 graph run, shard-0 kernel records)."""
+    (c) config 5, (d) the sharded Script, (e) the entry checks, (f) the
+    per-device placement.  Returns (record, launches of the bench's 2x2
+    graph run, shard-0 kernel records)."""
     gpu = sh("nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader")
     with timed("phase 10 (a) bench scene"):
@@ -3654,8 +4080,9 @@ def phase10_sharded(dev, modules):
         script = sharded_script(dev)
     with timed("phase 10 (e) entry checks"):
         entry = entry_checks()
+    per_device = per_device_checks(dev, modules, gpu, pe_atom, scale)
     out = dict(gpu=gpu, bench=bench, melt=melt, scale=scale, script=script,
-               entry=entry)
+               entry=entry, per_device=per_device)
     print("SHARDED " + json.dumps(out))
     return out, launches, kern
 
@@ -4045,9 +4472,15 @@ def main():
     print("SCRIPT " + json.dumps(script))
     with timed("phase 10"):
         sharded, shard_launches, shard_kern = phase10_sharded(dev, modules)
+    pd = sharded["per_device"]["bench"]["2x2"]
     for m in MAIN_PATH:
-        results[KERNEL_NAMES[m]]["sharded"] = dict(
+        name = KERNEL_NAMES[m]
+        results[name]["sharded"] = dict(
             shard_kern[m], launches=shard_launches[m])
+        # the per-device placement's 2x2 run: every shard launched it
+        results[name]["per_device"] = dict(
+            launches=pd["launches"][name],
+            launches_per_shard=[c[name] for c in pd["launches_per_shard"]])
     with timed("phase 11"):
         wide = phase11_wide(dev, modules)
     results["select_candidates"]["wide"] = dict(

@@ -23,8 +23,10 @@ package mirrors its module paths so each counterpart is easy to find:
                rebuild rule), FIRE minimize, thermo, dumps, restart
                files, timers
   parallel/    ShardedEngine: x-slabs and Px x Py grids with migration,
-               halo exchange and per-shard rebuilds, every shard on one
-               device, its iteration one CUDA graph
+               halo exchange and per-shard rebuilds; the shards stacked
+               on one device (its iteration one CUDA graph) or each on
+               its own device and stream (per_device.py, the collectives
+               in collectives.py)
   entry.py     entry checks: one force pass, a sharded dryrun
   convert.py   numpy bridge from the JAX package's objects
 

@@ -12,8 +12,10 @@ Script(log=print, dtype=torch.float32, device="cuda") runs on the card
 and raises without one; a CPU run passes device="cpu" (and
 dtype=torch.float64 for the parity checks).  n_devices > 1 runs the deck
 on the spatially sharded engine (parallel/sharded_engine.py, `mpirun -np
-N`), with the shards on `devices` (e.g. ["cuda:0"] * 4 or ["cpu"] * 4);
-as in the JAX package only the timestep and the skin reach it, so
+N`), one shard per entry of `devices` (e.g. ["cuda:0"] * 4 or ["cpu"] *
+4, stacked on one device; ["cuda:0", "cuda:1", ...], each shard on its
+own card; placement="per_device" places them per device on one device
+too); as in the JAX package only the timestep and the skin reach it, so
 `neigh_modify every` does not, and per-atom computes and minimize stay
 single-device.  `plugin load` registers into the port's own registry
 (lammps_plugins_tpu_torch/registry.py).
@@ -71,22 +73,24 @@ class Script:
 
     def __init__(self, log: Callable[[str], None] = print,
                  dtype=torch.float32, device="cuda", n_devices: int = 1,
-                 devices=None):
+                 devices=None, placement: str | None = None):
         """The deck runs on `device` in `dtype` (the card and float32
         unless the caller asks otherwise).  n_devices > 1 runs it on the
-        sharded engine with one shard per entry of `devices`, all the
-        deck's device (e.g. ["cuda:0"] * 4): shards cannot be placed on
-        several cards yet, so `devices` is required."""
+        sharded engine with one shard per entry of `devices`, which the
+        caller names (["cuda:0"] * 4 stacks the shards on one card,
+        ["cuda:0", "cuda:1", "cuda:2", "cuda:3"] puts each on its own);
+        placement is the engine's (ShardedEngine)."""
         if n_devices > 1 and (devices is None or len(devices) != n_devices):
             raise ScriptError(
-                f"n_devices={n_devices} needs devices, one per shard, all "
-                f"the deck's device (devices=['cuda:0'] * {n_devices}); "
-                f"got {devices}")
+                f"n_devices={n_devices} needs devices, one per shard "
+                f"(devices=['cuda:0'] * {n_devices} on one card); got "
+                f"{devices}")
         self.dtype = dtype
         self.device = resolve(device)
         self.log = log
         self.n_devices = n_devices
         self.devices = devices
+        self.placement = placement
         self.units = units_mod.METAL
         self.atom_style = "atomic"
         self.dimension = 3
@@ -931,7 +935,7 @@ class Script:
             # as the JAX Script (script.py:876-880): dt and skin only
             return ShardedEngine(state, self.pair, self.fixes, self.units,
                                  devices=self.devices, dt=self.dt,
-                                 skin=self.skin)
+                                 skin=self.skin, placement=self.placement)
         return Engine(state, self.pair, self.fixes, self.units,
                       dt=self.dt, skin=self.skin,
                       check_every=self.check_every)

@@ -139,22 +139,27 @@ __global__ void __launch_bounds__(kThreads) pin_copy_kernel(
 template <bool kBulkIn>
 int launch(const float* in, float* out, long long head, long long nbytes,
            long long n, cudaStream_t s) {
-  static bool ready = false;
-  if (!ready) {
+  // the shared-memory attribute and the SM count are the current
+  // device's: both kept a device
+  constexpr int kMaxDevices = 64;
+  static bool ready[kMaxDevices] = {};
+  static int sm_count[kMaxDevices] = {};
+  int dev = 0;
+  const cudaError_t de = cudaGetDevice(&dev);
+  if (de != cudaSuccess) return (int)de;
+  if (dev < 0 || dev >= kMaxDevices) return -1;
+  if (!ready[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
         pin_copy_kernel<kBulkIn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kStages * kTile);
     if (e != cudaSuccess) return (int)e;
-    ready = true;
+    ready[dev] = true;
   }
-  static int sms = 0;                  // SM count of the first device seen
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 132;
-  }
+  int& sms = sm_count[dev];
+  if (sms == 0 &&
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    sms = 132;
   long long blocks = (nbytes + kTile - 1) / kTile;
   if (blocks > (long long)sms * kBlocksPerSM) blocks = (long long)sms * kBlocksPerSM;
   if (blocks < 1) blocks = 1;

@@ -412,13 +412,20 @@ int launch(const float* dx, const float* dy, const float* dz,
 }
 
 // Let every instantiation take up to the block limit of dynamic shared
-// memory, once, at the entry point's first call (the Engine's first force
-// pass runs eagerly), so that a later call, which a CUDA graph may be
+// memory, once a device (the attribute is the calling thread's current
+// device's), at the entry point's first call there (the Engine's first
+// force pass runs eagerly), so that a later call, which a CUDA graph may be
 // capturing after a K re-size picked another instantiation, makes no call
-// but the launch.
+// but the device query and the launch.
+constexpr int kMaxDevices = 64;
+
 int opt_in_all() {
-  static bool done = false;
-  if (done) return 0;
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  const cudaError_t derr = cudaGetDevice(&dev);
+  if (derr != cudaSuccess) return (int)derr;
+  if (dev < 0 || dev >= kMaxDevices) return -1;
+  if (done[dev]) return 0;
   const void* kernels[] = {
       (const void*)rebo_cotangents_kernel<8, true>,
       (const void*)rebo_cotangents_kernel<8, false>,
@@ -430,7 +437,7 @@ int opt_in_all() {
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (err != cudaSuccess) return (int)err;
   }
-  done = true;
+  done[dev] = true;
   return 0;
 }
 

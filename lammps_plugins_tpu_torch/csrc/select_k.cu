@@ -301,16 +301,24 @@ __device__ __forceinline__ void select_radix(const HitBuf& b, int n, int K,
 
 
 // Let the kernel take up to the block limit of dynamic shared memory.
-// Done once, at the entry point's first call (the Engine's first rebuild
-// runs eagerly), so that a later call, which a CUDA graph may be
-// capturing after a K re-size, makes no call but the launch.
+// Done once a device (the attribute is the calling thread's current
+// device's), at the entry point's first call there (the Engine's first
+// rebuild runs eagerly), so that a later call, which a CUDA graph may be
+// capturing after a K re-size, makes no call but the device query and the
+// launch.
+constexpr int kMaxDevices = 64;
+
 template <typename Kernel>
-int opt_in(Kernel kernel, bool& done) {
-  if (done) return 0;
+int opt_in(Kernel kernel, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  const cudaError_t derr = cudaGetDevice(&dev);
+  if (derr != cudaSuccess) return (int)derr;
+  if (dev < 0 || dev >= kMaxDevices) return -1;
+  if (done[dev]) return 0;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   if (err != cudaSuccess) return (int)err;
-  done = true;
+  done[dev] = true;
   return 0;
 }
 
@@ -869,7 +877,7 @@ extern "C" int lpt_select_k(const float* keys, const float* pay0,
   if (K < 1 || W < 128 || W % 128 || ((size_t)keys & 15)) return -1;
   if (warps < 1 || warps > kMaxWarps || !valid_cap(cap, K)) return -1;
   if (N == 0) return 0;
-  static bool opted = false;
+  static bool opted[kMaxDevices] = {};
   const int err = opt_in(select_k_kernel, opted);
   if (err) return err;
   const size_t bytes = select_k_bytes(warps, cap);
@@ -921,7 +929,7 @@ extern "C" int lpt_select_candidates(
                    d2, Cf, n, m_all, K, cap, bx};
   // all four kernels opt in at the first call, so that a later one that a
   // graph captures (a re-sized plan may take another) only launches
-  static bool opted[4] = {false, false, false, false};
+  static bool opted[4][kMaxDevices] = {};
   int err = opt_in(select_candidates_kernel<true, true>, opted[0]);
   if (!err) err = opt_in(select_candidates_kernel<true, false>, opted[1]);
   if (!err) err = opt_in(select_candidates_kernel<false, true>, opted[2]);

@@ -53,16 +53,27 @@ class FixBfield(Fix):
                            else np.asarray(group_mask, bool))
         self.key = f"bfield:{fix_id}"
         self.time_varying = any(callable(b) for b in self.b_spec)
-        self._b_const = None
+        self._b_on = {}
+
+    def _b_const(self, t: torch.Tensor) -> torch.Tensor:
+        """[3] the constant components (0 where a callable) on t's device
+        and in its dtype, made there once (setup or the first step)."""
+        key = (t.device, t.dtype)
+        if key not in self._b_on:
+            self._b_on[key] = torch.as_tensor(
+                [0.0 if callable(b) else float(b) for b in self.b_spec],
+                dtype=t.dtype, device=t.device)
+        return self._b_on[key]
 
     def _b_at(self, t: torch.Tensor) -> torch.Tensor:
         """[3] B at time t (a 0-d tensor): the constant components from the
         device copy, the callables evaluated on t."""
+        b_const = self._b_const(t)
         if not self.time_varying:
-            return self._b_const
+            return b_const
         return torch.stack([
             torch.as_tensor(b(t), dtype=t.dtype, device=t.device).reshape(())
-            if callable(b) else self._b_const[a]
+            if callable(b) else b_const[a]
             for a, b in enumerate(self.b_spec)])
 
     def _sel(self, state: State):
@@ -83,9 +94,6 @@ class FixBfield(Fix):
                 "zero; the Lorentz force q v x B would be identically 0)")
         dev, dtype = state.x.device, state.x.dtype
         self._sel(state)            # the mask and the bounds reach the device
-        self._b_const = torch.as_tensor(
-            [0.0 if callable(b) else float(b) for b in self.b_spec],
-            dtype=dtype, device=dev)
         B = self._b_at(torch.zeros((), dtype=dtype, device=dev))
         entry = {"v0": torch.zeros_like(state.v), "B": B,
                  "fsum": torch.zeros(4, dtype=dtype, device=dev)}

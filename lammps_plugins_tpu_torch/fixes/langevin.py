@@ -88,10 +88,13 @@ class FixLangevin(Fix):
         """[N, 3] uniform(-0.5, 0.5) of the fix's current step.  On the
         sharded engine's stacked state (ctx.shards = (Pn, n_cap)) each
         block d draws its own [n_cap, 3] under fold_in(key, d), as each
-        JAX shard does (JAX langevin.py:78-82)."""
+        JAX shard does (JAX langevin.py:78-82); under the per-device
+        placement shard d (ctx.shard) draws that block alone."""
         step = state.extras[self.key]["step"]
         key = threefry.fold_in(self.prng_key, step)
         dtype, dev = state.x.dtype, state.x.device
+        if ctx is not None and ctx.shard is not None:
+            key = threefry.fold_in(key, torch.full_like(step, ctx.shard))
         if ctx is None or ctx.shards is None:
             return threefry.uniform(key, tuple(state.v.shape), dtype,
                                     -0.5, 0.5, dev)

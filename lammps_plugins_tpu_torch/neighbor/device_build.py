@@ -369,7 +369,7 @@ _OFFS14 = np.array(
                    for c in (-1, 0, 1) if (a, b, c) > (0, 0, 0)], np.int64)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=64)      # a plan's tables on each device
 def _constants(plan: RebuildPlan, cuts: tuple, dtype, device) -> dict:
     """The device constants of one plan (see rebuild_constants); cuts:
     ((tier, shape, flat cutoffs), ...) as hashable content."""

@@ -154,7 +154,9 @@ def stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-@functools.lru_cache(maxsize=16)
+#: large enough that no table a captured graph reads is evicted (and freed)
+#: while the graph lives: a few tables a kernel, device and plan
+@functools.lru_cache(maxsize=256)
 def device_constants(values: tuple, device: torch.device,
                      dtype=torch.float32) -> torch.Tensor:
     """A small constant table (a kernel's float32 constants, a grid's

@@ -1,10 +1,11 @@
 """Spatially sharded engine (port of
 lammps_plugins_tpu/parallel/sharded_engine.py): x-slabs and Px x Py grids
-with migration, halo exchange and per-shard rebuilds, on one card.
+with migration, halo exchange and per-shard rebuilds, the shards stacked
+on one card or placed per device (Placement, below).
 
 The JAX engine is one controller over a mesh of devices whose state
-carries a leading device axis, [Pn, n_cap, ...].  The port keeps that
-shape on one device: the Pn shards' blocks are stacked, [Pn * n_cap, ...]
+carries a leading device axis, [Pn, n_cap, ...].  The stacked layout keeps
+that shape on one device: the Pn shards' blocks are stacked, [Pn * n_cap, ...]
 viewed as [Pn, n_cap, ...] (ShardState).  A `ppermute` along the grid is a
 gather from the peer block into the receiving shard's buffer, and a
 `psum` is a sum over every block:
@@ -50,9 +51,16 @@ so that both take the same decisions.  Nothing falls back: a failed
 capture or replay raises, and so does the halo probe that attributes
 Comm time.
 
-This port places every shard on one device.  `devices` names one device
-per shard and must name the same device for all of them; placing the
-shards on several cards is not supported yet.
+Placement.  `devices` names one device per shard.  When they all name one
+device the shards are stacked as above (the measured one-card path).  When
+they name more than one distinct device, or with placement="per_device",
+ShardedEngine(...) returns a parallel/per_device.PerDeviceEngine: each
+shard keeps its rows, halo tables, lists and fix state on its own device
+and CUDA stream, runs its own program, and the ppermutes and psums above
+are copies between the devices (parallel/collectives.py).  Both
+placements share the per-shard pieces of the resettle and of the halo
+refresh below (_wrap, _emigrants, _immigrants, _export, _with_halo,
+_rebuild_shard).
 """
 
 from __future__ import annotations
@@ -83,6 +91,9 @@ _ROWS = ("x", "v", "f", "image", "type", "q", "tag")
 _STEPPED = ("x", "v", "f")
 #: what a resettle reads of the rows (its inputs, kept for a re-list)
 _LAYOUT = _ROWS + ("valid",)
+#: the x and y stages' tables in HaloTables
+HALO_X = ("exp_r", "exp_l", "val_hl", "val_hr")
+HALO_Y = ("exp_u", "exp_d", "val_hd", "val_hu")
 #: K headroom of a sharded plan over the high-water kmax: a K overflow
 #: costs a discarded span and a repack on every shard
 K_HEADROOM = 4
@@ -164,6 +175,36 @@ def _merge(mask, base, cap: int, dst_list, src_list):
     return out, mask.sum()
 
 
+def _shard_devices(devices) -> List[torch.device]:
+    """The shards' devices as torch devices, a CUDA device without an index
+    taken as the current one (so that "cuda" and "cuda:0" are one device
+    on a machine whose current card is 0)."""
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None and torch.cuda.is_available():
+            d = torch.device("cuda", torch.cuda.current_device())
+        out.append(d)
+    return out
+
+
+def _placement_of(devices, placement: str | None) -> str:
+    """"stacked" or "per_device" for these shard devices: shards on more
+    than one distinct device are placed per device; shards on one device
+    are stacked unless placement="per_device" asks otherwise."""
+    distinct = len(set(_shard_devices(devices))) > 1
+    if placement is None:
+        return "per_device" if distinct else "stacked"
+    if placement not in ("stacked", "per_device"):
+        raise ValueError(f"placement {placement!r}: 'stacked' or "
+                         "'per_device'")
+    if placement == "stacked" and distinct:
+        raise ValueError("placement='stacked' stacks the shards on one "
+                         f"device; devices {[str(d) for d in devices]} "
+                         "name several")
+    return placement
+
+
 class ShardedEngine(LoopDriver):
     """The sharded counterpart of run/simulation.Engine (its run, thermo,
     callbacks, timers and to_state; callbacks receive the gathered global
@@ -172,15 +213,30 @@ class ShardedEngine(LoopDriver):
 
     overflow_retries = 5           # JAX sharded_engine.py:641, :1113
 
+    def __new__(cls, *args, **kw):
+        """The per-device placement is the subclass
+        parallel/per_device.PerDeviceEngine (see _placement_of)."""
+        devices = kw.get("devices", args[4] if len(args) > 4 else None)
+        if cls is ShardedEngine and devices is not None:
+            if _placement_of(devices, kw.get("placement")) == "per_device":
+                from .per_device import PerDeviceEngine
+                return super().__new__(PerDeviceEngine)
+        return super().__new__(cls)
+
     def __init__(self, state: State, pair: PairStyle, fixes: Sequence[Fix],
                  units: UnitSystem, devices: Sequence,
                  dt: float | None = None, skin: float | None = None,
                  check_every: int = 10, slack: float = 1.4,
-                 grid: "tuple[int, int] | None" = None):
+                 grid: "tuple[int, int] | None" = None,
+                 placement: str | None = None):
         """devices: one torch device per shard (the JAX engine's
-        n_devices), all the same device, the state's.  grid: (Px, Py),
-        the LAMMPS `processors` analogue; (Pn, 1) when None."""
-        devices = [torch.device(d) for d in devices]
+        n_devices).  grid: (Px, Py), the LAMMPS `processors` analogue;
+        (Pn, 1) when None.  placement: None takes the stacked layout when
+        every shard names one device and the per-device placement when
+        they name several; "per_device" forces the per-device placement
+        on one device too (for the CPU parity tests and the one-card
+        checks: it adds no physics and no output)."""
+        devices = _shard_devices(devices)
         Pn = len(devices)
         if Pn < 2:
             raise ValueError("ShardedEngine needs >= 2 shards; use "
@@ -191,22 +247,10 @@ class ShardedEngine(LoopDriver):
             raise ValueError(f"grid {grid} does not tile {Pn} devices")
         if grid[0] < 1 or grid[1] < 1 or (grid[0] == 1 and grid[1] == 1):
             raise ValueError(f"invalid processor grid {grid}")
-        if len(set(devices)) != 1:
-            raise NotImplementedError(
-                f"shards on several devices {sorted(map(str, set(devices)))}"
-                ": placing the shards on several cards is not supported "
-                "yet; stack them on one device (devices=['cuda:0'] * n)")
-        dev = devices[0]
-        if state.x.device != dev and not (
-                dev.type == state.x.device.type == "cuda"
-                and dev.index is None):
-            raise ValueError(f"the state lies on {state.x.device}, the "
-                             f"shards on {dev}: the engine moves no data "
-                             "between devices")
         if getattr(pair, "combine", None) == "react":
             raise ValueError("combine='react' is single-device: the sharded "
                              "rebuild builds no route tables (as in JAX)")
-        self.device = state.x.device
+        self._place(state, devices)
         self.grid = (int(grid[0]), int(grid[1]))
         self.n_devices = Pn
         self.pair = pair.for_sharded()
@@ -246,6 +290,19 @@ class ShardedEngine(LoopDriver):
         self.timers = Timers()
 
     # -- host-side set-up ---------------------------------------------------
+    def _place(self, state: State, devices: List[torch.device]):
+        """The stacked layout keeps the state's box and masses and the
+        pair's tables where they are: its one device must be the state's
+        (the per-device placement copies them to each shard's device)."""
+        dev = devices[0]
+        if state.x.device != dev and not (
+                dev.type == state.x.device.type == "cuda"
+                and dev.index is None):
+            raise ValueError(f"the state lies on {state.x.device}, the "
+                             f"stacked shards on {dev}: the stacked layout "
+                             "runs on the state's device")
+        self.device = state.x.device
+
     def _setup_geometry(self, state: State):
         """The slab box and the geometry tensors (JAX :239-281)."""
         box = state.box
@@ -273,28 +330,38 @@ class ShardedEngine(LoopDriver):
             # the halo margins inside, non-periodic (halos are explicit rows)
             hs[ax] = h[ax] * (1.0 / P + 2.0 * mfs[ax])
         self.margin_frac = tuple(mfs)
-        dt, dev = self.dtype, self.device
         self.slab_box = Box.from_numpy(
             hs, lo, (Px == 1 and box.periodic[0],
                      Py == 1 and box.periodic[1], box.periodic[2]),
-            dtype=dt, device=dev)
+            dtype=self.dtype, device=self.device)
         los = np.stack([
             lo + (dx / Px - mfs[0]) * h[0] + (dy / Py - mfs[1]) * h[1]
             for dx in range(Px) for dy in range(Py)])
+        self._geom_np = dict(
+            lo_shards=los, h_glob=h, hinv_glob=np.linalg.inv(h), lo_glob=lo,
+            h_slab=hs, hinv_slab=np.linalg.inv(hs), arow=h[0], brow=h[1],
+            per=[1.0 if p else 0.0 for p in box.periodic])
+        self._gm = self._geometry(self.device)
+        g = self._gm
+        self._lo_shards = g.lo_shards                   # [Pn, 3]
+        self._h_glob, self._hinv_glob = g.h_glob, g.hinv_glob
+        self._lo_glob = g.lo_glob
+        self._h_slab, self._hinv_slab = g.h_slab, g.hinv_slab
+        self._arow, self._brow = g.arow, g.brow         # global a, b
+        self._per = g.per
+        self._park = g.park
 
-        def t(a):
-            return torch.as_tensor(np.asarray(a, np.float64), dtype=dt,
-                                   device=dev)
-
-        self._lo_shards = t(los)                        # [Pn, 3]
-        self._h_glob, self._hinv_glob = t(h), t(np.linalg.inv(h))
-        self._lo_glob = t(lo)
-        self._h_slab, self._hinv_slab = t(hs), t(np.linalg.inv(hs))
-        self._arow, self._brow = t(h[0]), t(h[1])       # global a, b
-        self._per = t([1.0 if p else 0.0 for p in box.periodic])
-        # pads park outside every slab box, along the first split axis
-        self._park = self._lo_glob + 2.0 * (self._arow if Px > 1
-                                            else self._brow)
+    def _geometry(self, dev) -> _types.SimpleNamespace:
+        """The geometry tensors on `dev`: the shards' slab-box origins
+        lo_shards [Pn, 3], the global and slab cells and inverses, the
+        global a and b rows, the periodic mask, and `park`, where pad rows
+        wait outside every slab box (along the first split axis)."""
+        g = _types.SimpleNamespace(**{
+            k: torch.as_tensor(np.asarray(v, np.float64), dtype=self.dtype,
+                               device=dev)
+            for k, v in self._geom_np.items()})
+        g.park = g.lo_glob + 2.0 * (g.arow if self.grid[0] > 1 else g.brow)
+        return g
 
     def _perms(self):
         """The grid's flattened permutations, (src, dst) pairs: x forward,
@@ -330,6 +397,19 @@ class ShardedEngine(LoopDriver):
         """Capacities from the initial configuration and the packed shard
         state, by the JAX package's numpy arithmetic (:298-378); a
         capacity only grows.  The fixes' context follows n_cap."""
+        cols = self._packed_np(state)
+        self.shards = ShardState(
+            step=int(state.step), extras={},
+            **{a: torch.as_tensor(v, dtype=t, device=self.device)
+               for a, (v, t) in cols.items()})
+        self._mass = state.mass
+        self.ctx = StepContext(units=self.units, dt=self.dt,
+                               natoms_global=self.natoms,
+                               shards=(self.n_devices, self.n_cap))
+
+    def _packed_np(self, state: State) -> Dict[str, tuple]:
+        """Set the capacities; {field: (numpy array [Pn * n_cap, ...], torch
+        dtype)} of the packed shards, block d at rows d * n_cap on."""
         Pn = self.n_devices
         Px, Py = self.grid
         x_np, image_np = state.box.wrap_np(
@@ -384,34 +464,29 @@ class ShardedEngine(LoopDriver):
         slot = np.arange(N) - starts[slab_of[order]]
         d_all = slab_of[order]
         flat = d_all * self.n_cap + slot
-        dev, dt = self.device, self.dtype
+        dt = self.dtype
 
         def packed(a_np, fill, dtype):
             a_np = np.asarray(a_np)
             out = np.full((Pn * self.n_cap,) + a_np.shape[1:], fill,
                           dtype=a_np.dtype)
             out[flat] = a_np[order]
-            return torch.as_tensor(out, dtype=dtype, device=dev)
+            return out, dtype
 
         valid = np.zeros(Pn * self.n_cap, bool)
         valid[flat] = True
         xs = np.empty((Pn * self.n_cap, 3))
         xs[flat] = x_np[order]
         xs[~valid] = lo + 2.0 * h[0]            # park pads outside the slabs
-        self.shards = ShardState(
-            x=torch.as_tensor(xs, dtype=dt, device=dev),
+        return dict(
+            x=(xs, dt),
             v=packed(state.v.detach().cpu().numpy(), 0.0, dt),
             f=packed(state.f.detach().cpu().numpy(), 0.0, dt),
             type=packed(state.type.cpu().numpy(), 1, torch.int64),
             q=packed(state.q.detach().cpu().numpy(), 0.0, dt),
             tag=packed(np.arange(N), -1, torch.int64),
             image=packed(image_np, 0, torch.int32),
-            valid=torch.as_tensor(valid, device=dev),
-            step=int(state.step), extras={})
-        self._mass = state.mass
-        self.ctx = StepContext(units=self.units, dt=self.dt,
-                               natoms_global=N,
-                               shards=(Pn, self.n_cap))
+            valid=(valid, torch.bool))
 
     def _setup_fix_extras(self):
         """Fix state made once on the stacked template: per-atom extras are
@@ -477,97 +552,130 @@ class ShardedEngine(LoopDriver):
         return list(t.view((self.n_devices, self.n_cap) + t.shape[1:])
                     .unbind(0))
 
-    def _migrate_axis(self, rows, valid, slab, ax: int):
-        """One exchange stage along grid axis ax (JAX migrate_axis): rows
-        one slab forward or back go to that neighbour, stayers are packed
-        first, then the rows from behind, then those from ahead.  Rows
-        more than one slab away are dropped and counted lost.  With P == 2
-        both neighbours are one shard: every mover goes forward.  Returns
-        (rows, n_new, overflow, lost) per shard."""
+    # per-shard pieces of the resettle and the halo refresh, shared with the
+    # per-device placement; g is the geometry on the shard's device
+    def _wrap(self, x, image, g):
+        """The global wrap (Domain::pbc) and image bookkeeping: (wrapped x,
+        image, fractional coordinates)."""
+        fg = matvec3(x - g.lo_glob, g.hinv_glob)
+        shift = torch.floor(fg) * g.per[None, :]
+        return (matvec3(fg - shift, g.h_glob) + g.lo_glob,
+                image + shift.to(torch.int32), fg - shift)
+
+    def _emigrants(self, d: int, rows, valid, slab, ax: int):
+        """Shard d's side of one exchange stage along grid axis ax (JAX
+        migrate_axis): stayers packed to n_cap, rows one slab forward or
+        back packed to B_mig with their validity; rows more than one slab
+        away are dropped and counted lost.  With P == 2 both neighbours
+        are one shard: every mover goes forward.  Returns (kept, count,
+        overflow, lost, (forward rows, valid), (backward rows, valid))."""
         P = self.grid[ax]
         n_cap, B = self.n_cap, self.B_mig
-        Pn = self.n_devices
-        kept, nk, ovs, lost, fw, bw = [], [], [], [], [], []
-        for d in range(Pn):
-            dl = torch.remainder(slab[d] - self._coord(d, ax), P)
-            stay = valid[d] & (dl == 0)
-            go_f = valid[d] & (dl == 1)
-            go_b = (torch.zeros_like(go_f) if P == 2
-                    else valid[d] & (dl == P - 1))
-            lost.append((valid[d] & ~stay & ~go_f & ~go_b).sum())
-            k, c, o1 = _pack(stay, n_cap, rows[d])
-            sf, cf, o2 = _pack(go_f, B, rows[d])
-            sb, cb, o3 = _pack(go_b, B, rows[d])
-            kept.append(k)
-            nk.append(c)
-            ovs.append(o1 | o2 | o3)
-            fw.append((sf, torch.arange(B, device=c.device) < cf))
-            bw.append((sb, torch.arange(B, device=c.device) < cb))
-        from_back, from_fwd = self._sources(ax)
-        n_new = []
-        for d in range(Pn):
-            sf, vf = fw[from_back[d]]
-            sb, vb = bw[from_fwd[d]]
-            k, c1 = _merge(vf, nk[d], n_cap, kept[d], sf)
-            k, c2 = _merge(vb, nk[d] + c1, n_cap, k, sb)
-            kept[d] = k
-            n_new.append(nk[d] + c1 + c2)
-            ovs[d] = ovs[d] | (n_new[d] > n_cap)
-        return kept, n_new, ovs, lost
+        dl = torch.remainder(slab - self._coord(d, ax), P)
+        stay = valid & (dl == 0)
+        go_f = valid & (dl == 1)
+        go_b = torch.zeros_like(go_f) if P == 2 else valid & (dl == P - 1)
+        lost = (valid & ~stay & ~go_f & ~go_b).sum()
+        k, c, o1 = _pack(stay, n_cap, rows)
+        sf, cf, o2 = _pack(go_f, B, rows)
+        sb, cb, o3 = _pack(go_b, B, rows)
+        ar = torch.arange(B, device=c.device)
+        return k, c, o1 | o2 | o3, lost, (sf, ar < cf), (sb, ar < cb)
 
-    def _exports(self, xb, validb, ax: int, Bh: int):
-        """One halo stage's export tables of every shard (JAX halo_axis):
-        the slots of block rows within the halo margin of the low and
-        high faces, packed to Bh.  Returns per shard (hi slots, lo slots,
-        hi count, lo count, max count, overflow)."""
+    def _immigrants(self, kept, nk, fw, bw):
+        """The stayers, then the rows from behind (fw, the backward
+        neighbour's forward movers), then those from ahead: (rows, count,
+        overflow)."""
+        (sf, vf), (sb, vb) = fw, bw
+        k, c1 = _merge(vf, nk, self.n_cap, kept, sf)
+        k, c2 = _merge(vb, nk + c1, self.n_cap, k, sb)
+        n_new = nk + c1 + c2
+        return k, n_new, n_new > self.n_cap
+
+    def _migrate_axis(self, rows, valid, slab, ax: int):
+        """One exchange stage along grid axis ax for every shard: each
+        shard's emigrants, then each takes its neighbours' (a ppermute as
+        a gather).  Returns (rows, n_new, overflow, lost) per shard."""
+        out = [self._emigrants(d, rows[d], valid[d], slab[d], ax)
+               for d in range(self.n_devices)]
+        from_back, from_fwd = self._sources(ax)
+        kept, n_new, ovs = [], [], []
+        for d, (k, nk, ov, _, _, _) in enumerate(out):
+            k, n, ov2 = self._immigrants(k, nk, out[from_back[d]][4],
+                                         out[from_fwd[d]][5])
+            kept.append(k)
+            n_new.append(n)
+            ovs.append(ov | ov2)
+        return kept, n_new, ovs, [o[3] for o in out]
+
+    def _export(self, d: int, xb, validb, ax: int, Bh: int, g):
+        """Shard d's export tables of one halo stage (JAX halo_axis): the
+        slots of block rows within the halo margin of the low and high
+        faces, packed to Bh.  Returns (hi slots, lo slots, hi count, lo
+        count, max count, overflow)."""
         P = self.grid[ax]
         mf = self.margin_frac[ax]
-        out = []
-        for d in range(self.n_devices):
-            s_loc = matvec3(xb[d] - self._lo_glob, self._hinv_glob)[:, ax] \
-                * P - float(self._coord(d, ax))
-            exp_lo = validb[d] & (s_loc <= mf * P)
-            exp_hi = validb[d] & (s_loc >= 1.0 - mf * P)
-            slots = torch.arange(xb[d].shape[0], device=xb[d].device)
-            (hi,), nchi, ov_hi = _pack(exp_hi, Bh, (slots,))
-            (lo,), nclo, ov_lo = _pack(exp_lo, Bh, (slots,))
-            out.append((hi, lo, nchi, nclo, torch.maximum(nchi, nclo),
-                        ov_hi | ov_lo))
-        return out
+        s_loc = matvec3(xb - g.lo_glob, g.hinv_glob)[:, ax] * P \
+            - float(self._coord(d, ax))
+        exp_lo = validb & (s_loc <= mf * P)
+        exp_hi = validb & (s_loc >= 1.0 - mf * P)
+        slots = torch.arange(xb.shape[0], device=xb.device)
+        (hi,), nchi, ov_hi = _pack(exp_hi, Bh, (slots,))
+        (lo,), nclo, ov_lo = _pack(exp_lo, Bh, (slots,))
+        return hi, lo, nchi, nclo, torch.maximum(nchi, nclo), ov_hi | ov_lo
+
+    def _with_halo(self, d: int, block, lo_rows, hi_rows, val_lo, val_hi,
+                   ax: int, g, fill=None, shift: bool = True):
+        """Shard d's block with its two halo blocks of stage ax appended:
+        lo_rows, the backward neighbour's high export, and hi_rows, the
+        forward neighbour's low export.  Positions (shift=True) cross the
+        periodic face with +-a or +-b on the grid's first / last shard and
+        park where invalid; other rows take `fill` where invalid."""
+        if shift:
+            row = g.arow if ax == 0 else g.brow
+            i = self._coord(d, ax)
+            if i == 0:
+                lo_rows = lo_rows + (-1.0) * row[None, :]
+            if i == self.grid[ax] - 1:
+                hi_rows = hi_rows + 1.0 * row[None, :]
+            lo_rows = torch.where(val_lo[:, None], lo_rows, g.park[None, :])
+            hi_rows = torch.where(val_hi[:, None], hi_rows, g.park[None, :])
+        else:
+            lo_rows = torch.where(val_lo, lo_rows,
+                                  torch.full_like(lo_rows, fill))
+            hi_rows = torch.where(val_hi, hi_rows,
+                                  torch.full_like(hi_rows, fill))
+        return torch.cat([block, lo_rows, hi_rows])
+
+    def _rebuild_shard(self, d: int, pair: PairStyle, xb, tb, vb, g):
+        """Shard d's lists on the slab box, its pad rows kept out:
+        (NeighborData, flags)."""
+        zero_im = torch.zeros((self.n_loc, 3), dtype=torch.int32,
+                              device=xb.device)
+        _, _, nbr, fl = device_build.device_rebuild(
+            self._plan, xb, zero_im, tb, g.h_slab, g.hinv_slab,
+            g.lo_shards[d], pair.neighbor_requests(), valid=vb)
+        make = getattr(pair, "rebuild_tables", None)
+        if make:
+            nbr = dataclasses.replace(nbr, pair_tables=make(nbr))
+        return nbr, dict(fl)
+
+    def _exports(self, xb, validb, ax: int, Bh: int):
+        """One halo stage's export tables of every shard (_export)."""
+        return [self._export(d, xb[d], validb[d], ax, Bh, self._gm)
+                for d in range(self.n_devices)]
 
     def _gather_halo(self, blocks, exp_hi, exp_lo, val_lo, val_hi, ax: int,
                      fill=None, shift: bool = True):
-        """Each shard's block with its two halo blocks of stage ax appended:
-        its low halo is the backward neighbour's high export, its high
-        halo the forward neighbour's low export (a ppermute as a gather).
-        Positions (shift=True) cross the periodic face with +-a or +-b on
-        the grid's first / last shard and park where invalid; other rows
-        take `fill` where invalid."""
-        P = self.grid[ax]
-        row = self._arow if ax == 0 else self._brow
+        """Each shard's block with its two halo blocks of stage ax appended
+        (_with_halo): its low halo is the backward neighbour's high
+        export, its high halo the forward neighbour's low export (a
+        ppermute as a gather)."""
         from_back, from_fwd = self._sources(ax)
-        out = []
-        for d in range(self.n_devices):
-            sb, sf = from_back[d], from_fwd[d]
-            lo_rows = blocks[sb][exp_hi[sb]]
-            hi_rows = blocks[sf][exp_lo[sf]]
-            i = self._coord(d, ax)
-            if shift:
-                if i == 0:
-                    lo_rows = lo_rows + (-1.0) * row[None, :]
-                if i == P - 1:
-                    hi_rows = hi_rows + 1.0 * row[None, :]
-                lo_rows = torch.where(val_lo[d][:, None], lo_rows,
-                                      self._park[None, :])
-                hi_rows = torch.where(val_hi[d][:, None], hi_rows,
-                                      self._park[None, :])
-            else:
-                lo_rows = torch.where(val_lo[d], lo_rows,
-                                      torch.full_like(lo_rows, fill))
-                hi_rows = torch.where(val_hi[d], hi_rows,
-                                      torch.full_like(hi_rows, fill))
-            out.append(torch.cat([blocks[d], lo_rows, hi_rows]))
-        return out
+        return [self._with_halo(
+            d, blocks[d], blocks[from_back[d]][exp_hi[from_back[d]]],
+            blocks[from_fwd[d]][exp_lo[from_fwd[d]]], val_lo[d], val_hi[d],
+            ax, self._gm, fill, shift) for d in range(self.n_devices)]
 
     def _halo_blocks(self, x: torch.Tensor, halo: HaloTables):
         """[Pn] local blocks [n_loc, 3] of positions: the per-step halo
@@ -590,12 +698,7 @@ class ShardedEngine(LoopDriver):
         Pn, n_cap = self.n_devices, self.n_cap
         Px, Py = self.grid
         dev = ss.x.device
-        # global wrap (Domain::pbc) and image bookkeeping
-        fg = matvec3(ss.x - self._lo_glob, self._hinv_glob)
-        shift = torch.floor(fg) * self._per[None, :]
-        xw = matvec3(fg - shift, self._h_glob) + self._lo_glob
-        image = ss.image + shift.to(torch.int32)
-        fw = fg - shift
+        xw, image, fw = self._wrap(ss.x, ss.image, self._gm)
         cols = (xw, ss.v, ss.f, image, ss.type, ss.q, ss.tag)
         rows = list(zip(*[self._split(c) for c in cols]))
         valid = self._split(ss.valid)
@@ -634,10 +737,8 @@ class ShardedEngine(LoopDriver):
         tabs = {}
         nch = {0: [zero_i] * Pn, 1: [zero_i] * Pn}
         ov_h = [zero_b] * Pn
-        for ax, P, Bh, names in ((0, Px, self.Bhx, ("exp_r", "exp_l",
-                                                     "val_hl", "val_hr")),
-                                 (1, Py, self.Bhy, ("exp_u", "exp_d",
-                                                    "val_hd", "val_hu"))):
+        for ax, P, Bh, names in ((0, Px, self.Bhx, HALO_X),
+                                 (1, Py, self.Bhy, HALO_Y)):
             if P <= 1:
                 empty_i = torch.zeros((Pn, 0), dtype=torch.int64, device=dev)
                 empty_b = torch.zeros((Pn, 0), dtype=torch.bool, device=dev)
@@ -668,20 +769,11 @@ class ShardedEngine(LoopDriver):
                           valid_loc=torch.stack(vb), **tabs)
 
         # per-shard rebuild on the slab box; the pad rows kept out
-        requests = self.pair.neighbor_requests()
         nbrs, shard_flags = [], []
         for d in range(Pn):
-            zero_im = torch.zeros((self.n_loc, 3), dtype=torch.int32,
-                                  device=dev)
-            _, _, nbr, fl = device_build.device_rebuild(
-                self._plan, xb[d], zero_im, tb[d], self._h_slab,
-                self._hinv_slab, self._lo_shards[d], requests,
-                valid=vb[d])
-            make = getattr(self.pair, "rebuild_tables", None)
-            if make:
-                nbr = dataclasses.replace(nbr, pair_tables=make(nbr))
+            nbr, fl = self._rebuild_shard(d, self.pair, xb[d], tb[d], vb[d],
+                                          self._gm)
             nbrs.append(nbr)
-            fl = dict(fl)
             fl.update({"mig_overflow": ov_mig[d], "halo_overflow": ov_h[d],
                        "lost_atoms": lost[d], "count:slab": n_true[d],
                        "count:halo": nch[0][d], "count:haloy": nch[1][d]})
@@ -700,7 +792,7 @@ class ShardedEngine(LoopDriver):
         """Wrap, migrate, exchange halos and rebuild every shard's lists;
         one host copy of the flags.  A lost atom raises; an overflow
         re-sizes from the measured counts and runs again (JAX :621-656)."""
-        ss, halo, nbrs, flags_t = self._resettle(self.shards)
+        ss, halo, nbrs, flags_t = self._resettle_now()
         flags = device_build.flags_to_host(flags_t)
         if flags["lost_atoms"]:
             raise RuntimeError(
@@ -723,13 +815,21 @@ class ShardedEngine(LoopDriver):
                 self._replan(flags, grow=1.3)
                 return self.resettle(_retry)
         self._flag_names = sorted(flags)
-        # the inputs, kept for a re-list (copies: the shards may be the
-        # device loop's buffers)
-        self._rs_in = {a: getattr(self.shards, a).clone() for a in _LAYOUT}
-        self.shards, self.halo, self.nbrs = ss, halo, nbrs
+        self._install(ss, halo, nbrs)
         self._flags = flags
         self._pending_rebuild = False
         self.resettles += 1
+
+    def _resettle_now(self):
+        """_resettle of the shards as they are."""
+        return self._resettle(self.shards)
+
+    def _install(self, ss: ShardState, halo: HaloTables, nbrs):
+        """Take a resettle's shards, halo tables and lists; keep its inputs
+        for a re-list (copies: the shards may be the device loop's
+        buffers)."""
+        self._rs_in = {a: getattr(self.shards, a).clone() for a in _LAYOUT}
+        self.shards, self.halo, self.nbrs = ss, halo, nbrs
 
     def _relist(self, _retry: int = 0):
         """Halo tables and lists at the current capacities for the shards
@@ -808,12 +908,17 @@ class ShardedEngine(LoopDriver):
         return torch.cat(parts) * valid[:, None]
 
     def _one_step(self, st: State, valid, halo, nbrs) -> State:
-        ctx = self.ctx
+        return self._verlet_step(st, self.ctx, lambda x: self._forces(
+            x, valid, halo, nbrs))
+
+    def _verlet_step(self, st: State, ctx: StepContext, forces) -> State:
+        """One step of the fixes' hooks in Verlet::run's order around
+        forces(x)."""
         for f in self.fixes:
             st = f.initial_integrate(st, ctx)
         for f in self.fixes:
             st = f.post_integrate(st, ctx)
-        st = st.replace(f=self._forces(st.x, valid, halo, nbrs))
+        st = st.replace(f=forces(st.x))
         for f in self.fixes:
             st = f.post_force(st, ctx)
         for f in self.fixes:

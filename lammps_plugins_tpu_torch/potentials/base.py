@@ -18,6 +18,7 @@ The scatter stays as the CPU twin.
 
 from __future__ import annotations
 
+import copy
 from typing import Mapping
 
 import numpy as np
@@ -120,6 +121,17 @@ def edge_virial_peratom(dxyz, gxyz, nlist: NeighborList, ghosts: Ghosts,
                      ghosts, n)
 
 
+def _on_device(v, dev):
+    """v with its tensors on dev (dicts, lists and tuples walked)."""
+    if torch.is_tensor(v):
+        return v.to(dev)
+    if isinstance(v, dict):
+        return {k: _on_device(x, dev) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_on_device(x, dev) for x in v)
+    return v
+
+
 class PairStyle:
     """Base class: subclasses implement neighbor_requests() and energy()."""
 
@@ -165,6 +177,19 @@ class PairStyle:
         prepare() returns a copy without it.  The copy may share every
         table with the original."""
         return self
+
+    def to(self, device) -> "PairStyle":
+        """A copy of this style with every tensor it holds (in its
+        attributes, their dicts, lists and tuples) on `device`, the host
+        tables shared: the sharded engine's per-device placement gives
+        each shard its own."""
+        dev = torch.device(device)
+        new = copy.copy(self)
+        for k, v in vars(self).items():
+            setattr(new, k, _on_device(v, dev))
+        if isinstance(getattr(self, "device", None), torch.device):
+            new.device = dev
+        return new
 
     def energy(self, x: torch.Tensor, strain: torch.Tensor | None,
                types: torch.Tensor, nbr: NeighborData,

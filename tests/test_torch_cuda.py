@@ -1609,10 +1609,11 @@ def test_ramped_nvt_two_runs_graph_equals_eager_on_card(cuda):
 
 # -- the sharded engine (parallel/sharded_engine.py), shards on one card --
 
-def _sharded(dev, fused, jiggle=0.0, grid=(4, 1), temp=600.0):
+def _sharded(dev, fused, jiggle=0.0, grid=(4, 1), temp=600.0,
+             placement=None, devices=None):
     """rebomos_bulk(12, 8, 1) (864 atoms, four 14.4 A x-slabs beside an
     11.0 A halo margin at skin 0.5; (12, 12, 1) for a 2x2 grid), f32 on
-    `dev`, its shards stacked there."""
+    `dev`, its shards stacked there (or on `devices` in `placement`)."""
     from lammps_plugins_tpu_torch.fixes.velocity import velocity_create
     from lammps_plugins_tpu_torch.parallel import ShardedEngine
     st = rebomos_bulk(12, 8 if grid[1] == 1 else 12, 1, tilt_xy=0.0,
@@ -1630,8 +1631,8 @@ def _sharded(dev, fused, jiggle=0.0, grid=(4, 1), temp=600.0):
     pair = REBOMoS.from_file(SYNTH_REBO, ["M", "S"], dtype=torch.float32,
                              device=dev)
     se = ShardedEngine(st, pair, [FixNVE()], units.METAL,
-                       devices=[dev] * (grid[0] * grid[1]), grid=grid,
-                       skin=0.5)
+                       devices=devices or [dev] * (grid[0] * grid[1]),
+                       grid=grid, skin=0.5, placement=placement)
     se.fused_loop = fused
     return se
 
@@ -1652,6 +1653,52 @@ def test_sharded_graph_loop_matches_eager_loop(cuda, grid):
                            getattr(eager.shards, f)), f
     for f in ("t_loc", "valid_loc", "exp_r", "exp_l", "exp_u", "exp_d"):
         assert torch.equal(getattr(graph.halo, f), getattr(eager.halo, f)), f
+
+
+@pytest.mark.parametrize("grid", [(4, 1), (2, 2)], ids=["slabs", "2x2"])
+def test_per_device_graph_matches_eager_and_stacked(cuda, grid):
+    """The per-device placement on the card (a stream a shard): 60 steps
+    through resettles as captured pieces, equal bit for bit to its eager
+    run and to the stacked layout's; A, B, C and D' launched by every
+    shard."""
+    stacked = _sharded(cuda, None, grid=grid)
+    graph, eager = (_sharded(cuda, f, grid=grid, placement="per_device")
+                    for f in (None, False))
+    graph.reset_shard_launches()
+    for e in (stacked, graph, eager):
+        e.run(60)
+    assert graph._prog is not None and eager._prog is None
+    assert graph.resettles >= 3
+    assert graph.resettles == eager.resettles == stacked.resettles
+    for other in (eager, stacked):
+        for f in ("x", "v", "f", "image", "type", "q", "tag", "valid"):
+            assert torch.equal(getattr(graph.shards, f),
+                               getattr(other.shards, f)), f
+        for f in ("t_loc", "valid_loc", "exp_r", "exp_l", "exp_u", "exp_d"):
+            assert torch.equal(getattr(graph.halo, f),
+                               getattr(other.halo, f)), f
+    for c in graph.shard_launches():
+        assert all(c[m] > 0 for m in ("rebo", "mirror", "lj_cells",
+                                      "select_candidates")), c
+    graph.close()
+
+
+def test_per_device_card_and_cpu_shards(cuda):
+    """Two x-slabs, one on the card and one on the CPU (its kernels'
+    twins): every cross-shard move a copy between the devices; step-0 pe
+    and forces against the stacked layout on the card (2e-5, 3e-4 x
+    scale), then 20 eager steps, finite."""
+    ref = _sharded(cuda, None, grid=(2, 1), jiggle=0.05)
+    mixed = _sharded(cuda, None, grid=(2, 1), jiggle=0.05,
+                     devices=[cuda, torch.device("cpu")])
+    pe_r, pe_m = ref.potential_energy(), mixed.potential_energy()
+    assert abs(pe_m - pe_r) <= 2e-5 * abs(pe_r)
+    ref._setup_forces()
+    mixed._setup_forces()
+    f_r, f_m = ref.to_state().f, mixed.to_state().f.to(cuda)
+    assert float((f_m - f_r).abs().max()) <= 3e-4 * float(f_r.abs().max())
+    mixed.run(20)
+    assert bool(torch.isfinite(mixed.to_state().x).all())
 
 
 def test_sharded_kernels_match_twins_on_a_shard_block(cuda):

@@ -10,6 +10,8 @@ scale.  Then, on a small charged LJ deck (fix bfield + fix nve), the
 sharded Script against the port's single-device Script: its f_ columns
 through fix_view_state, a restart file of the gathered state, and the
 refusals of the single-device commands (minimize, per-atom computes).
+Each test runs the port's shards in both placements, stacked and per
+device (Script(placement=...)).
 """
 
 import os
@@ -50,14 +52,17 @@ thermo          10
 """
 
 
-def _script(pkg, n=1, log=None):
+PLACEMENTS = ("stacked", "per_device")
+
+
+def _script(pkg, n=1, log=None, placement=None):
     if pkg == "jax":
         from lammps_plugins_tpu.api.script import Script
         return Script(log=log or (lambda _: None), n_devices=n)
     from lammps_plugins_tpu_torch.api.script import Script
     return Script(log=log or (lambda _: None), dtype=torch.float64,
                   device="cpu", n_devices=n,
-                  devices=["cpu"] * n if n > 1 else None)
+                  devices=["cpu"] * n if n > 1 else None, placement=placement)
 
 
 def _run(s, text):
@@ -72,10 +77,14 @@ def jax_rows():
     return _run(_script("jax", 4), DECK).last_rows
 
 
-def test_sharded_rebomos_deck_matches_jax_script(jax_rows):
-    from lammps_plugins_tpu_torch.parallel import ShardedEngine
-    s = _run(_script("port", 4), DECK)
+@pytest.mark.parametrize("placement", PLACEMENTS)
+def test_sharded_rebomos_deck_matches_jax_script(jax_rows, placement):
+    from lammps_plugins_tpu_torch.parallel import (PerDeviceEngine,
+                                                   ShardedEngine)
+    s = _run(_script("port", 4, placement=placement), DECK)
     assert isinstance(s.engine, ShardedEngine) and s.engine.n_devices == 4
+    assert isinstance(s.engine, PerDeviceEngine) == (placement
+                                                     == "per_device")
     rows = s.last_rows
     assert [r["step"] for r in rows] == [r["step"] for r in jax_rows] \
         == [0, 20]
@@ -85,14 +94,16 @@ def test_sharded_rebomos_deck_matches_jax_script(jax_rows):
     assert ok, dict(zip(KEYS, diff))
 
 
-def test_sharded_lj_deck_matches_single_device(tmp_path):
+@pytest.mark.parametrize("placement", PLACEMENTS)
+def test_sharded_lj_deck_matches_single_device(tmp_path, placement):
     """f_ columns read through fix_view_state, and write_restart of the
     gathered state, as on one device."""
     from lammps_plugins_tpu_torch.run.checkpoint import load_state
     text = LJ_DECK + f"run 20\nwrite_restart {tmp_path}/r.npz\n"
     printed = {1: [], 4: []}
     for n in (1, 4):
-        _run(_script("port", n, printed[n].append),
+        _run(_script("port", n, printed[n].append,
+                     placement if n > 1 else None),
              text.replace("r.npz", f"r{n}.npz"))
     t1, t4 = ([[float(v) for v in ln.split()] for ln in printed[n]
                if ln.startswith("   ") and ln.split()[0].isdigit()]
@@ -104,12 +115,14 @@ def test_sharded_lj_deck_matches_single_device(tmp_path):
     np.testing.assert_allclose(b.v.numpy(), a.v.numpy(), rtol=0, atol=1e-9)
 
 
-def test_sharded_deck_refuses_single_device_commands():
+@pytest.mark.parametrize("placement", PLACEMENTS)
+def test_sharded_deck_refuses_single_device_commands(placement):
     from lammps_plugins_tpu_torch.api.script import ScriptError
-    s = _run(_script("port", 4), LJ_DECK)
+    s = _run(_script("port", 4, placement=placement), LJ_DECK)
     with pytest.raises(ScriptError, match="minimize is single-device"):
         s.run_text("minimize 0.0 1e-4 10 10\n")
-    s = _run(_script("port", 4), LJ_DECK + "compute pe all pe/atom\n"
+    s = _run(_script("port", 4, placement=placement),
+             LJ_DECK + "compute pe all pe/atom\n"
              "dump 1 all custom 5 " + os.devnull + " id c_pe\n")
     with pytest.raises(ScriptError, match="single-device"):
         s.run_text("run 5\n")

@@ -1,7 +1,8 @@
 """The port's sharded engine against the JAX package's ShardedEngine on the
 other styles and fixes, and the engine's own contracts, float64 on the
 CPU (the JAX engine on the 8 virtual devices of tests/conftest.py, the
-port's shards stacked on the CPU).
+port's shards on the CPU, stacked and per device: each parity test runs
+for both placements).
 
 Held against JAX, one JAX engine per module fixture (a JAX sharded run
 costs ~50 s of compilation):
@@ -19,12 +20,17 @@ costs ~50 s of compilation):
 The port's own contracts, on the charged melt: the device loop's
 iteration (eager on the CPU) equal to the host loop bit for bit over
 resettles; a re-list after a span equal to the span's last resettle; a
-forced re-size (slack 1.01) giving the same trajectory;
+forced re-size (slack 1.01) giving the same trajectory (both
+placements);
 callbacks with the gathered state; fix_view_state against the
-single-device Engine; the Comm timer above zero; group_sel by tag; and
+single-device Engine; the Comm timer above zero; group_sel by tag; the
+per-device placement against the stacked one: the Langevin group bit for
+bit, fix bfield with fix nve bit for bit but for fsum, and fix bfield
+with fix nvt to 1e-12 relative (only the order of the psum differs); and
 the refusals (a slab narrower than the halo margin, a grid that does not
-tile the shards, fewer than two shards, shards on several devices, a
-count of cards the machine lacks, a non-periodic split axis).
+tile the shards, fewer than two shards, a card the machine lacks, a
+stacked layout asked for shards on several devices, a non-periodic split
+axis).
 """
 
 import numpy as np
@@ -35,6 +41,7 @@ from torch_parity import SYNTH_AEAM
 
 STEPS = 40
 F64 = dict(dtype=torch.float64, device="cpu")
+PLACEMENTS = ("stacked", "per_device")
 
 
 def _min_image(d, h):
@@ -185,23 +192,26 @@ def _same_trajectory(se, ref):
     np.testing.assert_allclose(end.v.numpy(), ref["v"], rtol=0, atol=1e-9)
 
 
-def test_aeam_two_slabs_static_match_jax(jax_aeam):
+@pytest.mark.parametrize("placement", PLACEMENTS)
+def test_aeam_two_slabs_static_match_jax(jax_aeam, placement):
     """AEAM's angular embedding across the slab faces: the sharded view
     drops the angular row set (for_sharded) and takes autograd forces."""
     from lammps_plugins_tpu_torch.fixes.nve import FixNVE
     from lammps_plugins_tpu_torch.potentials.aeam import AEAM
     pair = AEAM.from_file(SYNTH_AEAM, ["Al", "Si"], **F64)
-    se = _port(jax_aeam, pair, [FixNVE()], 2, 1.0)
+    se = _port(jax_aeam, pair, [FixNVE()], 2, 1.0, placement=placement)
     assert se.pair is not pair and se.pair._ang_sel is None
     _static(se, jax_aeam)
 
 
-def test_charged_melt_bfield_nvt_match_jax(jax_bfield_nvt):
+@pytest.mark.parametrize("placement", PLACEMENTS)
+def test_charged_melt_bfield_nvt_match_jax(jax_bfield_nvt, placement):
     """lj/cut/coul/cut with per-shard charges (q_loc), fix bfield's and
-    fix nvt's sums over every block: static, then 40 steps and fsum."""
+    fix nvt's sums over every block (per device: psums): static, then 40
+    steps and fsum."""
     ref = jax_bfield_nvt
     fixes = _fixes("port", "bfield_nvt")
-    se = _port(ref, _lj_pairs(True)[1], fixes, 4, 1.0)
+    se = _port(ref, _lj_pairs(True)[1], fixes, 4, 1.0, placement=placement)
     _static(se, ref)
     se.fused_loop = True
     se.run(STEPS)
@@ -213,13 +223,15 @@ def test_charged_melt_bfield_nvt_match_jax(jax_bfield_nvt):
                                atol=1e-9 * np.abs(fsum_j).max())
 
 
-def test_group_langevin_match_jax(jax_langevin_group):
+@pytest.mark.parametrize("placement", PLACEMENTS)
+def test_group_langevin_match_jax(jax_langevin_group, placement):
     """A group-scoped fix nve and fix langevin: membership by tag, the
-    noise drawn block by block under fold_in(key, shard)."""
+    noise drawn block by block under fold_in(key, shard) (per device:
+    each shard its own block)."""
     ref = jax_langevin_group
     gm = _group(ref["state"])
     se = _port(ref, _lj_pairs(False)[1], _fixes("port", "langevin", gm), 4,
-               2.0)
+               2.0, placement=placement)
     _static(se, ref)
     se.fused_loop = False
     se.run(STEPS)
@@ -275,13 +287,14 @@ def test_relist_after_a_span_gives_the_same_tables():
             assert torch.equal(a, b)
 
 
-def test_forced_regrow_gives_the_same_trajectory():
+@pytest.mark.parametrize("placement", PLACEMENTS)
+def test_forced_regrow_gives_the_same_trajectory(placement):
     """A re-size forced in the middle of a run (slack 1.01, then a
     migration overflow's _grow: n_cap and B_mig grow, the shards are
     repacked) continues the trajectory of an engine that never re-sized
     past its first resettle (other row orders, so to rounding)."""
-    a = _melt_engine(slack=1.01, fused=True)
-    b = _melt_engine(fused=True)
+    a = _melt_engine(slack=1.01, fused=True, placement=placement)
+    b = _melt_engine(fused=True, placement=placement)
     b.run(STEPS)
     a.run(STEPS // 2)
     n_cap, grows = a.n_cap, a.regrows
@@ -364,8 +377,11 @@ def test_refusals():
         make(devices=["cpu"] * 4, grid=(-2, -2))
     with pytest.raises(ValueError, match=">= 2 shards"):
         make(devices=["cpu"])
-    with pytest.raises(NotImplementedError, match="several cards"):
-        make(devices=["cpu", "cpu", "cuda:0", "cuda:0"])
+    with pytest.raises(ValueError, match="the machine has"):
+        make(devices=["cpu", "cpu"] + [f"cuda:{torch.cuda.device_count()}"]
+             * 2)                                # a card the machine lacks
+    with pytest.raises(ValueError, match="stacks the shards on one"):
+        make(devices=["cpu", "cpu", "cuda:0", "cuda:0"], placement="stacked")
     with pytest.raises(ScriptError, match="needs devices"):
         Script(device="cpu", n_devices=4)        # shards named, not implied
     slab = st.replace(box=st.box.__class__.from_numpy(
@@ -373,3 +389,56 @@ def test_refusals():
     with pytest.raises(ValueError, match="periodic axis 0"):
         ShardedEngine(slab, pair, [FixNVE()], units.METAL,
                       devices=["cpu"] * 4, skin=1.0)
+
+
+def _rows_and_extras(se):
+    from lammps_plugins_tpu_torch.run.device_loop import extras_items
+    ss = se.shards
+    out = {f: getattr(ss, f) for f in ("x", "v", "f", "image", "tag",
+                                       "valid")}
+    out.update((":".join(p), t) for p, t in extras_items(ss.extras))
+    return out
+
+
+def test_per_device_langevin_group_equals_stacked_bit_for_bit():
+    """The group-scoped fix nve + fix langevin melt (skin 0.3: resettles
+    inside the run): each shard draws its block's noise alone, and the
+    per-device run equals the stacked one bit for bit, extras included."""
+    from lammps_plugins_tpu.core import units as junits
+    from lammps_plugins_tpu.fixes.velocity import velocity_create
+    st = velocity_create(_jax_melt(False), junits.METAL, 900.0, seed=5)
+    gm = _group(st)
+    out = {}
+    for p in PLACEMENTS:
+        se = _port(dict(state=st), _lj_pairs(False)[1],
+                   _fixes("port", "langevin", gm), 4, 0.3, placement=p)
+        se.fused_loop = True
+        se.run(STEPS)
+        out[p] = (se.resettles, _rows_and_extras(se))
+    assert out["stacked"][0] == out["per_device"][0] >= 2
+    for k, t in out["stacked"][1].items():
+        assert torch.equal(t, out["per_device"][1][k]), k
+
+
+@pytest.mark.parametrize("kind", ["bfield_nve", "bfield_nvt"])
+def test_per_device_bfield_and_nvt_against_stacked(kind):
+    """fix bfield with fix nve: the trajectory bit for bit, fsum (a psum
+    of the shards' sums) to 1e-12 relative; with fix nvt the chain reads
+    the psum'd temperature, so the whole state holds to 1e-12 relative
+    (f64) and the resettles agree."""
+    a, b = (_melt_engine(fused=True, kind=kind, placement=p)
+            for p in PLACEMENTS)
+    a.run(STEPS)
+    b.run(STEPS)
+    assert a.resettles == b.resettles >= 2
+    ra, rb = _rows_and_extras(a), _rows_and_extras(b)
+    exact = ("x", "v", "f", "image", "tag", "valid") \
+        if kind == "bfield_nve" else ("image", "tag", "valid")
+    for k, t in ra.items():
+        if k in exact:
+            assert torch.equal(t, rb[k]), k
+        else:
+            scale = max(float(t.abs().max()), 1e-300)
+            assert float((t - rb[k]).abs().max()) <= 1e-12 * scale, k
+    fa, fb = (e.fixes[0].energy(e.fix_view_state(), e.ctx) for e in (a, b))
+    assert abs(float(fa) - float(fb)) <= 1e-12 * abs(float(fa))

@@ -53,9 +53,24 @@ MoS2 monolayer (rebomos_monolayer(577, 578), REBOMOS NVT 300 K from seed
 12345, skin 0.8, check every 10; 100-step windows).  The decks watch the
 NVE total energy's drift, the NVT workloads the conserved quantity's.
 
+    python3 tools/torch_bench.py --sharded 2x2|slabs|config5
+                                 [--placement stacked|per_device]
+                                 [--steps N] [--reps R]
+
+runs the sharded engine on the card: the bench scene in the reference's
+2x2 processor grid or in four x-slabs, or config 5 (7,999,488 atoms in
+eight x-slabs, benchmarks/scale_multichip.py:45-49), its shards stacked
+on cuda:0 or per device (one stream a shard, over min(count, 4) cards:
+one card gives every shard its own stream on it).  The bench-scene
+layouts run their windows in turns with the single-device Engine on the
+same scene (300-step windows); config 5 alone (100-step windows: a second
+8M-atom engine does not fit beside it).  Prints atom-steps/s of each
+window, the median, the resettles, the peak memory and the card's name
+and power limit as one JSON line.
+
 Every Engine comes from chip_smoke.py (bench_engine, aeam_engine,
-deck_engine, mono_engine), so the bench times the cells that the smoke
-script checks.
+deck_engine, mono_engine, shard_bench, scale_engine), so the bench times
+the cells that the smoke script checks.
 """
 
 from __future__ import annotations
@@ -187,6 +202,53 @@ def loops_main(args, name):
         gpu=gpu_name())), flush=True)
 
 
+#: the sharded workloads: grid (None: config 5), steps a window, windows
+SHARDED = {"2x2": dict(grid=(2, 2), steps=300, reps=3),
+           "slabs": dict(grid=(4, 1), steps=300, reps=3),
+           "config5": dict(grid=None, steps=100, reps=3)}
+
+
+def sharded_main(args):
+    """The sharded engine of --sharded in --placement (chip_smoke's
+    shard_bench / scale_engine), windows in turns with the single Engine
+    for the bench-scene layouts."""
+    import torch
+    import chip_smoke as cs
+    w = SHARDED[args.sharded]
+    dev = torch.device("cuda:0")
+    kw = dict(placement=args.placement)
+    n = 8 if w["grid"] is None else w["grid"][0] * w["grid"][1]
+    if args.placement == "per_device":
+        kw["devices"] = cs.card_devices(n)
+    torch.cuda.reset_peak_memory_stats()
+    engines = {}
+    if w["grid"] is None:
+        engines["sharded"] = cs.scale_engine(dev, **kw)
+    else:
+        engines["sharded"] = cs.shard_bench(dev, w["grid"], **kw)
+        engines["single"] = cs.bench_engine(dev)
+    natoms = engines["sharded"].natoms
+    for eng in engines.values():
+        t0 = time.perf_counter()
+        eng.run(w["steps"])
+        cs.sync_all()
+        print(f"# warm-up: {w['steps']} steps in "
+              f"{time.perf_counter() - t0:.2f} s", file=sys.stderr, flush=True)
+    rates = cs.windows_in_turns(engines, steps=args.steps, reps=args.reps)
+    se = engines["sharded"]
+    print(json.dumps(dict(
+        metric=f"atom-steps/s (MoS2 REBOMOS NVE, {natoms} atoms, f32, "
+               f"sharded {args.sharded}, {args.placement})",
+        unit="atom-steps/s", value=max(rates["sharded"]),
+        median=statistics.median(rates["sharded"]), windows=rates,
+        window_steps=args.steps, natoms=natoms,
+        devices=[str(d) for d in se.group.devices]
+        if args.placement == "per_device" else [str(dev)] * n,
+        resettles=se.resettles, n_cap=se.n_cap, k_caps=dict(se._plan.k_caps),
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        gpu=gpu_name())), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=None,
@@ -205,6 +267,11 @@ def main():
                         help=f"{what}, both loops")
     ap.add_argument("--poly", action="store_true",
                     help="with --aeam: poly_mode, not the table splines")
+    ap.add_argument("--sharded", choices=tuple(SHARDED), default="",
+                    help="the sharded engine on the bench scene (2x2, "
+                         "slabs) or config 5")
+    ap.add_argument("--placement", choices=("stacked", "per_device"),
+                    default="stacked", help="with --sharded")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import torch
@@ -212,6 +279,10 @@ def main():
         raise SystemExit("torch_bench: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.sharded:
+        args.steps = args.steps or SHARDED[args.sharded]["steps"]
+        args.reps = args.reps or SHARDED[args.sharded]["reps"]
+        return sharded_main(args)
     for name, w in WORKLOADS.items():
         if getattr(args, name):
             args.steps = args.steps or w["steps"]

@@ -39,17 +39,121 @@ measures
     line; Chrome trace to --trace when given),
 
 and prints one line `RESULT {json}` with the card's name and power limit.
+
+    python3 tools/torch_step_profile.py --sharded 2x2|slabs|config5
+
+profiles the sharded step instead, in one call for three engines one
+after the other: the single-device Engine on the same scene, the sharded
+engine stacked on cuda:0, and per device (one stream a shard, over
+min(count, 4) cards), each from chip_smoke.py (bench_engine, shard_bench,
+scale_engine; config 5's single Engine is the 7,999,488 atoms unsharded,
+reported as refused where it does not fit the card).  After a warm-up of
+100 steps each, torch.profiler over 100 steps of Engine.run: every
+kernel's device ms a step and launches a step, the device ms a step, the
+host launch calls and graph launches a step, and wall ms a step (host
+clock, the same steps unprofiled) with the idle share 1 - device / wall.
+One line `RESULT {json}`.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+
+
+def sharded_main(args, cs, gpu):
+    """--sharded: the single Engine, stacked and per-device placements of
+    one layout profiled one after the other (module docstring)."""
+    import gc
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda:0")
+    steps = 100
+    grid = {"2x2": (2, 2), "slabs": (4, 1), "config5": None}[args.sharded]
+    n = 8 if grid is None else grid[0] * grid[1]
+
+    def single():
+        if grid is not None:
+            return cs.bench_engine(dev)
+        from lammps_plugins_tpu_torch.core import units
+        from lammps_plugins_tpu_torch.fixes.nve import FixNVE
+        from lammps_plugins_tpu_torch.run.simulation import Engine
+        se = cs.scale_engine(dev)
+        st, pair = se.to_state(), se.pair
+        del se
+        return Engine(st, pair, [FixNVE()], units.METAL,
+                      skin=cs.SCALE_8M["skin"],
+                      check_every=cs.BENCH["check_every"])
+
+    def sharded(placement):
+        kw = dict(placement=placement)
+        if placement == "per_device":
+            kw["devices"] = cs.card_devices(n)
+        if grid is None:
+            return cs.scale_engine(dev, **kw)
+        return cs.shard_bench(dev, grid, **kw)
+
+    out = {}
+    for name, make in (("single", single),
+                       ("stacked", lambda: sharded("stacked")),
+                       ("per_device", lambda: sharded("per_device"))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            eng = make()
+            eng.run(100)
+            cs.sync_all()
+        except torch.cuda.OutOfMemoryError as e:
+            out[name] = dict(refused=str(e).splitlines()[0][:200],
+                             peak_gib=torch.cuda.max_memory_allocated()
+                             / 2 ** 30)
+            eng = None
+            continue
+        natoms = eng.natoms if hasattr(eng, "natoms") else eng.state.natoms
+        cs.sync_all()
+        t0 = time.perf_counter()
+        eng.run(steps)
+        cs.sync_all()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.run(steps)
+            cs.sync_all()
+        cuda = torch.autograd.DeviceType.CUDA
+        ops = [e for e in prof.events() if e.device_type == cuda]
+        calls = collections.Counter(e.name for e in prof.events()
+                                    if e.device_type != cuda
+                                    and e.name.startswith("cu"))
+        dev_ms = sum(e.time_range.elapsed_us() for e in ops) / steps / 1e3
+        by = collections.defaultdict(lambda: [0.0, 0])
+        for e in ops:
+            by[e.name[:120]][0] += e.time_range.elapsed_us() / steps / 1e3
+            by[e.name[:120]][1] += 1
+        out[name] = dict(
+            natoms=natoms, wall_ms_per_step=wall_ms,
+            device_ms_per_step=dev_ms, idle_share=1 - dev_ms / wall_ms,
+            host_launch_calls_per_step=sum(calls[c] for c in cs.LAUNCH_CALLS)
+            / steps,
+            graph_launches_per_step=calls["cudaGraphLaunch"] / steps,
+            atom_steps_per_s=natoms / (wall_ms * 1e-3),
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            kernels_ms_per_step=[[k, ms, c / steps] for k, (ms, c) in sorted(
+                by.items(), key=lambda kv: -kv[1][0])][:30])
+        print(f"{name}: {wall_ms:.4f} ms a step, device {dev_ms:.4f} ms, "
+              f"host launch calls a step "
+              f"{out[name]['host_launch_calls_per_step']:.2f}", flush=True)
+        if hasattr(eng, "close"):
+            eng.close()
+        del eng
+    print("RESULT " + json.dumps(dict(label=args.label, sharded=args.sharded,
+                                      steps=steps, engines=out, gpu=gpu)))
 
 
 def main():
@@ -68,6 +172,8 @@ def main():
     ap.add_argument("--poly", action="store_true")
     ap.add_argument("--deck", default="",
                     choices=("", "melt", "lj", "monolayer", "wide_melt"))
+    ap.add_argument("--sharded", default="",
+                    choices=("", "2x2", "slabs", "config5"))
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -81,6 +187,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
+    if args.sharded:
+        return sharded_main(args, cs, subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip())
     config = {}
     if args.lj != "full":
         config["lj"] = args.lj
