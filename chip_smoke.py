@@ -46,7 +46,7 @@ Phases (any failure raises, so the script exits non-zero):
      start bit for bit; then the graph and the eager loop in turns: three
      timed 1,000-step windows each (atom-steps/s, wall ms per step), one
      torch.profiler run of 300 steps each (device ops, host launch calls
-     and host syncs, device ms per step, hence the idle share; A, B, C and
+     and host syncs, device ms per step; A, B, C and
      D' must show by name in the graph loop's profile), host-clock ms per
      rebuild, the peak memory (line `LOOPS {json}`); then the REBO kernel
      against its twin again on the run's own lists at the run's K
@@ -378,6 +378,16 @@ def interleaved_ms(fns, reps):
 def timed_ms(fn, reps=10) -> float:
     """Median device time of fn() in ms."""
     return interleaved_ms({"fn": fn}, reps)["fn"]
+
+
+def rebuild_device_ms(eng) -> float:
+    """Device ms of one rebuild of an Engine's lists at its plan and state
+    (run/device_loop.device_seconds around rebuild_lists)."""
+    from lammps_plugins_tpu_torch.run.device_loop import device_seconds
+    st = eng.state
+    return 1e3 * device_seconds(lambda: eng.rebuild_lists(
+        eng._plan, st.x, st.image, st.type, eng.pair.neighbor_requests()),
+        st.x.device)
 
 
 @contextlib.contextmanager
@@ -1349,10 +1359,8 @@ def loop_numbers(engines, gpu, steps=TIMED_STEPS,
                  profile_steps=PROFILE_STEPS, kernels=GRAPH_KERNELS):
     """The graph and the eager loop in turns on their own Engines (same
     scene): three `steps`-step windows each, one profiled run of
-    `profile_steps` each, then host-clock ms per rebuild; idle share = 1 -
-    device ms / wall ms per step (device ms from the profile, wall from
-    the windows).  `kernels` must show by name in the graph loop's
-    profile."""
+    `profile_steps` each, then host-clock ms per rebuild.  `kernels` must
+    show by name in the graph loop's profile."""
     natoms = next(iter(engines.values())).state.natoms
     out = {name: dict(windows=[], wall_ms_per_step=[], rebuilds=[])
            for name in engines}
@@ -1373,8 +1381,6 @@ def loop_numbers(engines, gpu, steps=TIMED_STEPS,
         out[name].update(profile_run(engines[name], profile_steps))
     for name in names:
         o = out[name]
-        o["idle_share"] = [1.0 - o["device_ms_per_step"] / w
-                           for w in o["wall_ms_per_step"]]
         o["rebuild_host_ms"] = (graph_rebuild_ms(engines[name])
                                 if name == "graph"
                                 else eager_rebuild_ms(engines[name]))
@@ -1385,8 +1391,7 @@ def loop_numbers(engines, gpu, steps=TIMED_STEPS,
               f"{statistics.median(o['windows']):.6g}; rebuilds "
               f"{o['rebuilds']}); wall ms/step "
               f"{', '.join(f'{w:.4f}' for w in o['wall_ms_per_step'])}; "
-              f"device ms/step {o['device_ms_per_step']:.4f}; idle share "
-              f"{', '.join(f'{i:.3f}' for i in o['idle_share'])}; device "
+              f"device ms/step {o['device_ms_per_step']:.4f}; device "
               f"ops/step {o['device_ops_per_step']:.1f}; host launch calls/"
               f"step {o['host_launch_calls_per_step']:.2f} (graph launches "
               f"{o['graph_launches_per_step']:.3f}); host syncs per 1,000 "
@@ -2102,7 +2107,7 @@ def deck_path(dev, modules, name, gpu):
     st = eng.state
     forces_ms = timed_ms(lambda: eng.pair.forces(st.x, st.type, eng.nbr,
                                                  st.box.h), reps=20)
-    rebuild_ms = 1e3 * eng._rebuild_cost_estimate()
+    rebuild_ms = rebuild_device_ms(eng)
     print(f"{name} forces (the [N, K] edge sweep and mirror combine, torch "
           f"ops) {forces_ms:.4f} ms on the run's lists; a rebuild "
           f"{rebuild_ms:.4f} ms of device time")
@@ -2332,7 +2337,7 @@ def phase8_monolayer(dev, modules):
     peak_both = torch.cuda.max_memory_allocated() / 2 ** 30
     del ref
     torch.cuda.empty_cache()
-    rebuild_ms = 1e3 * eng._rebuild_cost_estimate()
+    rebuild_ms = rebuild_device_ms(eng)
     cand = candidates_record(eng, "monolayer")
     print(f"monolayer: a rebuild {rebuild_ms:.3f} ms of device time, D' "
           f"{cand['ms']:.4f} ms of it")
@@ -2782,7 +2787,7 @@ def script_rebomos(dev, modules):
     gpu = sh("nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader")
     out = {}
-    dumps, rows, walls = [], [], []
+    dumps, rows, walls, timers = [], [], [], []
     for tag in ("a", "b"):
         outputs = REBO_OUTPUTS.format(dir=SCRIPT_DIR, tag=tag,
                                       dump_every=REBO_DUMP_EVERY,
@@ -2806,6 +2811,7 @@ def script_rebomos(dev, modules):
         writer = [w for _, w in s.dumps if isinstance(w, DumpWriter)][0]
         writer.close()
         dumps.append(writer)
+        timers.append(dict(eng.timers.acc))
         rows.append(r)
         walls.append(wall)
         if tag == "a":
@@ -2867,7 +2873,7 @@ def script_rebomos(dev, modules):
         raise AssertionError("a second run of the REBOMOS deck wrote other "
                              "dump bytes or other thermo rows")
     frame_ms = {k: 1e3 * v / dumps[1].frames
-                for k, v in dumps[1].times.items()}
+                for k, v in timers[1].items() if k.startswith("Output.dump.")}
     # the same deck without its compute, dump and restart lines
     s = card_script(REBO_DECK.format(rebo=REBO_FILE, outputs=""))
     torch.cuda.reset_peak_memory_stats()
@@ -3311,6 +3317,7 @@ def sharded_bench(dev, modules, gpu):
     """(a) the bench scene in both layouts against the single-device Engine
     on the same card.  Returns (records by layout, launches of the 2x2
     graph run by module, shard-0 kernel records of the 2x2 run)."""
+    from lammps_plugins_tpu_torch.run.device_loop import device_seconds
     jig = shard_bench(dev, None, jiggle=SHARD_JIGGLE)
     jig._setup_forces()
     st = jig.state
@@ -3396,7 +3403,8 @@ def sharded_bench(dev, modules, gpu):
         torch.cuda.empty_cache()
         rates = windows_in_turns({"sharded": se, "single": single})
         prof = profile_run(se, SHARD_PROFILE_STEPS)
-        resettle_ms = 1e3 * se._rebuild_cost_estimate()
+        resettle_ms = 1e3 * device_seconds(
+            lambda: se._resettle(se.shards), se.device)
         rs_ops = resettle_profile(se)
         comm_ms = 1e3 * se._comm_cost_estimate()
         med = {k: statistics.median(v) for k, v in rates.items()}

@@ -33,6 +33,7 @@ Usage:
 
 from __future__ import annotations
 
+import functools
 import math
 import warnings
 from typing import Callable, Dict, List, Optional
@@ -57,6 +58,7 @@ from ..potentials.rebomos import REBOMoS
 from ..potentials import ljcut as _ljcut   # noqa: F401  (registers lj/cut*)
 from ..potentials import none as _none     # noqa: F401  (registers none/zero)
 from ..parallel.sharded_engine import ShardedEngine
+from ..run.dump import DumpWriter
 from ..run.simulation import Engine
 
 _NOOP_COMMANDS = {"dump_modify", "log", "echo",
@@ -812,7 +814,6 @@ class Script:
 
     def cmd_dump(self, args):
         """dump ID group-ID style N file [cols...] (atom / custom)."""
-        from ..run.dump import DumpWriter
         did, group, style, every, path = args[0], args[1], args[2], \
             int(args[3]), args[4]
         gmask = self._group_mask(group)
@@ -1074,9 +1075,12 @@ class Script:
                     vals.append(f"{v:>15.8g}")
             self.log("   " + "".join(vals))
 
+        # dump frames book their parts under the engine's Output section
+        callbacks = [(every, functools.partial(fn.write, timers=eng.timers)
+                      if isinstance(fn, DumpWriter) else fn)
+                     for every, fn in getattr(self, "dumps", ())]
         rows = eng.run(n, thermo_every=self.thermo_every or max(n, 1),
-                       on_thermo=on_thermo,
-                       callbacks=getattr(self, "dumps", ()))
+                       on_thermo=on_thermo, callbacks=callbacks)
         self.last_rows = rows
         if hasattr(eng, "timers"):
             self.log(eng.timers.performance_summary(eng.ctx.dt))

@@ -12,6 +12,13 @@
 // nodes, i.e. copies of their nodes: the memory they address stays owned by
 // PyTorch's graphs (and their pool), which must outlive the executable.
 // Replaying the iteration m times takes m launches and no host decision.
+//
+// lpt_stamp times spans on the device's own clock (run/timers.py): a
+// one-thread kernel adds sign * %globaltimer (ns) to an int64 slot, minus
+// at a span's start and plus at its end, so the slot sums its spans.  It
+// launches on the caller's stream, so a stream capture records it as a
+// node between the span's work and its neighbours': inside the IF body a
+// rebuild is timed only when it runs.
 
 #include <cuda_runtime.h>
 
@@ -32,7 +39,18 @@ cudaError_t add_node(cudaGraphNode_t* node, cudaGraph_t graph,
 #endif
 }
 
+__global__ void stamp_kernel(long long* slot, int sign) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  *slot += sign * (long long)t;
+}
+
 }  // namespace
+
+extern "C" int lpt_stamp(long long* slot, int sign, void* stream) {
+  stamp_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(slot, sign);
+  return (int)cudaGetLastError();
+}
 
 // out: a new graph, set_condition(pred) -> IF (pred) { body } -> tail.
 // body and tail stay the caller's (they are copied).

@@ -55,6 +55,7 @@ _SIGNATURES = {
     "lpt_graph_instantiate": [_P, _P],
     "lpt_graph_launch": [_P, _P],
     "lpt_graph_destroy": [_P, _P],
+    "lpt_stamp": [_P, _I, _P],
 }
 
 

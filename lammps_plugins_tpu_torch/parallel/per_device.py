@@ -440,9 +440,6 @@ class PerDeviceEngine(ShardedEngine):
             self._comm_cost = (time.perf_counter() - t0) / reps
         return self._comm_cost
 
-    def _rebuild_cost_estimate(self) -> float:
-        raise RuntimeError("the per-device placement runs the host loop")
-
     # -- the captured segment -------------------------------------------------
     def _program(self, nsteps: int):
         """The captured program of an nsteps segment (None: run eagerly):

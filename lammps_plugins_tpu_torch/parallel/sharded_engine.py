@@ -282,7 +282,6 @@ class ShardedEngine(LoopDriver):
         self._rs_in = None             # the rows the last resettle took
         self._loop = None
         self._loop_key = None
-        self._rebuild_cost = None
         self._comm_cost = None
         self.resettles = 0
         self.regrows = 0
@@ -888,7 +887,6 @@ class ShardedEngine(LoopDriver):
                  if t.dim() >= 1 and t.shape[0] == rows else t)
                 for p, t in extras_items(old.extras)))
         self._comm_cost = None
-        self._rebuild_cost = None
 
     # -- the step -------------------------------------------------------------
     def _pair_local(self, halo: HaloTables, d: int) -> PairStyle:
@@ -1019,6 +1017,7 @@ class ShardedEngine(LoopDriver):
                 self._loop = None
             self._loop = ShardLoop(self, self._flag_names)
             self._loop_key = key
+            self.timers.add("Pair.capture", self._loop.capture_s)
         return self._loop
 
     def _start_span(self, loop: "ShardLoop"):
@@ -1046,13 +1045,6 @@ class ShardedEngine(LoopDriver):
         span: the sharded plan keeps K_HEADROOM over the high-water kmax
         and tightens once, after the first resettle (resettle())."""
         self.resettles += res.n_rb
-
-    def _rebuild_cost_estimate(self) -> float:
-        """Device seconds of one resettle of every shard, measured once."""
-        if self._rebuild_cost is None:
-            self._rebuild_cost = device_seconds(
-                lambda: self._resettle(self.shards), self.device)
-        return self._rebuild_cost
 
     def _comm_cost_estimate(self) -> float:
         """Device seconds of one step's halo refresh of every shard, the

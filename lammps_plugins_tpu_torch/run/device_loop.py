@@ -11,7 +11,7 @@ parallel/sharded_engine.py::ShardLoop.
 One iteration of the JAX loop body, on buffers that stay in place:
 
     if pending: rebuild the lists into the loop's neighbor buffers, max-merge
-                the rebuild's flags, n_rb += 1
+                the rebuild's flags, n_rb += 1, its device ns into rebuild_ns
     check_every steps (fixes and forces) from the loop's state
     md = max |x - x_build|^2 in float64;  tripped = md > (skin / 2)^2
     accept = pending | ~tripped   (a discarded segment keeps its start)
@@ -23,8 +23,11 @@ On a CUDA state the iteration is one CUDA graph.  PyTorch captures the
 rebuild and the segment as two graphs sharing one memory pool, and
 csrc/graph.cu joins them under an IF conditional node whose flag is
 `pending`: the host launches the iteration m times without deciding
-anything, then reads the control vector (done, pending, n_rb, dprev,
-flags) in one copy.  On a CPU state the same code runs eagerly, with a
+anything, then reads the control vector (done, pending, n_rb, dprev, the
+ns of the rebuilds and of the steps' force calls, flags) in one copy.  The
+two spans are stamps on the device's clock (run/timers.py) that ride in
+the graph: the rebuild's inside the conditional node's body, so only the
+rebuilds taken count.  On a CPU state the same code runs eagerly, with a
 Python branch on `pending` in place of the conditional node.
 
 The decisions are made in float64 from the float32 md, as the host loop
@@ -60,6 +63,7 @@ import numpy as np
 import torch
 
 from ..ops import build
+from .timers import device_span, stamp
 
 #: the kernel wrapper modules of ops/ (each with a `launches` counter)
 KERNEL_MODULES = ("rebo", "mirror", "lj_cells", "select_k",
@@ -67,7 +71,8 @@ KERNEL_MODULES = ("rebo", "mirror", "lj_cells", "select_k",
                   "pin")
 _STATE_FIELDS = ("x", "v", "f")
 _RB_IN = ("rb_x", "rb_image")                   # the last rebuild's inputs
-_CTL = ("done", "pending", "n_rb", "dprev")     # ctl[0:4]; flags follow
+#: ctl[0:6]; flags follow
+_CTL = ("done", "pending", "n_rb", "dprev", "rebuild_ns", "forces_ns")
 
 
 def kernel_modules():
@@ -163,6 +168,8 @@ class SpanResult:
     pending: bool
     n_rb: int
     dprev: float
+    rebuild_s: float       # device seconds of the n_rb rebuilds
+    forces_s: float        # device seconds of the steps' force calls
     flags: dict
 
 
@@ -190,6 +197,7 @@ class GraphIteration:
         self.ctl = torch.zeros(len(_CTL) + len(self.names), dtype=torch.int64,
                                device=device)
         self.done, self.n_rb = self.ctl[0], self.ctl[2]
+        self.rebuild_ns, self.forces_ns = self.ctl[4], self.ctl[5]
         self.flags = self.ctl[len(_CTL):]
         self.pending = torch.zeros((), dtype=torch.bool, device=device)
         self.dprev = torch.zeros((), dtype=torch.float64, device=device)
@@ -205,6 +213,10 @@ class GraphIteration:
 
     def _steps(self):
         raise NotImplementedError
+
+    def _timed_rebuild(self):
+        with device_span(self.rebuild_ns):
+            self._rebuild()
 
     def _merge_flags(self, flags):
         """Max-merge a rebuild's flags into the control vector; n_rb += 1."""
@@ -239,6 +251,7 @@ class GraphIteration:
         capture the rebuild and the segment, and join them under the
         conditional node."""
         warm()
+        stamp(self.rebuild_ns, 0)     # the stamp kernel loaded, not captured
         lib = build.lib()
         t0 = time.perf_counter()
         torch.cuda.synchronize()
@@ -256,7 +269,7 @@ class GraphIteration:
         gc.disable()
         try:
             with torch.cuda.graph(rb, pool=pool):
-                self._rebuild()
+                self._timed_rebuild()
             mid = _launch_counts()
             with torch.cuda.graph(seg, pool=pool):
                 self._segment()
@@ -324,7 +337,7 @@ class GraphIteration:
             return
         for _ in range(n):
             if bool(self.pending):
-                self._rebuild()
+                self._timed_rebuild()
             self._segment()
 
     def read(self) -> SpanResult:
@@ -337,6 +350,7 @@ class GraphIteration:
         return SpanResult(
             done=int(v[0]), pending=bool(v[1]), n_rb=n_rb,
             dprev=float(np.array(v[3:4]).view(np.float64)[0]),
+            rebuild_s=1e-9 * int(v[4]), forces_s=1e-9 * int(v[5]),
             flags=dict(zip(self.names, (int(x) for x in v[len(_CTL):]))))
 
     def restore(self):
@@ -401,7 +415,7 @@ class DeviceLoop(GraphIteration):
         st = self.base
         with torch.no_grad():
             for _ in range(self.check):
-                st = self.eng._one_step(st, self.nbr)
+                st = self.eng._one_step(st, self.nbr, self.forces_ns)
         moved = [f.name for f in dataclasses.fields(st)
                  if f.name not in _STATE_FIELDS + ("step", "extras")
                  and getattr(st, f.name) is not getattr(self.base, f.name)]

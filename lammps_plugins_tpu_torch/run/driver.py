@@ -19,7 +19,9 @@ A subclass holds the state and the lists and provides:
   _host_rebuild()                  a rebuild at the current positions
   _host_steps(n) -> (new, md)      n steps from the current state, not
                                    kept yet; md the largest squared
-                                   displacement since the rebuild (float)
+                                   displacement since the rebuild (float);
+                                   a step may stamp its force call into
+                                   _host_span_ns()
   _accept(new)                     keep what _host_steps made
   _device_loop() -> GraphIteration the loop of the current plan
   _start_span(loop)                load the state into the loop and take
@@ -27,7 +29,6 @@ A subclass holds the state and the lists and provides:
   _resize_relist(flags, retry)     re-size after an overflowed span and
                                    re-list the last rebuild before it
   _after_span(res)                 count the span's rebuilds, tighten
-  _rebuild_cost_estimate()         device seconds of one rebuild
   _advanced(n)                     n more steps kept (optional)
 """
 
@@ -35,6 +36,8 @@ from __future__ import annotations
 
 import math
 from typing import Callable, Sequence
+
+import torch
 
 #: segments per span of the device loop at most: a span that overflows is
 #: run again whole, so this bounds the redone work (JAX simulation.py:720)
@@ -52,6 +55,15 @@ class LoopDriver:
     _pending_rebuild = False       # the rebuild rule's state (host side)
     _seg_dprev = 0.0
     _recovering = False            # a span-overflow recovery in flight
+    _host_ns = None                # the host loop's force spans in run()
+
+    def _host_span_ns(self) -> torch.Tensor:
+        """The slot (ns, on the state's device) that the host loop's steps
+        stamp their force calls into; run() books it with one read."""
+        if self._host_ns is None:
+            self._host_ns = torch.zeros((), dtype=torch.int64,
+                                        device=self.device)
+        return self._host_ns
 
     def _advanced(self, nsteps: int):
         pass
@@ -104,6 +116,12 @@ class LoopDriver:
             if _overflowed(res.flags) or res.done >= nsteps:
                 break
             reps = (nsteps - res.done) // self.check_every
+        # the span's device time, a discarded one's too: its rebuilds are
+        # Neigh, not the Pair section open around it; its force calls (the
+        # Engine's steps stamp theirs, the sharded engine's none) Pair.forces
+        self.timers.inner("Neigh", res.rebuild_s)
+        if res.forces_s:
+            self.timers.add("Pair.forces", res.forces_s)
         if res.n_rb and res.flags.get("lost_atoms"):
             raise RuntimeError(
                 f"{res.flags['lost_atoms']} atoms moved more than one slab "
@@ -119,17 +137,14 @@ class LoopDriver:
             self.step = step0
             self._recovering = True
             try:
-                self._resize_relist(res.flags, _retry)
+                with self.timers.section("Neigh"):
+                    self._resize_relist(res.flags, _retry)
                 return self._run_span_device(nsteps, _retry + 1)
             finally:
                 self._recovering = False
         self.step = step0 + res.done
         self._pending_rebuild, self._seg_dprev = res.pending, res.dprev
         self._f_valid = True
-        if res.n_rb:
-            # the span is booked under Pair: move its rebuilds to Neigh
-            self.timers.transfer("Pair", "Neigh",
-                                 res.n_rb * self._rebuild_cost_estimate())
         self._after_span(res)
 
     # -- the run ----------------------------------------------------------
@@ -141,12 +156,14 @@ class LoopDriver:
         runs at the start and whenever the step count reaches a multiple
         of `every` (dumps, restarts), with the global State."""
         self.timers.start_run(self.natoms, chips=self.n_devices)
+        self._host_ns = None
         self._setup_forces()
         rows = []
 
         def boundaries(done):
             if thermo_every and done % thermo_every == 0:
-                with self.timers.section("Output"):
+                with self.timers.section("Output"), \
+                        self.timers.section("Output.thermo"):
                     row = self._thermo_row()
                 rows.append(row)
                 if on_thermo:
@@ -179,6 +196,8 @@ class LoopDriver:
                 self._advanced(adv)
                 done += adv
                 boundaries(done)
+        if self._host_ns is not None:
+            self.timers.add("Pair.forces", 1e-9 * int(self._host_ns))
         self.timers.end_run(nsteps)
         self.thermo_rows = rows
         return rows

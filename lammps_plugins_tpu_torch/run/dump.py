@@ -10,20 +10,20 @@ Triclinic boxes get the xy/xz/yz bounds header LAMMPS tools expect.  A
 frame's device columns are stacked into one float64 tensor and copied to
 the host once (integers and float32 values are exact in float64); the
 scaled coordinates are then formed on the host in float64, as the JAX
-writer forms them.  `times` accumulates each frame's seconds in three
-parts: the per-atom computes (device work, synchronized), the host copy
-and the text.
+writer forms them.  A frame's seconds go to the Timers it is given, in
+three parts: `Output.dump.compute` (the per-atom computes, device work,
+synchronized), `Output.dump.copy` (the host copy) and `Output.dump.text`.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from ..core.state import State
+from .timers import Timers
 
 _INT_COLUMNS = ("id", "type", "ix", "iy", "iz")
 
@@ -40,7 +40,6 @@ class DumpWriter:
         self.providers = dict(providers or {})
         self.group_mask = (None if group_mask is None
                            else np.asarray(group_mask, bool))
-        self.times = {"compute_s": 0.0, "copy_s": 0.0, "text_s": 0.0}
         self.frames = 0
         self._fh = open(path, "a" if append else "w")
 
@@ -82,16 +81,23 @@ class DumpWriter:
                 raise ValueError(f"Unknown dump column {c!r}")
         return names, cols
 
-    def write(self, state: State):
-        t0 = time.perf_counter()
-        names, cols = self._device_columns(state)
-        if state.x.is_cuda:
-            torch.cuda.synchronize(state.x.device)
-        t1 = time.perf_counter()
-        host = (torch.stack(cols, dim=1).cpu().numpy() if cols
-                else np.zeros((state.natoms, 0)))
-        t2 = time.perf_counter()
-        vals = {c: host[:, i] for i, c in enumerate(names)}
+    def write(self, state: State, timers: Timers | None = None):
+        """Write one frame of `state`; its parts' seconds go to `timers`
+        (the running Engine's, when a deck's run calls it)."""
+        tm = Timers() if timers is None else timers
+        with tm.section("Output.dump.compute"):
+            names, cols = self._device_columns(state)
+            if state.x.is_cuda:
+                torch.cuda.synchronize(state.x.device)
+        with tm.section("Output.dump.copy"):
+            host = (torch.stack(cols, dim=1).cpu().numpy() if cols
+                    else np.zeros((state.natoms, 0)))
+        with tm.section("Output.dump.text"):
+            self._text(state, dict(zip(names, host.T)))
+        self.frames += 1
+
+    def _text(self, state: State, vals: dict):
+        """The frame's text from its host columns `vals`, written out."""
         n = state.natoms
         h = state.box.h_np()
         lo = state.box.lo_np()
@@ -134,8 +140,3 @@ class DumpWriter:
         out.extend(fmt % tuple(row) for row in table.tolist())
         self._fh.write("\n".join(out) + "\n")
         self._fh.flush()
-        t3 = time.perf_counter()
-        self.times["compute_s"] += t1 - t0
-        self.times["copy_s"] += t2 - t1
-        self.times["text_s"] += t3 - t2
-        self.frames += 1

@@ -39,7 +39,10 @@ raises.  The host (numpy) build is
 kept for CPU parity tests, which clear `Engine.device_rebuild`; a CUDA
 state refuses it.  The Engine never moves data off the state's device on
 its own; the only device-to-host copies are the per-segment displacement
-or per-span control vector, the rebuild flags and the thermo rows.
+or per-span control vector, the rebuild flags, the thermo rows and, once
+at the end of a run that took the host loop, its steps' force seconds.
+Each step stamps its force call (run/timers.device_span): the device loop
+reads the seconds in its control vector, the host loop in that one copy.
 """
 
 from __future__ import annotations
@@ -57,10 +60,10 @@ from ..neighbor import device_build
 from ..neighbor.build import NeighborData, build_neighbor_data
 from ..ops.react import choose_react
 from ..potentials.base import PairStyle
-from .device_loop import DeviceLoop, device_seconds, tensors
+from .device_loop import DeviceLoop, tensors
 from .driver import LoopDriver, _overflowed
 from .thermo import thermo_row
-from .timers import Timers
+from .timers import Timers, device_span
 
 def _quantize_k(target: int) -> int:
     """Neighbor-list K for a measured kmax: multiples of 4 up to 48 (the
@@ -108,7 +111,6 @@ class Engine(LoopDriver):
         self._flag_names = None        # the flags of the plan's rebuild
         self._loop = None
         self._loop_key = None
-        self._rebuild_cost = None
         self._rb_in = None             # (x, image) the last rebuild took
         self.rebuilds = 0
         self.timers = Timers()
@@ -279,14 +281,17 @@ class Engine(LoopDriver):
             bnd_count=bnd_c, react_nw=r_nw, react_kc=r_kc, react_qr=r_qr)
 
     # -- stepping -----------------------------------------------------------
-    def _one_step(self, state: State, nbr: NeighborData) -> State:
+    def _one_step(self, state: State, nbr: NeighborData,
+                  forces_ns: torch.Tensor) -> State:
+        """One step; the force call's ns are added to `forces_ns`."""
         ctx = self.ctx
         for f in self.fixes:
             state = f.initial_integrate(state, ctx)
         for f in self.fixes:
             state = f.post_integrate(state, ctx)
-        state = state.replace(
-            f=self.pair.forces(state.x, state.type, nbr, state.box.h))
+        with device_span(forces_ns):
+            force = self.pair.forces(state.x, state.type, nbr, state.box.h)
+        state = state.replace(f=force)
         for f in self.fixes:
             state = f.post_force(state, ctx)
         for f in self.fixes:
@@ -296,11 +301,13 @@ class Engine(LoopDriver):
         return state.replace(step=state.step + 1)
 
     def _segment(self, state, nbr, nsteps: int):
-        """`nsteps` steps; returns (state, max displacement^2 since the
-        list build) — the one host sync of the segment."""
+        """`nsteps` steps of the host loop; returns (state, max
+        displacement^2 since the list build) — the one host sync of the
+        segment."""
+        forces_ns = self._host_span_ns()
         with torch.no_grad():
             for _ in range(nsteps):
-                state = self._one_step(state, nbr)
+                state = self._one_step(state, nbr, forces_ns)
             d = state.x - nbr.x_build
             return state, float(torch.max(torch.sum(d * d, dim=-1)))
 
@@ -350,6 +357,7 @@ class Engine(LoopDriver):
                 self._loop = None
             self._loop = DeviceLoop(self, self._flag_names)
             self._loop_key = key
+            self.timers.add("Pair.capture", self._loop.capture_s)
         return self._loop
 
     def _start_span(self, loop: DeviceLoop):
@@ -369,25 +377,15 @@ class Engine(LoopDriver):
         self.rebuilds += res.n_rb
         if res.n_rb and not self._recovering and self._k_slack(res.flags):
             self._resize_plan(res.flags, grow=1.0)
-            self._rebuild_on_device(relist=True)
-
-    def _rebuild_cost_estimate(self) -> float:
-        """Device seconds of one rebuild, measured once (a standalone
-        rebuild at the current plan): the share of a span's time that the
-        timers move from Pair to Neigh per in-loop rebuild."""
-        if self._rebuild_cost is None:
-            st = self.state
-            requests = self.pair.neighbor_requests()
-            self._rebuild_cost = device_seconds(
-                lambda: self.rebuild_lists(self._plan, st.x, st.image,
-                                            st.type, requests), st.x.device)
-        return self._rebuild_cost
+            with self.timers.section("Neigh"):
+                self._rebuild_on_device(relist=True)
 
     # -- set-up and output --------------------------------------------------
     def _ensure_neighbors(self):
         if self.nbr is None or float(self.nbr.max_displacement_sq(
                 self.state.x)) > (0.5 * self.skin) ** 2:
-            self.rebuild_neighbors()
+            with self.timers.section("Neigh"):
+                self.rebuild_neighbors()
 
     def evaluate(self):
         """Forces, pe and virial at the current positions (LAMMPS setup)."""

@@ -8,11 +8,29 @@ reproduces both for the Engine's host loop:
 
   * Pair   -> the step segments and device-loop spans (force evaluation
               dominates)
-  * Neigh  -> neighbor rebuilds (in-loop ones moved out of Pair with
-              `transfer`)
+  * Neigh  -> neighbor rebuilds: eager ones in sections of their own,
+              the device loop's measured on the device (`inner`)
   * Comm   -> zero on one device
-  * Output -> thermo rows
+  * Output -> thermo rows and dump frames
   * Other  -> host orchestration
+
+Parts of a section are dotted keys under it, never summed into the
+breakdown: `Pair.forces` (the pair style's force call of each step, device
+seconds), `Pair.capture` (the host wall of capturing a device loop),
+`Output.thermo` and `Output.dump.{compute,copy,text}`.  Every section and
+part timed on the host also opens a torch.profiler range `lpt.<key>`, so
+that a trace puts the program's spans on the device ops' timeline.  The
+range is a host op (`_RecordFunctionFast`), not a user annotation: Kineto
+mirrors a user annotation on the device's timeline as one span over the
+kernels launched inside it, which a trace would count as busy device
+time through every gap between them.
+
+Spans on the device are stamps: `stamp` adds minus the clock (ns) to an
+int64 slot at a span's start and plus at its end, on a CUDA slot by a
+one-thread kernel on the current stream that reads %globaltimer (a CUDA
+graph captures it with the span's work), on a CPU slot from
+perf_counter_ns.  The slot sums its spans; its owner reads it with a copy
+it already makes and books the seconds.
 """
 
 from __future__ import annotations
@@ -21,27 +39,72 @@ import time
 from contextlib import contextmanager
 from typing import Dict
 
+import torch
+
+from ..ops import build
+
+
+def stamp(slot: torch.Tensor, sign: int):
+    """slot += sign * the clock in ns (slot: a 0-d int64 tensor)."""
+    if slot.is_cuda:
+        build.raise_on_error(build.lib().lpt_stamp(
+            slot.data_ptr(), sign, build.stream(slot.device)), "lpt_stamp")
+    else:
+        slot.add_(sign * time.perf_counter_ns())
+
+
+@contextmanager
+def device_span(slot: torch.Tensor):
+    """Add the ns of the block's work to `slot`, on the slot's device."""
+    stamp(slot, -1)
+    yield
+    stamp(slot, 1)
+
 
 class Timers:
     SECTIONS = ("Pair", "Neigh", "Comm", "Output", "Other")
 
     def __init__(self):
         self.acc: Dict[str, float] = {s: 0.0 for s in self.SECTIONS}
+        self._open = []            # per open section: seconds booked inside
         self._wall_start = None
         self.steps = 0
         self.natoms = 0
 
     @contextmanager
     def section(self, name: str):
+        """Book the block's wall time under `name`.  A section opened
+        inside another keeps its time from the outer one (a re-list inside
+        a Pair span is Neigh); a dotted part is inside its section's."""
+        part = "." in name
+        if not part:
+            self._open.append(0.0)
         t0 = time.perf_counter()
         try:
-            yield
+            with torch._C._profiler._RecordFunctionFast("lpt." + name):
+                yield
         finally:
-            self.acc[name] = self.acc.get(name, 0.0) + time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            if not part:
+                inside = self._open.pop()
+                if self._open:
+                    self._open[-1] += dt
+                dt -= inside
+            self.add(name, dt)
+
+    def inner(self, name: str, seconds: float):
+        """Book `seconds` measured inside the innermost open section under
+        the section `name`, as a section opened there would be booked."""
+        self.add(name, seconds)
+        if self._open:
+            self._open[-1] += seconds
+
+    def add(self, key: str, seconds: float):
+        self.acc[key] = self.acc.get(key, 0.0) + seconds
 
     def transfer(self, src: str, dst: str, seconds: float):
-        """Re-attribute time between sections (e.g. in-loop neighbor
-        rebuilds booked under a fused span's Pair time -> Neigh)."""
+        """Re-attribute time between sections (e.g. the sharded engine's
+        halo refresh booked under Pair -> Comm)."""
         seconds = max(0.0, min(seconds, self.acc.get(src, 0.0)))
         self.acc[src] = self.acc.get(src, 0.0) - seconds
         self.acc[dst] = self.acc.get(dst, 0.0) + seconds
@@ -74,10 +137,9 @@ class Timers:
             "Section |  time  | %total",
             "-------------------------",
         ]
-        other = wall - sum(self.acc.values())
-        rows = dict(self.acc)
-        rows["Other"] = rows.get("Other", 0.0) + max(other, 0.0)
-        for name in ("Pair", "Neigh", "Comm", "Output", "Other"):
-            t = rows.get(name, 0.0)
+        rows = {s: self.acc.get(s, 0.0) for s in self.SECTIONS}
+        rows["Other"] += max(wall - sum(rows.values()), 0.0)
+        for name in self.SECTIONS:
+            t = rows[name]
             lines.append(f"{name:<7} | {t:6.4g} | {100*t/wall:5.2f}")
         return "\n".join(lines)

@@ -42,7 +42,9 @@ count replays.  The graph loop is held against the eager loop
 steps on the sorted 2,304-atom scene at 600 K and on the 97,920-atom bench
 scene, also across a plan change that recaptures the graph; one span
 replays with PyTorch's sync debug mode set to raise, and each replay adds
-one segment's launches to the counters.
+one segment's launches to the counters.  The stamps inside the captured
+loop time a rebuild within 0.5-1.5x of an eager one's device time, and a
+span still copies the control vector to the host once a read.
 
 The AEAM + fix nvt path (tests/data/AlSi.synthetic.aeam): the candidate
 selection exact against its twin at K = 144, 224 and 256 on the arguments
@@ -833,6 +835,67 @@ def test_graph_span_replays_without_host_sync(cuda):
     assert res.n_rb >= 1 and res.done >= 10
     assert rebo.launches == before[0] + 16 * eng.check_every
     assert select_candidates.launches == before[1] + res.n_rb
+
+
+def test_graph_loop_times_its_rebuilds_on_the_device(cuda):
+    """The stamps inside the conditional node's body read, a rebuild taken,
+    within 0.5-1.5x of an eager rebuild's device time (bench scene); the
+    steps' force calls are booked as Pair.forces, inside Pair."""
+    import statistics
+    from lammps_plugins_tpu_torch.run.device_loop import device_seconds
+    eng = _hot_engine(cuda, "bench", None)
+    eng.run(50)
+    spans = []
+    after = eng._after_span
+
+    def record(res):
+        spans.append(res)
+        after(res)
+
+    eng._after_span = record
+    acc0 = dict(eng.timers.acc)
+    eng.run(400)
+    n_rb = sum(r.n_rb for r in spans)
+    assert n_rb >= 4
+    st = eng.state
+    eager = statistics.median(device_seconds(
+        lambda: eng.rebuild_lists(eng._plan, st.x, st.image, st.type,
+                                  eng.pair.neighbor_requests()), cuda)
+        for _ in range(5))
+    per_rebuild = sum(r.rebuild_s for r in spans) / n_rb
+    assert 0.5 * eager <= per_rebuild <= 1.5 * eager, (per_rebuild, eager)
+    d = {k: v - acc0.get(k, 0.0) for k, v in eng.timers.acc.items()}
+    assert d["Neigh"] >= sum(r.rebuild_s for r in spans)
+    assert 0.0 < d["Pair.forces"] <= d["Pair"]
+
+
+def test_graph_span_reads_its_spans_in_the_one_copy(cuda):
+    """The rebuild and force seconds ride in the control vector: a span of
+    the graph loop copies to the host once a read, as without them."""
+    from torch.profiler import ProfilerActivity, profile
+    from lammps_plugins_tpu_torch.run.device_loop import GraphIteration
+    eng = _hot_engine(cuda, "sorted2k", None)
+    eng.run(20)
+    reads = []
+    real = GraphIteration.read
+
+    def spy(loop):
+        reads.append(real(loop))
+        return reads[-1]
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(GraphIteration, "read", spy)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with eng.timers.section("Pair"):
+                eng._run_span_device(16 * eng.check_every)
+            torch.cuda.synchronize()
+    finally:
+        mp.undo()
+    copies = [e for e in prof.events() if e.name.startswith("Memcpy DtoH")]
+    assert reads and reads[-1].n_rb >= 1 and reads[-1].forces_s > 0.0
+    assert len(copies) == len(reads)
 
 
 # -- AEAM + fix nvt ---------------------------------------------------------

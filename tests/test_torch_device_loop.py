@@ -66,11 +66,22 @@ def _jax(temp=600.0, seed=77, scene="bulk", **kw):
 
 
 def _count_in_loop_rebuilds(eng):
-    """Record the in-loop rebuilds of the fused span path through the
-    Pair -> Neigh transfer both Engines make per span (n_rb x cost)."""
+    """Record the in-loop rebuilds of each fused span that rebuilt: the
+    port's through the span's result (res.n_rb), the JAX Engine's through
+    the Pair -> Neigh transfer it makes per such span (n_rb x cost)."""
     seen = []
-    eng._rebuild_cost_estimate = lambda: 1.0
-    eng.timers.transfer = lambda src, dst, s: seen.append(round(s))
+    if hasattr(eng, "_after_span"):            # the port
+        after = eng._after_span
+
+        def spy(res):
+            if res.n_rb:
+                seen.append(res.n_rb)
+            after(res)
+
+        eng._after_span = spy
+    else:
+        eng._rebuild_cost_estimate = lambda: 1.0
+        eng.timers.transfer = lambda src, dst, s: seen.append(round(s))
     return seen
 
 

@@ -33,7 +33,7 @@ measures
     rebuild's breakdown; every gather kernel listed by name),
   * host-clock ms per step without a rebuild (3 reps of 10 segments of
     check_every steps), then torch.profiler device time per step over 10
-    more such segments, and the idle share 1 - device / wall,
+    more such segments,
   * torch.profiler over 200 steps (240 with --aeam) of Engine.run: the
     kernels by device time (printed table and, per step, in the RESULT
     line; Chrome trace to --trace when given),
@@ -51,7 +51,7 @@ reported as refused where it does not fit the card).  After a warm-up of
 100 steps each, torch.profiler over 100 steps of Engine.run: every
 kernel's device ms a step and launches a step, the device ms a step, the
 host launch calls and graph launches a step, and wall ms a step (host
-clock, the same steps unprofiled) with the idle share 1 - device / wall.
+clock, the same steps unprofiled).
 One line `RESULT {json}`.
 """
 
@@ -138,7 +138,7 @@ def sharded_main(args, cs, gpu):
             by[e.name[:120]][1] += 1
         out[name] = dict(
             natoms=natoms, wall_ms_per_step=wall_ms,
-            device_ms_per_step=dev_ms, idle_share=1 - dev_ms / wall_ms,
+            device_ms_per_step=dev_ms,
             host_launch_calls_per_step=sum(calls[c] for c in cs.LAUNCH_CALLS)
             / steps,
             graph_launches_per_step=calls["cudaGraphLaunch"] / steps,
@@ -291,7 +291,6 @@ def main():
         run1000_rebuilds=[n for _, n in runs],
         run1000_median=statistics.median(r for r, _ in runs),
         device_ms_per_step_no_rebuild=dev_ms,
-        idle_share_no_rebuild=[1 - dev_ms / s for s in step_ms],
         profiled_steps=dict(steps=profiled, rebuilds=eng.rebuilds - rb0,
                             device_events=kernels,
                             device_events_per_step=kernels / profiled),
