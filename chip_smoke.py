@@ -87,17 +87,21 @@ Phases (any failure raises, so the script exits non-zero):
      on a rebuild of the run, whose rows have no hits, exact against its
      twin); f32 forces of the jiggled charged_melt(6) and
      lj_melt(6) on the card against the f64 CPU path, max|dF| < 1e-2
-     RMS(F); then two main paths, the 65,536-ion charged melt
-     (tests/test_ljcut.py's CHARGED_MELT deck at n = 32: lj/cut/coul/cut 6
-     / 8, fix bfield 0 0 200 T, fix nve, skin 1.0) and LAMMPS's bench/in.lj
-     (lj_melt(20), 32,000 atoms): 300 steps through the graph loop with the
-     counters reset (D' must launch, no other kernel), finite thermo and
-     bfield output, x, v, f, image, every extras tensor and the rebuild
-     count equal to an eager Engine's bit for bit, both loops' numbers in
-     turns (three 300-step windows each, one profiled run), the NVE drift
-     (reported, no bar: the Coulomb cut at 8 A and the unshifted LJ cut are
-     energy steps), the forces' device time on the run's lists, and D' on
-     a rebuild of the run against its twin
+     RMS(F); kernel I (lj/cut forces from each atom's own list row) on
+     the jiggled lj_melt(20) and lj_melt(60) (32,000 and 864,000 atoms):
+     one launch, against its twin and the edge sweep plus mirror combine
+     (ljcut_kernel_record's bars), a rerun bit for bit, median times of
+     the three in turns and the bound; then two main paths, the 65,536-ion
+     charged melt (tests/test_ljcut.py's CHARGED_MELT deck at n = 32:
+     lj/cut/coul/cut 6 / 8, fix bfield 0 0 200 T, fix nve, skin 1.0) and
+     LAMMPS's bench/in.lj (lj_melt(20), 32,000 atoms): 300 steps through the
+     graph loop with the counters reset (D' and kernel I must launch, no
+     other kernel), finite thermo and bfield output, x, v, f, image, every
+     extras tensor and the rebuild count equal to an eager Engine's bit for
+     bit, both loops' numbers in turns (three 300-step windows each, one
+     profiled run), the NVE drift (reported, no bar: the Coulomb cut at 8 A
+     and the unshifted LJ cut are energy steps), the forces' device time on
+     the run's lists, and D' on a rebuild of the run against its twin
   8. config 4, the MoS2 monolayer (`MONOLAYER {json}`): 1,000,518 atoms
      (rebomos_monolayer(577, 578)), REBOMOS NVT 300 K from seed 12345,
      skin 0.8, check every 10: 100 steps through the graph loop with the
@@ -146,9 +150,10 @@ Phases (any failure raises, so the script exits non-zero):
      atoms) read from a data file of the lattice moved by 0.05 sigma: FIRE
      on the card (MinResult, ms per iteration), then fix langevin + fix
      nve for 300 steps, graph loop = eager loop bit for bit, the noise
-     drawn on the card at three steps = the CPU draw, D' launched; then
-     the Langevin step's graph loop in turns with in.lj's plain NVE step
-     (three 500-step windows each, capture excluded) and the device time
+     drawn on the card at three steps = the CPU draw, D' and kernel I
+     launched; then the Langevin step's graph loop in turns with in.lj's
+     plain NVE step (three 500-step windows each, capture excluded) and
+     the device time
      of one noise draw replayed alone in a graph, and the ms of one
      thermo row (lj/cut's strain autograd)
 
@@ -208,10 +213,10 @@ Phases (any failure raises, so the script exits non-zero):
      wide-cut melt, config 2's 65,536-ion deck with lj/cut/coul/cut 6 12
      and LAMMPS's default metal skin of 2 A (wide_melt), 300 steps
      through the graph loop with the counters reset: K past 256 at every
-     thermo row (K's trajectory printed), D' launched (no other kernel),
-     finite thermo, the state equal to an eager Engine's bit for bit,
-     both loops' 300-step windows in turns with a profiled run and the
-     peak memory, then D' on a rebuild of the run exact against its twin
+     thermo row (K's trajectory printed), D' and kernel I launched (no
+     other kernel), finite thermo, the state equal to an eager Engine's bit
+     for bit, both loops' 300-step windows in turns with a profiled run and
+     the peak memory, then D' on a rebuild of the run exact against its twin
      (median time, bound, launches); (b) f32 forces of the jiggled
      1,024-ion copy of the deck against the f64 CPU path, max|dF| < 1e-2
      RMS(F); (c) the bench scene at skin 4.0, 100 steps through the graph
@@ -439,6 +444,8 @@ CONFIGS = (
                                            "select_candidates")),
 )
 MAIN_PATH = ("rebo", "mirror", "lj_cells", "select_candidates")
+#: the kernels of every lj/cut and lj/cut/coul/cut path
+LJ_PATH = ("select_candidates", "ljcut")
 #: launch-counter module of ops/ -> kernel name in the JSON line.  The
 #: standalone select_k (D) runs on no path since the rebuild fused it with
 #: its keys (select_candidates, D'); phase 1 still holds it to its twin.
@@ -447,7 +454,8 @@ KERNEL_NAMES = {"rebo": "rebo_cotangents", "mirror": "mirror_combine",
                 "select_candidates": "select_candidates",
                 "lj_half": "lj_cell_forces_half",
                 "mirror_rows": "mirror_combine_rows",
-                "react": "react_combine", "pin": "pin_copy"}
+                "react": "react_combine", "pin": "pin_copy",
+                "ljcut": "ljcut_forces"}
 
 
 #: the builds D' is split and timed with: "this" (this tree's ops/build.py)
@@ -2034,6 +2042,98 @@ def ljcut_f32_accuracy(dev, cases=None):
     return out
 
 
+#: kernel I's shapes: lj_melt(n), in.lj at 32,000 atoms and the lj-nve
+#: cell's 864,000, every atom displaced in [-0.05, 0.05] sigma
+LJCUT_SIZES = (20, 60)
+
+
+def ljcut_live_slots(pair, st, nbr) -> int:
+    """The list slots kernel I computes a force for: masked in and inside
+    the type pair's cut."""
+    from lammps_plugins_tpu_torch.neighbor.neighbor import edge_components
+    nlist = nbr.lists["main"]
+    _, _, _, rsq, mask = edge_components(st.x, nbr.ghosts, nlist, st.box.h)
+    cutsq = pair._tables()[2]
+    flat = pair._edge_flat_types(st.type, nbr, nlist)
+    return int((mask & (rsq < cutsq[flat])).sum())
+
+
+def ljcut_kernel_record(dev, n):
+    """Kernel I on lj_melt(n)'s own device rebuild: one launch, against its
+    twin (1e-5 x rms|F|) and against the [N, K] edge sweep plus mirror
+    combine (1e-5 x rms|F| on rows without a ghost neighbour, 1e-4 on the
+    others: the f32 rounding of ghost images, as in
+    tests/test_torch_cuda.py), a rerun and a call on the list padded by 40
+    masked slots bit for bit; the median device ms of the kernel, its twin
+    and the mirror path in turns, and the bound: the list read once (idx int64
+    and mask, 9 bytes a slot), the owned rows, the ghost table, the float4
+    table written and read once and the forces written, or 25 flops a live
+    slot."""
+    from lammps_plugins_tpu_torch.api.scenes import lj_melt
+    from lammps_plugins_tpu_torch.ops import ljcut
+    deck = lj_melt(n, device=dev)
+    st = deck.state
+    rng = np.random.default_rng(AEAM["seed"])
+    deck.state = st.replace(x=st.x + torch.as_tensor(
+        rng.uniform(-0.05, 0.05, st.x.shape), dtype=st.x.dtype, device=dev))
+    eng = deck.engine()
+    eng.rebuild_neighbors()
+    st, nbr, pair = eng.state, eng.nbr, eng.pair
+    nlist = nbr.lists["main"]
+    N, K = nlist.idx.shape
+    Mg = nbr.ghosts.count
+    args, kw = pair.kernel_inputs(st.x, st.type, nbr, st.box.h)
+    before = ljcut.launches
+    f = pair.forces(st.x, st.type, nbr, st.box.h)
+    torch.cuda.synchronize()
+    if ljcut.launches != before + 1:
+        raise AssertionError("kernel I: not one launch a force call")
+    f_twin = ljcut.ljcut_forces_ref(*args, **kw)
+    f_mirror = pair.mirror_forces(st.x, st.type, nbr, st.box.h)
+    rms = float(f_mirror.double().pow(2).sum(1).mean().sqrt())
+    ghost = ((nlist.idx >= N) & nlist.mask).any(dim=1)
+    gap_t = float((f - f_twin).double().abs().max()) / rms
+    gap_m = (f - f_mirror).double().abs().max(dim=1).values / rms
+    gap_in, gap_all = float(gap_m[~ghost].max()), float(gap_m.max())
+    rerun = torch.equal(f, pair.forces(st.x, st.type, nbr, st.box.h))
+    # the same rows in a list of 40 more slots: the same bits
+    wide = list(args)
+    wide[5] = torch.nn.functional.pad(args[5], (0, 40))
+    wide[6] = torch.nn.functional.pad(args[6], (0, 40))
+    rerun = rerun and torch.equal(f, ljcut.ljcut_forces(*wide, **kw))
+    del wide
+    live = ljcut_live_slots(pair, st, nbr)
+    del f_twin, f_mirror
+    times = interleaved_ms({
+        "kernel": lambda: pair.forces(st.x, st.type, nbr, st.box.h),
+        "twin": lambda: ljcut.ljcut_forces_ref(*args, **kw),
+        "mirror": lambda: pair.mirror_forces(st.x, st.type, nbr, st.box.h)},
+        reps=10)
+    nbytes = N * K * 9 + N * (12 + 8 + 16 + 12) + Mg * (8 + 12) \
+        + (N + Mg) * 16
+    bms, by = bound(nbytes, 25 * live)
+    rec = dict(natoms=N, K=K, ghosts=Mg, live_slots=live, rms_f=rms,
+               err_twin=gap_t, err_mirror_no_ghost=gap_in, err_mirror=gap_all,
+               rerun_equal=rerun, kernel_ms=times["kernel"],
+               twin_ms=times["twin"], mirror_path_ms=times["mirror"],
+               bound_ms=bms, bound_by=by, share=bms / times["kernel"],
+               library_ms="no single PyTorch call")
+    print(f"kernel I on lj_melt({n}) ({N} atoms, K {K}, {Mg} ghosts, "
+          f"{live} live slots): max|dF| / rms|F| against the twin "
+          f"{gap_t:.3e} (bar 1e-5), against the mirror combine {gap_in:.3e} "
+          f"on rows without a ghost neighbour (bar 1e-5), {gap_all:.3e} on "
+          f"all (bar 1e-4); rerun and K + 40 bit-identical {rerun}; device "
+          f"ms kernel {times['kernel']:.4f}, twin {times['twin']:.4f}, "
+          f"edge sweep + mirror combine {times['mirror']:.4f}; bound "
+          f"{bms:.4f} ms ({by}), share {100 * rec['share']:.1f} %")
+    if not (gap_t <= 1e-5 and gap_in <= 1e-5 and gap_all <= 1e-4
+            and rerun):
+        raise AssertionError(f"kernel I on lj_melt({n}) outside its bars")
+    del eng, args, kw
+    torch.cuda.empty_cache()
+    return rec
+
+
 def deck_run(eng, steps):
     """eng.run(steps), thermo every 100 steps; each row with fix bfield's
     energy() and vector() where the deck has the fix."""
@@ -2075,7 +2175,7 @@ def deck_path(dev, modules, name, gpu):
     if eng._loop is None or eng._loop.exec is None:
         raise AssertionError(f"the {name} main path did not run through the "
                              "graph")
-    check_launches(f"{name} main path", launches, ("select_candidates",))
+    check_launches(f"{name} main path", launches, LJ_PATH)
     for r in rows:
         vals = [v for k, v in r.items() if k != "bfield_vector"] \
             + r.get("bfield_vector", [])
@@ -2103,20 +2203,21 @@ def deck_path(dev, modules, name, gpu):
     numbers = loop_numbers({"graph": eng, "eager": ref}, gpu,
                            steps=DECK_RUN_STEPS,
                            profile_steps=DECK_PROFILE_STEPS,
-                           kernels=("select_candidates_kernel",))
+                           kernels=("select_candidates_kernel",
+                                    "ljcut_kernel"))
     st = eng.state
     forces_ms = timed_ms(lambda: eng.pair.forces(st.x, st.type, eng.nbr,
                                                  st.box.h), reps=20)
     rebuild_ms = rebuild_device_ms(eng)
-    print(f"{name} forces (the [N, K] edge sweep and mirror combine, torch "
-          f"ops) {forces_ms:.4f} ms on the run's lists; a rebuild "
-          f"{rebuild_ms:.4f} ms of device time")
+    print(f"{name} forces (kernel I) {forces_ms:.4f} ms on the run's lists; "
+          f"a rebuild {rebuild_ms:.4f} ms of device time")
     out = dict(natoms=natoms, k_caps=dict(eng._plan.k_caps),
                ghosts=eng.nbr.ghosts.count, rebuilds_main_run=rebuilds,
                drift_per_step_atom=drift, peak_gib=peak,
                capture_s=eng._loop.capture_s, forces_ms=forces_ms,
                rebuild_device_ms=rebuild_ms,
                launches=launches["select_candidates"],
+               ljcut_launches=launches["ljcut"],
                thermo=[{k: r[k] for k in ("step", "temp", "pe", "etotal")}
                        | ({"bfield": [r["bfield_energy"]]
                            + r["bfield_vector"]} if "bfield_energy" in r
@@ -2132,8 +2233,9 @@ def deck_path(dev, modules, name, gpu):
 
 def phase7_bfield(dev, modules):
     """Config 2 and the LJ styles: the cyclotron oracle, f32 forces of both
-    LJ styles, the charged melt and in.lj main paths.  Returns D''s
-    records of the two decks and the oracle (launches included)."""
+    LJ styles, kernel I at LJCUT_SIZES, the charged melt and in.lj main
+    paths.  Returns D''s records of the two decks and the oracle (launches
+    included) and kernel I's record (its launches on the two decks)."""
     gpu = sh("nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader")
     free_card("phase 7")
@@ -2141,16 +2243,21 @@ def phase7_bfield(dev, modules):
         cyclotron = cyclotron_oracle(dev, modules)
     with timed("phase 7 f32 forces"):
         accuracy = ljcut_f32_accuracy(dev)
+    with timed("phase 7 kernel I"):
+        kernel_i = {f"lj_melt({n})": ljcut_kernel_record(dev, n)
+                    for n in LJCUT_SIZES}
     paths = {}
     for name in DECKS:
         with timed(f"phase 7 {name}"):
             paths[name] = deck_path(dev, modules, name, gpu)
     print("BFIELD " + json.dumps(dict(gpu=gpu, cyclotron=cyclotron,
                                       f32_force_err_over_rms=accuracy,
-                                      **paths)))
+                                      ljcut_forces=kernel_i, **paths)))
+    kernel_i["launches"] = sum(paths[name]["ljcut_launches"]
+                               for name in DECKS)
     paths["cyclotron"] = cyclotron
-    return {name: dict(p["select_candidates"], launches=p["launches"])
-            for name, p in paths.items()}
+    return ({name: dict(p["select_candidates"], launches=p["launches"])
+             for name, p in paths.items()}, kernel_i)
 
 
 #: config 4 (BASELINE.json configs[3]): the MoS2 monolayer at 1,000,518
@@ -3046,7 +3153,7 @@ def script_lj(dev, modules):
         raise AssertionError("in.lj: the graph loop differs from the eager "
                              "loop, or the card's noise from the CPU's")
     check_graph("in.lj deck", g.engine)
-    check_launches("in.lj deck", launches, ("select_candidates",))
+    check_launches("in.lj deck", launches, LJ_PATH)
     speed = langevin_speed(dev, g.engine, fix)
     # one thermo row on the path it has (lj/cut: the strain autograd)
     thermo_ms = wall_ms({"row": lambda: g.engine._thermo(g.engine.state)})
@@ -3493,7 +3600,7 @@ def sharded_melt(dev, modules):
     launches = {name: m.launches for name, m in modules.items()}
     if se._loop is None or se._loop.exec is None:
         raise AssertionError("sharded melt did not run through the graph")
-    check_launches("sharded melt", launches, ("select_candidates",))
+    check_launches("sharded melt", launches, LJ_PATH)
     fsum2 = se.fix_view_state().extras[se.fixes[0].key]["fsum"].cpu()
     fsum_err = float((fsum2 - fsum1).abs().max() / fsum1.abs().max())
     gap = rows_gap(rows, srows)
@@ -3842,7 +3949,7 @@ def per_device_melt(dev, modules):
     launches = {name: m.launches for name, m in modules.items()}
     if se._prog is None:
         raise AssertionError("per-device melt did not run its program")
-    check_launches("per-device melt", launches, ("select_candidates",))
+    check_launches("per-device melt", launches, LJ_PATH)
     per_shard = [c["select_candidates"] for c in se.shard_launches()]
     if min(per_shard) <= 0:
         raise AssertionError(f"per-device melt: D' per shard {per_shard}")
@@ -4142,9 +4249,10 @@ def wide_run(eng):
 
 def wide_melt_path(dev, modules, gpu):
     """The 65,536-ion wide-cut melt through the graph loop with the
-    counters reset: K past 256, D' launched (the only kernel), finite
-    thermo, the state equal to an eager Engine's bit for bit; both loops'
-    windows in turns; D' on a rebuild of the run exact against its twin."""
+    counters reset: K past 256, D' and kernel I launched (no other
+    kernel), finite thermo, the state equal to an eager Engine's bit for
+    bit; both loops' windows in turns; D' on a rebuild of the run exact
+    against its twin."""
     eng = wide_melt(DECKS["melt"], device=dev).engine()
     natoms = eng.state.natoms
     torch.cuda.reset_peak_memory_stats()
@@ -4161,7 +4269,7 @@ def wide_melt_path(dev, modules, gpu):
           f"rebuilds {eng.rebuilds}, peak {peak:.3f} GiB")
     if eng._loop is None or eng._loop.exec is None:
         raise AssertionError("the wide melt did not run through the graph")
-    check_launches("wide melt", launches, ("select_candidates",))
+    check_launches("wide melt", launches, LJ_PATH)
     if not min(k for _, k in ks) > 256:
         raise AssertionError(f"the wide melt's K stayed within 256: {ks}")
     for r in rows:
@@ -4465,7 +4573,8 @@ def main():
     with timed("phase 6"):
         results["select_candidates"]["aeam"] = phase6_aeam(dev, modules)
     with timed("phase 7"):
-        results["select_candidates"].update(phase7_bfield(dev, modules))
+        d_records, results["ljcut_forces"] = phase7_bfield(dev, modules)
+        results["select_candidates"].update(d_records)
     with timed("phase 8"):
         mono_launches, mono = phase8_monolayer(dev, modules)
     with timed("phase 9"):
@@ -4524,8 +4633,10 @@ def main():
         paths = [c for used, c in runs if m in used]
         if m in MAIN_PATH:
             paths = paths[:1]
-        kernels.append(dict(results[name],
-                            launches=sum(c[m] for c in paths)))
+        # kernel I runs on no REBOMOS path: its count is the LJ decks'
+        count = (results[name]["launches"] if m == "ljcut"
+                 else sum(c[m] for c in paths))
+        kernels.append(dict(results[name], launches=count))
     print(json.dumps({"kernels": kernels}))
     print(sh("nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"))

@@ -56,6 +56,7 @@ _SIGNATURES = {
     "lpt_graph_launch": [_P, _P],
     "lpt_graph_destroy": [_P, _P],
     "lpt_stamp": [_P, _I, _P],
+    "lpt_ljcut_forces": [_P] * 14 + [_I] * 4 + [ctypes.c_float] * 2 + [_P],
 }
 
 

@@ -16,13 +16,16 @@ thermo through autograd.
 
 Forces take no float atomics: the JAX package's jax.grad scatter-adds
 through the x_all[idx] gather, which in torch is an index_put with float
-atomics on the card.  Here the per-edge cotangents G = dE/dd are written
+atomics on the card.  On the card kernel I (ops/ljcut.py) sums each
+atom's own list row, F_i = sum_k 2 e'(r^2_ik) d_ik: on the full list each
+pair's two edges carry opposite cotangents, so row i alone holds atom i's
+force, and fixed-order sums keep reruns and the graph and eager loops
+bit for bit.  On the CPU the per-edge cotangents G = dE/dd are written
 out (E = 1/2 sum e(r^2) gives G = e'(r^2) d, elementwise) and combined
 through the list's mirror table, F_i = sum_k G[i,k] - sum_k G[mirror(i,k)]
-(neighbor.mirror_combine): a gather and fixed-order sums, so reruns and
-the graph and eager loops agree bit for bit.  The style asks the rebuild
-for the table (`mirror_tiers`).  Lists without one (the host build of the
-CPU tests) take plain autograd on the CPU and raise on the card.
+(neighbor.mirror_combine).  The style asks the rebuild for the table
+(`mirror_tiers`; the per-atom tallies read it too).  Lists without one
+(the host build of the CPU tests) take plain autograd on the CPU.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 from ..core.device import resolve
 from ..neighbor.build import NeighborData
 from ..neighbor.neighbor import edge_components, mirror_combine
+from ..ops import ljcut
 from ..registry import register_pair_style
 from .base import PairStyle, edge_virial_peratom, half_half
 
@@ -142,18 +146,34 @@ class PairLJCut(PairStyle):
         # a full (directed) list: each pair appears twice
         return 0.5 * torch.sum(e)
 
+    def _kernel_charges(self) -> dict:
+        """The Coulomb arguments of kernel I (none for lj/cut)."""
+        return {}
+
+    def kernel_inputs(self, x, types, nbr: NeighborData, h):
+        """(args, kwargs) of ops.ljcut.ljcut_forces (kernel I and its twin)
+        for this style on these lists."""
+        g, nlist = nbr.ghosts, nbr.lists["main"]
+        return ((x, types, g.owner, g.shift.to(x.dtype), h.to(x.dtype),
+                 nlist.idx, nlist.mask, *self._tables()),
+                self._kernel_charges())
+
     def forces(self, x, types, nbr: NeighborData, h):
-        """-dE/dx from the written-out edge cotangents and the mirror
-        combine; plain autograd on the CPU for lists without a mirror
-        table."""
-        nlist = nbr.lists["main"]
-        if nlist.mirror is None:
-            if x.is_cuda:
-                raise RuntimeError(
-                    f"pair_style {self.name}: the lists carry no mirror "
-                    "table; on the card the forces use the mirror combine "
-                    "(the device rebuild builds the table for this style)")
+        """-dE/dx: kernel I over each atom's own row on the card; on the
+        CPU the written-out edge cotangents and the mirror combine, or
+        plain autograd for lists without a mirror table."""
+        if x.is_cuda:
+            args, kw = self.kernel_inputs(x, types, nbr, h)
+            return ljcut.ljcut_forces(*args, **kw)
+        if nbr.lists["main"].mirror is None:
             return super().forces(x, types, nbr, h)
+        return self.mirror_forces(x, types, nbr, h)
+
+    def mirror_forces(self, x, types, nbr: NeighborData, h):
+        """The forces in torch ops: the [N, K] edge cotangents combined
+        through the list's mirror table (the CPU path, and the yardstick
+        of kernel I on the card)."""
+        nlist = nbr.lists["main"]
         dx, dy, dz, rsq, mask = edge_components(x, nbr.ghosts, nlist, h)
         _, de = self._edge_terms(rsq, mask, types, nbr, nlist)
         return mirror_combine(de * dx, de * dy, de * dz, nlist)
@@ -223,12 +243,19 @@ class PairLJCutCoulCut(PairLJCut):
     def _interaction_cut(self) -> np.ndarray:
         return np.maximum(self._cut, self.cut_coul)
 
-    def _edge_terms(self, rsq, mask, types, nbr, nlist):
+    def _bound_charges(self):
         if self._q is None:
             raise ValueError("lj/cut/coul/cut: bind_charges() was never "
                              "called (system has no charge array)")
+        return self._q
+
+    def _kernel_charges(self) -> dict:
+        return dict(q=self._bound_charges(), cut_coulsq=self.cut_coul ** 2,
+                    qqr2e=self.qqr2e)
+
+    def _edge_terms(self, rsq, mask, types, nbr, nlist):
+        q = self._bound_charges()
         e, de = super()._edge_terms(rsq, mask, types, nbr, nlist)
-        q = self._q
         q_all = torch.cat([q, q[nbr.ghosts.owner]])
         qq = q[:, None] * q_all[nlist.idx]
         ecoul = self.qqr2e * qq / torch.sqrt(rsq)

@@ -68,7 +68,7 @@ from .timers import device_span, stamp
 #: the kernel wrapper modules of ops/ (each with a `launches` counter)
 KERNEL_MODULES = ("rebo", "mirror", "lj_cells", "select_k",
                   "select_candidates", "lj_half", "mirror_rows", "react",
-                  "pin")
+                  "pin", "ljcut")
 _STATE_FIELDS = ("x", "v", "f")
 _RB_IN = ("rb_x", "rb_image")                   # the last rebuild's inputs
 #: ctl[0:6]; flags follow

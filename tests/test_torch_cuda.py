@@ -58,13 +58,19 @@ mode.
 Config 2 (lj/cut/coul/cut, fix bfield, pair_style none): the 1,024-ion
 charged melt deck's graph loop bit for bit against its eager loop over 300
 steps (x, v, f, image, fix bfield's extras, the rebuild count), with the
-deck's 200 T field and with a time-varying Bz, a Bx and a region; D' the
-only kernel; forces that rerun bit-identically.  The candidate selection
-exact against its twin on free ions whose rows have no hit (all of them,
-or all but those of 64 close pairs).  The cyclotron oracle in f32 (512
-free ions, Bz 1000 T, one period of 2,000 steps).  The f32
+deck's 200 T field and with a time-varying Bz, a Bx and a region; D' and
+kernel I the only kernels; forces that rerun bit-identically.  The
+candidate selection exact against its twin on free ions whose rows have
+no hit (all of them, or all but those of 64 close pairs).  The cyclotron
+oracle in f32 (512 free ions, Bz 1000 T, one period of 2,000 steps).  The f32
 lj/cut and lj/cut/coul/cut forces on the card within 1e-2 RMS(F) of the
-f64 CPU path.
+f64 CPU path.  Kernel I (lj/cut and lj/cut/coul/cut forces from each
+atom's own list row) against its twin and the edge sweep plus mirror
+combine on lj_melt(12), the charged melt, a 21-type mixture and the
+wide-cut melt (K past 352), reruns bit-identical, and the same bits on a
+list padded with masked slots (another K); its refusals (float64,
+an int32 idx, tables past shared memory); in.lj's graph loop equal to its
+eager loop bit for bit, one kernel I launch a step.
 
 The input-script slice: REBOMoS energy_peratom and virial_peratom on the
 card (kernels A, B and C, no float atomics) within 1e-4 and 5e-4 of their
@@ -105,14 +111,15 @@ from lammps_plugins_tpu_torch.api.scenes import (rebomos_bulk,
 from lammps_plugins_tpu_torch.core import units
 from lammps_plugins_tpu_torch.fixes.nve import FixNVE
 from lammps_plugins_tpu_torch.neighbor.build import build_neighbor_data
-from lammps_plugins_tpu_torch.ops import (lj_cells, lj_half, mirror,
+from lammps_plugins_tpu_torch.ops import (lj_cells, lj_half, ljcut, mirror,
                                           mirror_rows, pin, react, rebo,
                                           select_candidates, select_k)
 from lammps_plugins_tpu_torch.potentials.rebomos import REBOMoS
 from lammps_plugins_tpu_torch.run.simulation import Engine
-from torch_parity import (SYNTH_REBO, cuda, permute_cell_slots,  # noqa: F401
-                          rebuild_with_spy, sextic_tables,
-                          synthetic_lj_planes, synthetic_rebo_planes)
+from torch_parity import (SYNTH_REBO, cuda, ljcut_scene,  # noqa: F401
+                          permute_cell_slots, rebuild_with_spy,
+                          sextic_tables, synthetic_lj_planes,
+                          synthetic_rebo_planes)
 
 pytestmark = pytest.mark.cuda
 
@@ -1275,8 +1282,9 @@ def test_charged_melt_graph_loop_matches_eager_loop(cuda, varying):
     graph, eager = (_melt_engine(cuda, f, varying) for f in (None, False))
     graph.run(300)
     assert {m.__name__.split(".")[-1]: m.launches for m in kernel_modules()
-            if m.launches} == {"select_candidates": select_candidates.launches}
-    assert select_candidates.launches > 0
+            if m.launches} == {"select_candidates": select_candidates.launches,
+                               "ljcut": ljcut.launches}
+    assert select_candidates.launches > 0 and ljcut.launches >= 300
     eager.run(300)
     assert graph._loop is not None and graph._loop.exec is not None
     assert graph.rebuilds >= 2
@@ -1396,6 +1404,122 @@ def test_ljcut_f32_forces_on_card_match_f64(cuda, deck):
                                    st.box.h).double().cpu().numpy())
     f64, f32 = out
     assert np.abs(f32 - f64).max() < 1e-2 * np.sqrt(np.mean(f64 * f64))
+
+
+# -- kernel I: lj/cut(/coul/cut) forces from each atom's own row -----------
+
+#: kernel I's scenes on the card: (kind of torch_parity.ljcut_scene, n)
+LJCUT_SCENES = {"lj_melt": ("lj", 12), "charged_melt": ("charged", 8),
+                "mixture21": ("mixture", 10), "wide_melt": ("wide", 8)}
+
+
+def _ljcut_on_card(dev, name):
+    """(pair, x, types, nbr, h) of LJCUT_SCENES[name] in float32 on the
+    card, on its own device rebuild's lists."""
+    kind, n = LJCUT_SCENES[name]
+    eng = ljcut_scene(kind, n, dtype=torch.float32, device=dev)
+    eng.rebuild_neighbors()
+    st = eng.state
+    return eng.pair, st.x, st.type, eng.nbr, st.box.h
+
+
+@pytest.mark.parametrize("name", sorted(LJCUT_SCENES))
+def test_ljcut_kernel_matches_twin_and_mirror_combine(cuda, name):
+    """Kernel I (one launch a call) against its twin and against the
+    [N, K] edge sweep plus mirror combine, in float32 on the same lists.
+    Bar 1e-5 x rms|F| against the twin everywhere and against the mirror
+    combine on rows without a ghost neighbour: both see the same floats
+    for every slot and differ only in the order of the sums.  Rows with a
+    ghost neighbour get 1e-4 x rms|F| against the mirror combine: there
+    the mirror edge's d is computed from the other atom's rounded f32
+    ghost image and is not exactly -d, so the two paths differ by the f32
+    rounding of the image's coordinates (up to ~2.4e-5 x rms|F| on
+    lj_melt(12) on the CPU, as far as either path lies from float64).  Two
+    calls agree bit for bit."""
+    pair, x, types, nbr, h = _ljcut_on_card(cuda, name)
+    nlist = nbr.lists["main"]
+    if name == "wide_melt":
+        assert nlist.capacity >= 352
+    before = ljcut.launches
+    f = pair.forces(x, types, nbr, h)
+    torch.cuda.synchronize()
+    assert ljcut.launches == before + 1
+    args, kw = pair.kernel_inputs(x, types, nbr, h)
+    assert ("q" in kw) == (name in ("charged_melt", "wide_melt"))
+    f_twin = ljcut.ljcut_forces_ref(*args, **kw)
+    f_mirror = pair.mirror_forces(x, types, nbr, h)
+    rms = float(f_mirror.double().pow(2).sum(1).mean().sqrt())
+    assert rms > 1e-2
+    gap = lambda a: (f - a).double().abs().max(dim=1).values  # noqa: E731
+    ghost = ((nlist.idx >= x.shape[0]) & nlist.mask).any(dim=1)
+    assert float(gap(f_twin).max()) <= 1e-5 * rms
+    assert float(gap(f_mirror)[~ghost].max()) <= 1e-5 * rms
+    assert float(gap(f_mirror).max()) <= 1e-4 * rms
+    assert torch.equal(f, pair.forces(x, types, nbr, h))
+
+
+@pytest.mark.parametrize("name", ["lj_melt", "charged_melt"])
+def test_ljcut_kernel_is_blind_to_the_list_capacity(cuda, name):
+    """The same rows in a list of 8, 40 or 200 more masked slots give the
+    same forces bit for bit: a re-sized list (another K) does not move
+    the sums, so the graph and eager loops agree though they may re-size
+    at different steps."""
+    import torch.nn.functional as F
+    pair, x, types, nbr, h = _ljcut_on_card(cuda, name)
+    args, kw = pair.kernel_inputs(x, types, nbr, h)
+    f = ljcut.ljcut_forces(*args, **kw)
+    for extra in (8, 40, 200):
+        wide = list(args)
+        wide[5], wide[6] = (F.pad(a, (0, extra)) for a in args[5:7])
+        assert torch.equal(f, ljcut.ljcut_forces(*wide, **kw)), extra
+
+
+def test_ljcut_kernel_refuses_what_it_cannot_take(cuda):
+    """On the card the wrapper raises for float64, for an idx of another
+    dtype and for a table past shared memory; it never takes the twin."""
+    pair, x, types, nbr, h = _ljcut_on_card(cuda, "lj_melt")
+    args, kw = pair.kernel_inputs(x, types, nbr, h)
+    before = ljcut.launches
+    with pytest.raises(TypeError, match="float32"):
+        ljcut.ljcut_forces(*[a.double() if a.is_floating_point() else a
+                             for a in args])
+    with pytest.raises(TypeError, match="idx"):
+        ljcut.ljcut_forces(*args[:5], args[5].int(), *args[6:])
+    big = torch.zeros(200 * 200, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ljcut.ljcut_forces(*args[:7], big, big, big)
+    assert ljcut.launches == before
+
+
+def test_ljcut_graph_loop_matches_eager_loop(cuda):
+    """lj_melt(12) (6,912 atoms, jiggled) for 200 steps through in-run
+    rebuilds: the graph loop equals the eager loop bit for bit (x, v, f,
+    image, rebuild count), kernel I and D' the only kernels; then one span
+    of 16 iterations replayed: kernel I's counter grows by one a step (a
+    force call a step), D''s by one a rebuild."""
+    from lammps_plugins_tpu_torch.run.device_loop import kernel_modules
+    graph, eager = (ljcut_scene("lj", 12, dtype=torch.float32, device=cuda)
+                    for _ in range(2))
+    eager.fused_loop = False
+    for m in kernel_modules():
+        m.launches = 0
+    graph.run(200)
+    assert {m.__name__.split(".")[-1] for m in kernel_modules()
+            if m.launches} == {"select_candidates", "ljcut"}
+    eager.run(200)
+    assert graph._loop is not None and graph._loop.exec is not None
+    assert graph.rebuilds >= 2
+    _assert_same_state(graph, eager)
+    loop = graph._device_loop()
+    torch.cuda.synchronize()
+    before = (ljcut.launches, select_candidates.launches)
+    graph.state = loop.start(graph.state, graph.nbr, True,
+                             graph._seg_dprev)
+    loop.replay(16)
+    res = loop.read()
+    assert res.done >= 1
+    assert ljcut.launches == before[0] + 16 * graph.check_every
+    assert select_candidates.launches == before[1] + res.n_rb
 
 
 # -- per-atom tallies, dumps and the input-script path on the card ---------

@@ -337,3 +337,132 @@ def test_pair_none_shapes_and_registry():
     assert float(E) == 0.0 and F.shape == st.x.shape and W.shape == (3, 3)
     assert not F.any() and not W.any()
     assert not eng.pair.forces(st.x, st.type, eng.nbr, st.box.h).any()
+
+
+# -- kernel I's row-local sum (ops/ljcut.py) on the host -------------------
+
+#: the scenes of the row-local checks: (kind, n) of torch_parity.ljcut_scene
+ROW_LOCAL = {"lj": 4, "charged": 4, "mixture": 3}
+
+
+def _row_local_case(kind, lists):
+    """(pair, x, types, nbr, h) of ROW_LOCAL[kind] in float64 on the CPU,
+    on the host build's lists (no mirror table) or on the device
+    rebuild's (with one)."""
+    from lammps_plugins_tpu_torch.neighbor.build import build_neighbor_data
+    from torch_parity import ljcut_scene
+    eng = ljcut_scene(kind, ROW_LOCAL[kind])
+    if lists == "device":
+        eng.rebuild_neighbors()
+        st, nbr = eng.state, eng.nbr
+        assert nbr.lists["main"].mirror is not None
+    else:
+        st = eng.state
+        nbr = build_neighbor_data(st.x.numpy(), st.type.numpy(), st.box,
+                                  eng.pair.neighbor_requests(), skin=eng.skin,
+                                  **CPU)
+        assert nbr.lists["main"].mirror is None
+    return eng.pair, st.x, st.type, nbr, st.box.h
+
+
+@pytest.mark.parametrize("lists", ["host", "device"])
+@pytest.mark.parametrize("kind", sorted(ROW_LOCAL))
+def test_row_local_twin_equals_forces(kind, lists):
+    """The twin of kernel I (each atom's force from its own row alone)
+    equals forces() in float64: plain autograd on the host build's lists,
+    the mirror combine on the device rebuild's; lj/cut, lj/cut/coul/cut
+    and a 21-type mixture with a cut per type pair."""
+    from lammps_plugins_tpu_torch.ops import ljcut
+    pair, x, types, nbr, h = _row_local_case(kind, lists)
+    f = pair.forces(x, types, nbr, h)
+    args, kw = pair.kernel_inputs(x, types, nbr, h)
+    assert ("q" in kw) == (kind == "charged")
+    f_row = ljcut.ljcut_forces_ref(*args, **kw)
+    assert float(f.abs().max()) > 1e-2
+    assert rel_err(f_row.numpy(), f.numpy()) <= 1e-12
+
+
+def test_ljcut_wrapper_takes_the_twin_on_the_cpu():
+    """ops.ljcut.ljcut_forces on CPU tensors is its twin, bit for bit and
+    without a launch, in float64 and float32; a coefficient table that is
+    no T*T square and an unsupported device raise."""
+    from lammps_plugins_tpu_torch.ops import ljcut
+    pair, x, types, nbr, h = _row_local_case("charged", "device")
+    args, kw = pair.kernel_inputs(x, types, nbr, h)
+    before = ljcut.launches
+    assert torch.equal(ljcut.ljcut_forces(*args, **kw),
+                       ljcut.ljcut_forces_ref(*args, **kw))
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    kw32 = dict(kw, q=kw["q"].float())
+    out32 = ljcut.ljcut_forces(*f32, **kw32)
+    assert out32.dtype == torch.float32
+    assert torch.equal(out32, ljcut.ljcut_forces_ref(*f32, **kw32))
+    assert ljcut.launches == before
+    with pytest.raises(ValueError, match="T\\*T"):
+        ljcut.ljcut_forces(*args[:7], args[7][:-1], *args[8:], **kw)
+    meta = [a.to("meta") for a in args]
+    with pytest.raises(ValueError, match="unsupported device"):
+        ljcut.ljcut_forces(*meta)
+
+
+@pytest.mark.parametrize("style", ["lj", "coul"])
+def test_row_local_twin_dimer_across_the_boundary(style):
+    """Two atoms 0.5 and 9.7 along x in a periodic box 10.8 wide meet only
+    through a ghost image, r = 1.6: the twin's forces are -dE/dr of the
+    closed form along -x and +x, 1e-12 (lj/cut 3.0 eps 0.7 sigma 1.1;
+    coul: charges 1 and -2, qqr2e 14.4, eps 0)."""
+    from lammps_plugins_tpu_torch.core.box import Box
+    from lammps_plugins_tpu_torch.neighbor.build import build_neighbor_data
+    from lammps_plugins_tpu_torch.ops import ljcut
+    from lammps_plugins_tpu_torch.potentials.ljcut import (PairLJCut,
+                                                           PairLJCutCoulCut)
+    r, qq = 1.6, 14.4
+    if style == "coul":
+        pair = PairLJCutCoulCut(3.0, 3.0, ntypes=1, qqr2e=qq, **CPU)
+        pair.set_coeff(1, 1, 0.0, 1.1)
+        pair.bind_charges(torch.tensor([1.0, -2.0], dtype=torch.float64))
+        dedr = -qq * -2.0 / r ** 2
+    else:
+        pair = PairLJCut(3.0, ntypes=1, **CPU)
+        pair.set_coeff(1, 1, 0.7, 1.1)
+        dedr = 4 * 0.7 * (-12 * 1.1 ** 12 / r ** 13 + 6 * 1.1 ** 6 / r ** 7)
+    box = Box.triclinic(10.8, 9.0, 9.0, **CPU)
+    x = torch.tensor([[0.5, 4.0, 4.0], [9.7, 4.0, 4.0]],
+                     dtype=torch.float64)
+    t = torch.tensor([1, 1])
+    nbr = build_neighbor_data(x.numpy(), t.numpy(), box,
+                              pair.neighbor_requests(), skin=0.5, **CPU)
+    nl = nbr.lists["main"]
+    assert bool((nl.idx[nl.mask] >= 2).all())      # only the ghost images
+    args, kw = pair.kernel_inputs(x, t, nbr, box.h)
+    f = ljcut.ljcut_forces_ref(*args, **kw).numpy()
+    np.testing.assert_allclose(f[0], [-dedr, 0.0, 0.0], atol=1e-12)
+    np.testing.assert_allclose(f[1], [dedr, 0.0, 0.0], atol=1e-12)
+
+
+def test_ljcut_ops_module_imports_without_cuda():
+    """ops/ljcut.py imports with no card visible, builds and loads no
+    kernel library, and its forces run on the CPU (the twin)."""
+    import os
+    import subprocess
+    import sys
+    code = (
+        "import sys, torch\n"
+        "from lammps_plugins_tpu_torch.ops import build, ljcut\n"
+        "assert not torch.cuda.is_available()\n"
+        "x = torch.tensor([[0.0, 0.0, 0.0], [1.1, 0.0, 0.0]])\n"
+        "idx = torch.tensor([[1], [0]]); mask = torch.ones(2, 1, dtype=bool)\n"
+        "tab = lambda v: torch.full((4,), v)\n"
+        "f = ljcut.ljcut_forces(x, torch.ones(2, dtype=torch.int64),\n"
+        "    torch.zeros(0, dtype=torch.int64), torch.zeros(0, 3),\n"
+        "    torch.eye(3), idx, mask, tab(4.0), tab(4.0), tab(6.25))\n"
+        "assert f[0, 0] < 0 < f[1, 0] and f[0, 0] == -f[1, 0]\n"
+        "assert build._lib is None and ljcut.launches == 0\n"
+        "assert 'triton' not in sys.modules\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

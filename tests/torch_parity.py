@@ -279,3 +279,43 @@ def mixture_arrays(ntypes, n=5, seed=21, jiggle=0.08):
                rng.uniform(2.0, 3.0))
               for i in range(1, ntypes + 1) for j in range(i, ntypes + 1)]
     return x, types, n * a, coeffs
+
+
+def ljcut_scene(kind, n, dtype=torch.float64, device="cpu", jiggle=0.05,
+                seed=5):
+    """An Engine (lists not yet built) of one lj/cut scene of kernel I's
+    checks (ops/ljcut.py): "lj" lj_melt(n) (lj/cut 2.5); "charged"
+    charged_melt(n) (lj/cut/coul/cut 6 / 8, two types); "wide" the same
+    deck with lj/cut/coul/cut 6 12 at skin 2 (K past 352 from n = 6); each
+    with every atom displaced uniformly in [-jiggle, jiggle] (numpy seed);
+    "mixture" mixture_arrays(21, n, seed): 21 types, a cut per type pair,
+    skin 0.3."""
+    from lammps_plugins_tpu_torch.api.scenes import charged_melt, lj_melt
+    from lammps_plugins_tpu_torch.core import units
+    from lammps_plugins_tpu_torch.core.box import Box
+    from lammps_plugins_tpu_torch.core.state import State
+    from lammps_plugins_tpu_torch.fixes.nve import FixNVE
+    from lammps_plugins_tpu_torch.potentials.ljcut import (PairLJCut,
+                                                           PairLJCutCoulCut)
+    from lammps_plugins_tpu_torch.run.simulation import Engine
+    kw = dict(dtype=dtype, device=device)
+    if kind == "mixture":
+        x, types, length, coeffs = mixture_arrays(21, n, seed)
+        pair = PairLJCut(3.0, ntypes=21, **kw)
+        for c in coeffs:
+            pair.set_coeff(*c)
+        st = State.create(x=x, type=types, mass=np.ones(22),
+                          box=Box.orthogonal([length] * 3, **kw))
+        return Engine(st, pair, [FixNVE()], units.LJ, skin=0.3)
+    deck = lj_melt(n, **kw) if kind == "lj" else charged_melt(n, **kw)
+    if kind == "wide":
+        pair = PairLJCutCoulCut(6.0, 12.0, ntypes=2, qqr2e=deck.units.qqr2e,
+                                **kw)
+        pair.set_coeff(1, 1, 0.01, 2.5)
+        pair.set_coeff(2, 2, 0.01, 3.4)
+        deck = dataclasses.replace(deck, pair=pair, skin=2.0)
+    st = deck.state
+    x = st.x.double().cpu().numpy() + np.random.default_rng(seed).uniform(
+        -jiggle, jiggle, st.x.shape)
+    deck.state = st.replace(x=torch.as_tensor(x, **kw))
+    return deck.engine()
