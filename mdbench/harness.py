@@ -43,7 +43,10 @@ and the numbers compared are
 
 each the larger of the start and the end reading; a driver whose window
 writes outputs adds its own numbers (compare_outputs).  In control mode
-the reference in bfloat16 stands in the program's place.
+the reference in bfloat16 stands in the program's place.  The reference
+keeps its pair lists and sums by blocks spread over the cell's cards
+(reference/neighbors.py), so that its memory follows the blocks and not
+the number of pairs.
 """
 
 from __future__ import annotations
@@ -205,9 +208,11 @@ def snapshot(eng, cfg: dict, root=ROOT) -> dict:
 
 
 # -- the reference -------------------------------------------------------------
-def reference_potential(cfg: dict, device, root=ROOT):
+def reference_potential(cfg: dict, devices, root=ROOT):
+    """The configuration's plain reference, spread over `devices` (the
+    cell's cards, in order)."""
     pc = cfg["pair"]
-    return find("styles", pc["style"], root).reference(pc, root, device)
+    return find("styles", pc["style"], root).reference(pc, root, devices)
 
 
 def reference_integrator(cfg: dict, inp: dict, pot, dtype=torch.float64,

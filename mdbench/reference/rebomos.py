@@ -8,16 +8,23 @@ switched LJ over every unordered pair between rcLJmin and rcLJmax.  It
 reads the parameter file itself and imports nothing of the program.
 `dtype` is the arithmetic of the potential; the displacement vectors are
 always formed in float64 from the positions and then cast to it.
+
+The work goes by blocks over the cards of the pair list (neighbors.py):
+each card takes the LJ tier of its own pair blocks and picks their REBO
+edges, then a fixed share of the atoms' REBO rows, in blocks of rows x
+neighbours^2 of at most `block`; the partial sums are added on the
+first card in card order.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
 
-from neighbors import directed_lists, image_pairs
-from tally import edge_halves, pair_halves
+from neighbors import BLOCK_PAIRS, Cards, build, directed, shift_table
+from tally import Sums
 
 PARAM_ORDER = (
     ["rcmin_MM", "rcmin_MS", "rcmin_SS", "rcmax_MM", "rcmax_MS", "rcmax_SS",
@@ -30,9 +37,10 @@ PARAM_ORDER = (
     + ["epsilon_MM", "epsilon_SS", "sigma_MM", "sigma_SS"])
 
 TOL = 1.0e-9          # pair_rebomos.cpp: bonds with w <= TOL are skipped
-#: rows of one REBO autograd block, pairs of one LJ block
-ROW_BLOCK = 2 ** 16
-PAIR_BLOCK = 2 ** 24
+#: the LJ tier is evaluated, in the potential's dtype, on the pairs whose
+#: float64 distance lies within this share of its window; the window
+#: itself is decided in that dtype, as over all pairs
+LJ_MARGIN = 0.02
 
 
 def read_params(path: str) -> dict:
@@ -49,11 +57,20 @@ def read_params(path: str) -> dict:
 
 
 class REBOMoS:
-    """Element codes 0 = Mo, 1 = S; `elem` maps 1-based atom types."""
+    """Element codes 0 = Mo, 1 = S; `elem` maps 1-based atom types.
+    `devices` (one or a list, in card order; by default x's device) are
+    the cards its pair lists and sums spread over, `block` the size of
+    one block."""
 
-    def __init__(self, path: str, elements, device="cpu"):
+    def __init__(self, path: str, elements, devices=None,
+                 block: int = BLOCK_PAIRS):
         p = read_params(path)
-        self.device = torch.device(device)
+        if isinstance(devices, (str, torch.device)):
+            devices = [devices]
+        self.devices = None if devices is None else list(devices)
+        self.block = block
+        self.device = torch.device(devices[0] if devices else "cpu")
+        self._views = {}
         codes = {"Mo": 0, "M": 0, "S": 1}
         self.elem = torch.tensor([0] + [codes[e] for e in elements],
                                  device=self.device)
@@ -83,10 +100,22 @@ class REBOMoS:
         self.ljmax = 2.5 * self.sigma
         self.cutoff = float(max(self.ljmax.max(), self.rcmax.max()))
 
+    def _at(self, device) -> "REBOMoS":
+        """This potential with its tables on `device`."""
+        device = torch.device(device)
+        if device not in self._views:
+            view = copy.copy(self)
+            for key, val in vars(self).items():
+                if torch.is_tensor(val):
+                    setattr(view, key, val.to(device))
+            self._views[device] = view
+        return self._views[device]
+
     # -- neighbours ----------------------------------------------------------
     def pairs(self, x, h, types, skin: float = 0.0):
         """Unordered image pairs within the largest cutoff (+ skin)."""
-        return image_pairs(x, h, self.cutoff + skin)
+        return build(x, h, self.cutoff + skin,
+                     Cards(self.devices or [x.device], self.block))
 
     # -- REBO ----------------------------------------------------------------
     def _rebo_rows(self, d, mask, ei, ej, dtype):
@@ -158,72 +187,103 @@ class REBOMoS:
         (float64) under ev_tally's half-half split: each directed REBO
         edge's 1/2 w (VR + p_ij VA) and virial -(d (x) dE/dd) half to its
         centre and half to its neighbour, each LJ pair's V and virial half
-        to each end.  eatom sums to e, vatom to the virial W."""
-        i, j, s = pairs
+        to each end.  eatom sums to e, vatom to the virial W.  On the
+        first card."""
+        cards = pairs.cards
         n = x.shape[0]
-        h = h.to(torch.float64)
-        el = self.elem[types]
-        f64 = dict(dtype=torch.float64, device=x.device)
-        F = torch.zeros((n, 3), **f64)
-        E = torch.zeros((), **f64)
-        eat = torch.zeros(n, **f64) if tallies else None
-        vat = torch.zeros((n, 6), **f64) if tallies else None
-        # REBO: directed lists of the pairs inside rcmax
-        d = x[j] + s.to(torch.float64) @ h - x[i]
-        r = torch.linalg.norm(d, dim=1)
-        keep = r < self.rcmax[el[i], el[j]]
-        nbr, sh = directed_lists(i[keep], j[keep], s[keep], n)
-        for r0 in range(0, n, ROW_BLOCK):
-            r1 = min(r0 + ROW_BLOCK, n)
-            nb = nbr[r0:r1]
-            mask = nb >= 0
-            jn = torch.where(mask, nb, torch.zeros_like(nb))
-            dd = (x[jn] + sh[r0:r1].to(torch.float64) @ h
-                  - x[r0:r1, None, :])
-            dd = dd.to(dtype).detach().requires_grad_(True)
-            per_edge = 0.5 * self._rebo_rows(dd, mask, el[r0:r1], el[jn],
-                                             dtype)
-            e = per_edge.sum()
-            (g,) = torch.autograd.grad(e, dd)
-            g = torch.where(mask[..., None], g, torch.zeros_like(g)).double()
-            F[r0:r1] += g.sum(1)
-            F.index_add_(0, jn.reshape(-1), -g.reshape(-1, 3))
-            E = E + e.detach().double()
-            if tallies:
-                edge_halves(eat, vat, r0, jn, per_edge.detach().double(),
-                           dd.detach().double(), g)
-        # LJ tier over the unordered pairs
-        for p0 in range(0, len(i), PAIR_BLOCK):
-            p1 = min(p0 + PAIR_BLOCK, len(i))
-            ii, jj = i[p0:p1], j[p0:p1]
-            dd = (d[p0:p1]).to(dtype).detach().requires_grad_(True)
-            rr = torch.sqrt((dd * dd).sum(1))
-            v = self._vlj(rr, el[ii], el[jj], dtype)
-            e = v.sum()
-            (g,) = torch.autograd.grad(e, dd)
-            g = g.double()
-            F.index_add_(0, ii, g)
-            F.index_add_(0, jj, -g)
-            E = E + e.detach().double()
-            if tallies:
-                pair_halves(eat, vat, ii, jj, v.detach().double(),
-                             dd.detach().double(), g)
-        return dict(e=E, f=F, eatom=eat, vatom=vat)
+        views = [self._at(d) for d in cards.devices]
+
+        def lj_tier(k, dev):
+            """Card k's sums of the LJ tier over its pair blocks, and their
+            REBO edges (the pairs inside rcmax) as (i, j, code)."""
+            p, acc = views[k], Sums(n, dev, tallies)
+            xk, hk = x.to(dev), h.to(device=dev, dtype=torch.float64)
+            el = p.elem[types.to(dev)]
+            edges = []
+            for blk, i, j, d in pairs.on_card(k, xk, hk):
+                ei, ej = el[i], el[j]
+                r = torch.linalg.norm(d, dim=1)
+                keep = r < p.rcmax[ei, ej]
+                edges.append(tuple(t[keep] for t in blk))
+                near = (r >= (1.0 - LJ_MARGIN) * p.ljmin[ei, ej]) & (
+                    r <= (1.0 + LJ_MARGIN) * p.ljmax[ei, ej])
+                ii, jj = i[near], j[near]
+                dd = d[near].to(dtype).detach().requires_grad_(True)
+                rr = torch.sqrt((dd * dd).sum(1))
+                v = p._vlj(rr, ei[near], ej[near], dtype)
+                e = v.sum()
+                (g,) = torch.autograd.grad(e, dd)
+                acc.pairs(ii, jj, e, v, dd, g.double())
+            return acc, edges
+
+        parts = cards.run(lj_tier)
+        sums = [acc for acc, _ in parts]
+        edges = [e for _, card in parts for e in card]
+        # the REBO edges of every card, in card order, as rows on the first
+        dev0 = cards.devices[0]
+        nbr, codes = directed(*(torch.cat([e[m].to(dev0) for e in edges])
+                                for m in range(3)), n)
+        K = nbr.shape[1]
+        rows = max(1, cards.block // (K * K))
+
+        def rebo_rows(k, dev):
+            """Card k's share of the REBO rows, `rows` at a time."""
+            p, acc = views[k], sums[k]
+            xk, hk = x.to(dev), h.to(device=dev, dtype=torch.float64)
+            el = p.elem[types.to(dev)]
+            lift, table = pairs.lift.to(dev), shift_table(dev)
+            lo, hi = cards.share(n, k)
+            nbr_k, codes_k = nbr[lo:hi].to(dev), codes[lo:hi].to(dev)
+            for r0 in range(lo, hi, rows):
+                r1 = min(r0 + rows, hi)
+                nb = nbr_k[r0 - lo:r1 - lo].long()
+                mask = nb >= 0
+                jn = torch.where(mask, nb, torch.zeros_like(nb))
+                sh = (table[codes_k[r0 - lo:r1 - lo].long()] + lift[jn]
+                      - lift[r0:r1, None, :])
+                sh = torch.where(mask[..., None], sh, torch.zeros_like(sh))
+                dd = (xk[jn] + sh.to(torch.float64) @ hk
+                      - xk[r0:r1, None, :])
+                dd = dd.to(dtype).detach().requires_grad_(True)
+                per_edge = 0.5 * p._rebo_rows(dd, mask, el[r0:r1], el[jn],
+                                              dtype)
+                e = per_edge.sum()
+                (g,) = torch.autograd.grad(e, dd)
+                g = torch.where(mask[..., None], g,
+                                torch.zeros_like(g)).double()
+                acc.rows(r0, jn, e, per_edge, dd, g)
+
+        cards.run(rebo_rows)
+        return Sums.total(cards, sums)
 
     # -- the work the kernels need, from the physics ---------------------------
     def counts(self, x, h, types, pairs) -> dict:
         """Directed REBO edges inside rcmax, unordered pairs of one atom's
         edges, and ordered pairs inside the LJ window [rcLJmin, rcLJmax]."""
-        i, j, s = pairs
-        el = self.elem[types]
-        d = x[j] + s.to(torch.float64) @ h.to(torch.float64) - x[i]
-        r = torch.linalg.norm(d, dim=1)
-        ei, ej = el[i], el[j]
-        rebo = r < self.rcmax[ei, ej]
-        n = torch.bincount(torch.cat([i[rebo], j[rebo]]),
-                           minlength=x.shape[0]).double()
-        win = (r >= self.ljmin[ei, ej]) & (r <= self.ljmax[ei, ej])
-        return dict(atoms=x.shape[0], rebo_edges=float(n.sum()),
-                    rebo_edge_pairs=float((n * (n - 1) / 2).sum()),
-                    lj_window_pairs=2.0 * float(win.sum()))
+        cards = pairs.cards
+        n = x.shape[0]
+        views = [self._at(d) for d in cards.devices]
+
+        def count(k, dev):
+            p = views[k]
+            xk, hk = x.to(dev), h.to(device=dev, dtype=torch.float64)
+            el = p.elem[types.to(dev)]
+            deg = torch.zeros(n, dtype=torch.int64, device=dev)
+            win = torch.zeros((), dtype=torch.int64, device=dev)
+            for _, i, j, d in pairs.on_card(k, xk, hk):
+                r = torch.linalg.norm(d, dim=1)
+                ei, ej = el[i], el[j]
+                rebo = r < p.rcmax[ei, ej]
+                deg += torch.bincount(torch.cat([i[rebo], j[rebo]]),
+                                      minlength=n)
+                win += ((r >= p.ljmin[ei, ej])
+                        & (r <= p.ljmax[ei, ej])).sum()
+            return deg, win
+
+        parts = cards.run(count)
+        deg = cards.total([p[0] for p in parts]).double()
+        win = cards.total([p[1] for p in parts])
+        return dict(atoms=n, rebo_edges=float(deg.sum()),
+                    rebo_edge_pairs=float((deg * (deg - 1) / 2).sum()),
+                    lj_window_pairs=2.0 * float(win))
 

@@ -111,8 +111,15 @@ def run_cell(c: dict, bench: dict, seed: int, seconds: float, traced: bool,
     drv.close()
     drv = None
     H.free_program()
-    # the reference, once the program's state is freed
-    pot = H.reference_potential(cfg, device, root)
+    # the reference, once the program's state is freed, over the cell's
+    # cards
+    cards = [torch.device(device)]
+    if cuda:
+        cards = [torch.device("cuda", i) for i in range(c["chips"])]
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+    t = H.now()
+    pot = H.reference_potential(cfg, cards, root)
     if control:
         got_start = H.control_state(cfg, inp, pot, start_in, k, root)
         got_end = H.control_state(cfg, inp, pot, end_in, k, root)
@@ -121,6 +128,10 @@ def run_cell(c: dict, bench: dict, seed: int, seconds: float, traced: bool,
     if hasattr(driver, "compare_outputs"):
         nums.update(driver.compare_outputs(
             c, inp, pot, outs, dict(start=start_in, end=end_in), control))
+    sync()
+    log(f"# reference: {H.now() - t:.3f} s on {len(cards)} card(s), peak "
+        "GiB " + json.dumps([torch.cuda.max_memory_allocated(d) / 2 ** 30
+                             for d in cards] if cuda else []))
     log("# numbers " + json.dumps(nums))
     checks = {name: dict(value=nums.get(name, math.nan), limit=limit)
               for name, limit in trf["limits"].items()}

@@ -11,9 +11,10 @@ def program(pc: dict, root: str, dtype, device):
     return pair
 
 
-def reference(pc: dict, root: str, device):
+def reference(pc: dict, root: str, devices):
+    """The plain reference on `devices` (one, or the cell's cards)."""
     from ljcut import LJCut
-    return LJCut(pc["cutoff"], pc["epsilon"], pc["sigma"])
+    return LJCut(pc["cutoff"], pc["epsilon"], pc["sigma"], devices)
 
 
 def deck(pc: dict, root: str) -> list:

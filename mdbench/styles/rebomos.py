@@ -12,10 +12,11 @@ def program(pc: dict, root: str, dtype, device):
                              dtype=dtype, device=device)
 
 
-def reference(pc: dict, root: str, device):
+def reference(pc: dict, root: str, devices):
+    """The plain reference on `devices` (one, or the cell's cards)."""
     from rebomos import REBOMoS
     return REBOMoS(os.path.join(root, pc["file"]), pc["elements"],
-                   device=device)
+                   devices=devices)
 
 
 def deck(pc: dict, root: str) -> list:
