@@ -421,7 +421,7 @@ def flags_to_host(flags: Dict[str, torch.Tensor]) -> Dict[str, int]:
 
 def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
                    cut_mats: Dict[str, np.ndarray], react: bool = False,
-                   valid: torch.Tensor | None = None):
+                   valid: torch.Tensor | None = None, wrap: bool = True):
     """(x, image) -> (xw, image', NeighborData, flags) with fixed shapes.
 
     cut_mats: per-tier [T+1, T+1] cutoff matrices (numpy).  react: measure
@@ -433,19 +433,27 @@ def device_rebuild(plan: RebuildPlan, x, image, types, h, h_inv, lo,
     boundary set, the ghosts, the candidate cells and the cell table, so
     that no list holds them; they should be parked far outside the box
     along a non-periodic axis, where no centre finds them and their own
-    rows stay empty."""
+    rows stay empty.
+    wrap=False takes x as wrapped already (the sharded engine wraps its
+    rows in the global cell): xw is x and image is kept, so that the lists
+    are built on the positions the caller steps, even where rounding left
+    a row on a periodic face (fractional coordinate 1.0 in float32), which
+    a second wrap would move by a whole period."""
     dtype, dev = x.dtype, x.device
     n = x.shape[0]
     cst = rebuild_constants(plan, cut_mats, dtype, dev)
 
     # -- wrap into the primary cell (Domain::pbc) --------------------------
     f = matvec3(x - lo, h_inv)
-    shift = torch.floor(f)
-    if not all(plan.periodic):
-        shift = shift * cst["periodic"][None, :]
-    fw = f - shift
-    xw = matvec3(fw, h) + lo
-    image = image + shift.to(torch.int32)
+    if wrap:
+        shift = torch.floor(f)
+        if not all(plan.periodic):
+            shift = shift * cst["periodic"][None, :]
+        fw = f - shift
+        xw = matvec3(fw, h) + lo
+        image = image + shift.to(torch.int32)
+    else:
+        fw, xw = f, x
 
     # -- ghost-image compaction, two-stage: boundary atoms, then images ---
     shifts, margins, per = cst["shifts"], cst["margins"], cst["per"]

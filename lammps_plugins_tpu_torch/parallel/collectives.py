@@ -26,6 +26,13 @@ in shard order 0..Pn-1: every shard holds the same bits, and reruns match
 bit for bit (no float atomics, no NCCL).  A CPU shard takes part through
 synchronous copies (the `[card, cpu]` check of chip_smoke.py).
 
+A run given span slots (one int64 [3] tensor a shard, `Lockstep.run(...,
+slots=)`) stamps every collective on each receiving shard's stream
+(run/timers.stamp): slot[COLLECTIVE] from before its event waits to after
+its copies, slot[COPY] from after the waits, the copies and reductions
+alone.  The stamps are kernels on that stream, so a replayed program's
+collectives are timed on the device with no host read of their own.
+
 A failure in one thread aborts the others and raises in the caller; no
 turn for `timeout` seconds raises TimeoutError there, so a hung shard
 never hangs the caller (its thread, a daemon, is left behind).
@@ -42,6 +49,11 @@ from typing import Callable, List, Sequence
 import torch
 
 from ..run.device_loop import _add_launches, _launch_counts
+from ..run.timers import stamp
+
+#: a shard's span slot: the indices of its stamped spans (Pair.forces,
+#: Comm.collective, Comm.copy)
+FORCES, COLLECTIVE, COPY = 0, 1, 2
 
 
 class ShardGroup:
@@ -89,11 +101,14 @@ class Collective:
     kind "ppermute": operands[d] is a list of tensors and srcs one source
     map per tensor: output k of shard d is operand k of shard srcs[k][d].
     kind "psum" / "pmax": operands[d] is one tensor, and every shard's
-    output is the sum / max of all of them in shard order."""
+    output is the sum / max of all of them in shard order.  slots: the
+    shards' span slots, stamped at every run (module docstring), or None."""
 
-    def __init__(self, group: ShardGroup, kind: str, operands, srcs=None):
+    def __init__(self, group: ShardGroup, kind: str, operands, srcs=None,
+                 slots=None):
         self.group, self.kind, self.operands, self.srcs = (
             group, kind, operands, srcs)
+        self.slots = slots
         n = len(group)
         self.outputs = []
         for d in range(n):
@@ -140,11 +155,16 @@ class Collective:
                 self._ready[j].record(s)
         for d in range(n):
             s = g.streams[d]
+            slot = self.slots[d] if self.slots is not None else None
             with g.on(d):
+                if slot is not None:
+                    stamp(slot[COLLECTIVE], -1)
                 if s is not None:
                     for j in self.reads[d]:
                         if g.streams[j] is not None and g.streams[j] != s:
                             s.wait_event(self._ready[j])
+                if slot is not None:
+                    stamp(slot[COPY], -1)
                 if self.kind == "ppermute":
                     for k, src in enumerate(self.srcs):
                         self._bring(self.operands[src[d]][k], src[d], d,
@@ -157,6 +177,9 @@ class Collective:
                             acc + t if self.kind == "psum"
                             else torch.maximum(acc, t))
                     self.outputs[d].copy_(acc)
+                if slot is not None:
+                    stamp(slot[COPY], 1)
+                    stamp(slot[COLLECTIVE], 1)
                 if s is not None:
                     self._done[d].record(s)
         for d in range(n):
@@ -241,8 +264,9 @@ class _Run:
     """The shared state of one lock-step run (see Lockstep)."""
 
     def __init__(self, group: ShardGroup, timeout: float,
-                 program: Program | None):
+                 program: Program | None, span_slots=None):
         self.group, self.timeout, self.program = group, timeout, program
+        self.span_slots = span_slots
         self.n = len(group)
         self.cond = threading.Condition()
         self.turn = 0
@@ -336,7 +360,8 @@ class _Run:
                 f"{[s and s[0] for s in self.slots]}, finished "
                 f"{self.finished}")
         kind, _, srcs = self.slots[0]
-        op = Collective(self.group, kind, [s[1] for s in self.slots], srcs)
+        op = Collective(self.group, kind, [s[1] for s in self.slots], srcs,
+                        self.span_slots)
         if self.program is not None:
             self.program.collectives.append(op)
         else:
@@ -374,14 +399,16 @@ class Lockstep:
         self.group = group
         self.timeout = timeout
 
-    def run(self, fn: Callable) -> list:
-        """[fn(d, comm) for every shard d], run eagerly."""
-        return self._go(fn, None)
+    def run(self, fn: Callable, slots=None) -> list:
+        """[fn(d, comm) for every shard d], run eagerly; its collectives
+        stamped into `slots` when given (module docstring)."""
+        return self._go(fn, None, slots)
 
-    def capture(self, fn: Callable) -> Program:
+    def capture(self, fn: Callable, slots=None) -> Program:
         """fn's pieces captured (not run), one CUDA graph per shard and
-        piece; its collectives recorded with their outputs; what fn
-        returned in program.results.  Run fn eagerly first (its kernels
+        piece; its collectives recorded with their outputs (and stamped
+        into `slots` at each replay when given); what fn returned in
+        program.results.  Run fn eagerly first (its kernels
         built, the device caches of its fixes filled)."""
         if not self.group.cuda:
             raise RuntimeError("a captured program needs every shard on a "
@@ -391,7 +418,7 @@ class Lockstep:
         gc_enabled = gc.isenabled()
         gc.disable()    # no finalizer's CUDA call inside a capture
         try:
-            program.results = self._go(fn, program)
+            program.results = self._go(fn, program, slots)
         except BaseException:
             program.close()
             raise
@@ -400,8 +427,8 @@ class Lockstep:
                 gc.enable()
         return program
 
-    def _go(self, fn, program):
-        r = _Run(self.group, self.timeout, program)
+    def _go(self, fn, program, slots=None):
+        r = _Run(self.group, self.timeout, program, slots)
         threads = [threading.Thread(target=r.thread, args=(d, fn),
                                     name=f"shard-{d}", daemon=True)
                    for d in range(r.n)]

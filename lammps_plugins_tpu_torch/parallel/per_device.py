@@ -42,13 +42,25 @@ back: a failed capture or replay raises.
 
 Tensors cross between the shards' streams and the caller's only at
 `_crossing()`, which synchronizes the shards' devices on both sides.
+
+Spans and counters.  Each shard has a span slot (int64 [3] on its device,
+`_span_slots`): the steps of a segment stamp the pair style's force call
+into slot[FORCES] on the shard's stream (inside the captured pieces), and
+the segment's collectives stamp their event waits and copies into
+slot[COLLECTIVE] and the copies alone into slot[COPY] on each receiving
+stream (collectives.Collective).  run() zeroes the slots at its start and
+reads them once at its end (_book_spans), booking each span as the mean
+over the shards' streams: Pair.forces, Comm.collective and Comm.copy, and
+the Comm row as Comm.collective moved out of Pair.  The resettle's
+collectives are not stamped (its time is Neigh).  `captures` counts the
+segment programs captured (a re-size or a new plan captures anew),
+`regrows` the capacity re-sizes, and LoopDriver the discarded segments.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 from typing import Dict, List
 
 import torch
@@ -57,7 +69,8 @@ from ..core.box import Box, matvec3
 from ..core.state import State
 from ..fixes.base import StepContext
 from ..run.device_loop import KERNEL_MODULES, _nested, extras_items, tensors
-from .collectives import Lockstep, ShardGroup
+from ..run.timers import device_span
+from .collectives import COLLECTIVE, COPY, FORCES, Lockstep, ShardGroup
 from .sharded_engine import (HALO_X, HALO_Y, HaloTables, ShardedEngine,
                              ShardState)
 
@@ -88,6 +101,7 @@ class PerDeviceEngine(ShardedEngine):
         self.halos: List[HaloTables] | None = None
         self._prog = None
         self._prog_key = None
+        self.captures = 0
 
     def _setup_geometry(self, state: State):
         """The stacked arithmetic's geometry, then each shard's copies of
@@ -99,6 +113,8 @@ class PerDeviceEngine(ShardedEngine):
         self._pairs = [self.pair.to(dev) for dev in devs]
         self._boxes = [_box_on(state.box, dev) for dev in devs]
         self._masses = [state.mass.to(dev) for dev in devs]
+        self._span_slots = [torch.zeros(3, dtype=torch.int64, device=dev)
+                            for dev in devs]
         self.lockstep = Lockstep(self.group, self.shard_timeout)
 
     def _pack_initial(self, state: State):
@@ -226,22 +242,28 @@ class PerDeviceEngine(ShardedEngine):
                                   ax, self._geo[d])
         return blk
 
-    def _shard_forces(self, d, comm, x, valid, halo, nbr):
+    def _shard_forces(self, d, comm, x, valid, halo, nbr, slot=None):
+        """Shard d's forces; the pair style's call stamped into
+        slot[FORCES] when a span slot is given."""
         block = self._halo_block(d, comm, x, halo)
-        f = self._shard_pair(d, halo).forces(block, halo.t_loc, nbr,
-                                             self._geo[d].h_slab)
+        with (device_span(slot[FORCES]) if slot is not None
+              else contextlib.nullcontext()):
+            f = self._shard_pair(d, halo).forces(block, halo.t_loc, nbr,
+                                                 self._geo[d].h_slab)
         return f[:self.n_cap] * valid[:, None]
 
-    def _shard_steps(self, d, comm, blk: ShardState, halo, nbr, nsteps):
+    def _shard_steps(self, d, comm, blk: ShardState, halo, nbr, nsteps,
+                     slot=None):
         """(shard d's block after nsteps, md): _one_step and _max_disp on
-        the shard's rows, ctx.asum a psum."""
+        the shard's rows, ctx.asum a psum; the force calls stamped into
+        `slot`."""
         ctx = dataclasses.replace(self.ctx, shards=None, shard=d,
                                   allreduce=comm.psum)
         with torch.no_grad():
             st = self._shard_state(d, blk)
             for _ in range(nsteps):
                 st = self._verlet_step(st, ctx, lambda x: self._shard_forces(
-                    d, comm, x, blk.valid, halo, nbr))
+                    d, comm, x, blk.valid, halo, nbr, slot))
             block = self._halo_block(d, comm, st.x, halo)
             dsp = block - nbr.x_build
             d2 = torch.sum(dsp * dsp, dim=1)
@@ -392,8 +414,10 @@ class PerDeviceEngine(ShardedEngine):
         prog = self._program(nsteps)
         if prog is None:
             blocks, halos, nbrs = self.blocks, self.halos, self.nbrs
+            slots = self._span_slots
             out = self.lockstep.run(lambda d, comm: self._shard_steps(
-                d, comm, blocks[d], halos[d], nbrs[d], nsteps))
+                d, comm, blocks[d], halos[d], nbrs[d], nsteps, slots[d]),
+                slots=slots)
             new = [b for b, _ in out]
             md = out[0][1]
         else:
@@ -419,26 +443,26 @@ class PerDeviceEngine(ShardedEngine):
             new = [b.replace(step=n.step) for b, n in zip(inputs, new)]
         self.blocks = list(new)
 
-    def _comm_cost_estimate(self) -> float:
-        """Host-clock seconds of one halo refresh of every shard (its
-        collectives run eagerly), measured once per capacities; an upper
-        bound of the Comm share."""
-        if self._comm_cost is None:
-            blocks, halos = self.blocks, self.halos
+    def _advanced(self, nsteps: int):
+        """Nothing to move: the Comm row is the stamped collectives'
+        (_book_spans)."""
 
-            def refresh():
-                self.lockstep.run(lambda d, comm: self._halo_block(
-                    d, comm, blocks[d].x, halos[d]))
+    def _book_spans(self):
+        """The run's stamped spans, the mean over the shards' streams, read
+        once: Pair.forces, Comm.collective, Comm.copy, and the collectives
+        moved from Pair to Comm."""
+        self.group.synchronize()
+        ns = torch.stack([s.cpu() for s in self._span_slots]).double()
+        sec = (1e-9 * ns.mean(0)).tolist()
+        self.timers.add("Pair.forces", sec[FORCES])
+        self.timers.add("Comm.collective", sec[COLLECTIVE])
+        self.timers.add("Comm.copy", sec[COPY])
+        self.timers.transfer("Pair", "Comm", sec[COLLECTIVE])
 
-            refresh()
-            reps = 5
-            self.group.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                refresh()
-            self.group.synchronize()
-            self._comm_cost = (time.perf_counter() - t0) / reps
-        return self._comm_cost
+    def _start_spans(self):
+        for d, s in enumerate(self._span_slots):
+            with self.group.on(d):
+                s.zero_()
 
     # -- the captured segment -------------------------------------------------
     def _program(self, nsteps: int):
@@ -460,6 +484,7 @@ class PerDeviceEngine(ShardedEngine):
             self._prog = None
         self._prog = _capture_segment(self, nsteps)
         self._prog_key = key
+        self.captures += 1
         return self._prog
 
     def _load(self, prog):
@@ -511,7 +536,9 @@ class PerDeviceEngine(ShardedEngine):
 def _capture_segment(eng: PerDeviceEngine, nsteps: int):
     """The segment's Program: buffers cloned from the engine's blocks and
     halo tables (its lists adopted as they are), one eager run of the
-    segment on them (kernels built, caches filled), then the capture."""
+    segment on them (kernels built, caches filled; its spans stamped into
+    slots that are dropped), then the capture, stamping into the engine's
+    span slots at each replay."""
     n = eng.n_devices
     inputs, halos = [], []
     for d in range(n):
@@ -522,11 +549,14 @@ def _capture_segment(eng: PerDeviceEngine, nsteps: int):
                 for f in dataclasses.fields(HaloTables)}))
     nbrs = list(eng.nbrs)
 
-    def body(d, comm):
-        return eng._shard_steps(d, comm, inputs[d], halos[d], nbrs[d], nsteps)
+    def body(slots):
+        return lambda d, comm: eng._shard_steps(
+            d, comm, inputs[d], halos[d], nbrs[d], nsteps, slots[d])
 
-    eng.lockstep.run(body)                     # warm-up, results dropped
-    prog = eng.lockstep.capture(body)
+    warm = [torch.zeros_like(s) for s in eng._span_slots]
+    eng.lockstep.run(body(warm), slots=warm)   # warm-up, results dropped
+    prog = eng.lockstep.capture(body(eng._span_slots),
+                                slots=eng._span_slots)
     for d, (blk, _) in enumerate(prog.results):
         if [p for p, _ in extras_items(blk.extras)] != \
                 [p for p, _ in extras_items(inputs[d].extras)]:

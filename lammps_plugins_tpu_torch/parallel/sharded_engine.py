@@ -648,12 +648,15 @@ class ShardedEngine(LoopDriver):
 
     def _rebuild_shard(self, d: int, pair: PairStyle, xb, tb, vb, g):
         """Shard d's lists on the slab box, its pad rows kept out:
-        (NeighborData, flags)."""
+        (NeighborData, flags).  The rows are not wrapped again (_wrap did
+        it in the global cell): in float32 _wrap can leave a row on a
+        periodic face, which a wrap in the slab box would move by a period
+        that the engine's own rows do not take."""
         zero_im = torch.zeros((self.n_loc, 3), dtype=torch.int32,
                               device=xb.device)
         _, _, nbr, fl = device_build.device_rebuild(
             self._plan, xb, zero_im, tb, g.h_slab, g.hinv_slab,
-            g.lo_shards[d], pair.neighbor_requests(), valid=vb)
+            g.lo_shards[d], pair.neighbor_requests(), valid=vb, wrap=False)
         make = getattr(pair, "rebuild_tables", None)
         if make:
             nbr = dataclasses.replace(nbr, pair_tables=make(nbr))

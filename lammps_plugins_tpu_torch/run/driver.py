@@ -30,6 +30,12 @@ A subclass holds the state and the lists and provides:
                                    re-list the last rebuild before it
   _after_span(res)                 count the span's rebuilds, tighten
   _advanced(n)                     n more steps kept (optional)
+  _start_spans(), _book_spans()    zero the run's device span slots at its
+                                   start, read and book them at its end
+                                   (optional; by default _host_span_ns())
+
+A segment that the rebuild rule discards is counted on the host:
+timers.counts["redone_segments"] and ["redone_steps"].
 """
 
 from __future__ import annotations
@@ -68,6 +74,13 @@ class LoopDriver:
     def _advanced(self, nsteps: int):
         pass
 
+    def _start_spans(self):
+        self._host_ns = None
+
+    def _book_spans(self):
+        if self._host_ns is not None:
+            self.timers.add("Pair.forces", 1e-9 * int(self._host_ns))
+
     def _fused(self) -> bool:
         fused = self.fused_loop
         if fused is None:
@@ -88,6 +101,9 @@ class LoopDriver:
         tripped = md > half2
         if pending or not tripped:
             self._accept(new)
+        else:
+            self.timers.count("redone_segments")
+            self.timers.count("redone_steps", nsteps)
         # a discarded segment re-runs from its start after the rebuild that
         # `tripped` asks for; a fresh-list segment that trips is kept, and
         # the next one rebuilds first
@@ -156,7 +172,7 @@ class LoopDriver:
         runs at the start and whenever the step count reaches a multiple
         of `every` (dumps, restarts), with the global State."""
         self.timers.start_run(self.natoms, chips=self.n_devices)
-        self._host_ns = None
+        self._start_spans()
         self._setup_forces()
         rows = []
 
@@ -196,8 +212,7 @@ class LoopDriver:
                 self._advanced(adv)
                 done += adv
                 boundaries(done)
-        if self._host_ns is not None:
-            self.timers.add("Pair.forces", 1e-9 * int(self._host_ns))
+        self._book_spans()
         self.timers.end_run(nsteps)
         self.thermo_rows = rows
         return rows

@@ -31,6 +31,10 @@ one-thread kernel on the current stream that reads %globaltimer (a CUDA
 graph captures it with the span's work), on a CPU slot from
 perf_counter_ns.  The slot sums its spans; its owner reads it with a copy
 it already makes and books the seconds.
+
+Counts of events the loop decides on the host sit beside the seconds in
+`counts` (`count`): `redone_segments` and `redone_steps`, the host loop's
+segments discarded by the rebuild rule and run again.
 """
 
 from __future__ import annotations
@@ -66,6 +70,8 @@ class Timers:
 
     def __init__(self):
         self.acc: Dict[str, float] = {s: 0.0 for s in self.SECTIONS}
+        self.counts: Dict[str, int] = dict(redone_segments=0,
+                                           redone_steps=0)
         self._open = []            # per open section: seconds booked inside
         self._wall_start = None
         self.steps = 0
@@ -101,6 +107,9 @@ class Timers:
 
     def add(self, key: str, seconds: float):
         self.acc[key] = self.acc.get(key, 0.0) + seconds
+
+    def count(self, key: str, n: int = 1):
+        self.counts[key] = self.counts.get(key, 0) + n
 
     def transfer(self, src: str, dst: str, seconds: float):
         """Re-attribute time between sections (e.g. the sharded engine's
