@@ -30,15 +30,18 @@ fix nvt or fix bfield only the order of the psum differs.  The thermo row
 sums the shards' E and W in shard order, as the stacked layout does.
 
 The loop is LoopDriver's host loop: one host read of the pmax'd
-displacement per segment, dprev carried across spans, the resettle run
-eagerly (its flags read once).  On CUDA shards (fused_loop not False) a
-segment of check_every steps is a Program: the pieces between collectives
-captured as one CUDA graph per shard, replayed in order by the host with
-the collectives, which are copies ordered by events across the streams,
-run between them (a graph cannot wait on an event of another capture, and
-PyTorch captures one device per graph).  Graph and eager runs make the
-same calls, so they give the same trajectory bit for bit.  Nothing falls
-back: a failed capture or replay raises.
+displacement per segment, dprev carried across spans, one host read of
+the resettle's flags.  On CUDA shards (fused_loop not False) a segment of
+check_every steps and the resettle are each a Program: the pieces between
+collectives captured as one CUDA graph per shard, replayed in order by
+the host with the collectives, which are copies ordered by events across
+the streams, run between them (a graph cannot wait on an event of another
+capture, and PyTorch captures one device per graph).  The resettle's
+program reads its own copy of the shards' rows and keeps what it makes
+(rows, halo tables, lists, flags) on its own tensors, which the next
+segment's _load copies into that program's buffers.  Graph and eager runs
+make the same calls, so they give the same trajectory bit for bit.
+Nothing falls back: a failed capture or replay raises.
 
 Tensors cross between the shards' streams and the caller's only at
 `_crossing()`, which synchronizes the shards' devices on both sides.
@@ -53,8 +56,9 @@ reads them once at its end (_book_spans), booking each span as the mean
 over the shards' streams: Pair.forces, Comm.collective and Comm.copy, and
 the Comm row as Comm.collective moved out of Pair.  The resettle's
 collectives are not stamped (its time is Neigh).  `captures` counts the
-segment programs captured (a re-size or a new plan captures anew),
-`regrows` the capacity re-sizes, and LoopDriver the discarded segments.
+programs captured, segments' and resettles' (a re-size or a new plan
+captures both anew), `regrows` the capacity re-sizes, and LoopDriver the
+discarded segments.
 """
 
 from __future__ import annotations
@@ -101,6 +105,8 @@ class PerDeviceEngine(ShardedEngine):
         self.halos: List[HaloTables] | None = None
         self._prog = None
         self._prog_key = None
+        self._rs_prog = None
+        self._rs_key = None
         self.captures = 0
 
     def _setup_geometry(self, state: State):
@@ -272,10 +278,12 @@ class PerDeviceEngine(ShardedEngine):
             md = comm.pmax(m).double()
         return self._from_state(blk, st), md
 
-    def _resettle_shard(self, d: int, comm, blk: ShardState):
+    def _resettle_shard(self, d: int, comm, blk: ShardState,
+                        into_program: bool = True):
         """Shard d's resettle (the stacked _resettle on its rows): wrap,
         migration by ppermutes, the halo stages by ppermutes, its rebuild,
-        the flags pmax'd.  Returns (block, halo tables, lists, flags)."""
+        the flags pmax'd.  Returns (block, halo tables, lists, flags); the
+        lists written into the segment program's when into_program."""
         g = self._geo[d]
         Px, Py = self.grid
         dev = blk.x.device
@@ -345,7 +353,8 @@ class PerDeviceEngine(ShardedEngine):
         halo = HaloTables(t_loc=tb, q_loc=qb, valid_loc=vb, **tabs)
 
         nbr, fl = self._rebuild_shard(d, self._pairs[d], xb, tb, vb, g)
-        nbr = self._into_program_lists(d, nbr)
+        if into_program:
+            nbr = self._into_program_lists(d, nbr)
         fl.update({"mig_overflow": ov_mig, "halo_overflow": ov_h,
                    "lost_atoms": lost, "count:slab": n_true,
                    "count:halo": nch[0], "count:haloy": nch[1]})
@@ -359,8 +368,18 @@ class PerDeviceEngine(ShardedEngine):
     # -- ShardedEngine's hooks ------------------------------------------------
     def _resettle_now(self):
         blocks = self.blocks
-        out = self.lockstep.run(
-            lambda d, comm: self._resettle_shard(d, comm, blocks[d]))
+        prog = self._resettle_program()
+        if prog is None:
+            out = self.lockstep.run(
+                lambda d, comm: self._resettle_shard(d, comm, blocks[d]))
+        else:
+            for d, (blk, buf) in enumerate(zip(blocks, prog.inputs)):
+                with self.group.on(d):
+                    for a in _ROWS:
+                        getattr(buf, a).copy_(getattr(blk, a))
+            prog.replay()
+            out = [(r[0].replace(step=b.step, extras=b.extras),) + r[1:]
+                   for r, b in zip(prog.results, blocks)]
         new, halos, nbrs, flags = (list(c) for c in zip(*out))
         self.group.synchronize()      # the caller reads the flags
         return new, halos, nbrs, flags[0]
@@ -464,7 +483,27 @@ class PerDeviceEngine(ShardedEngine):
             with self.group.on(d):
                 s.zero_()
 
-    # -- the captured segment -------------------------------------------------
+    # -- the captured programs ------------------------------------------------
+    def _resettle_program(self):
+        """The captured resettle (None: run eagerly): on CUDA shards unless
+        fused_loop is False, once the first resettle has fitted the plan
+        to the counts; captured anew when the plan, the capacities or the
+        configuration change."""
+        if (not self.group.cuda or self.fused_loop is False
+                or not self._plan_tightened):
+            return None
+        key = (self._plan, self.n_cap, self.Bhx, self.Bhy, self.B_mig,
+               id(self.pair), self.skin, self.grid)
+        if self._rs_prog is not None and self._rs_key == key:
+            return self._rs_prog
+        if self._rs_prog is not None:
+            self._rs_prog.close()
+            self._rs_prog = None
+        self._rs_prog = _capture_resettle(self)
+        self._rs_key = key
+        self.captures += 1
+        return self._rs_prog
+
     def _program(self, nsteps: int):
         """The captured program of an nsteps segment (None: run eagerly):
         on CUDA shards for segments of check_every steps unless
@@ -527,10 +566,11 @@ class PerDeviceEngine(ShardedEngine):
         return prog.nbrs[d]
 
     def close(self):
-        """Release the captured program (its graphs and pools)."""
-        if self._prog is not None:
-            self._prog.close()
-            self._prog = None
+        """Release the captured programs (their graphs and pools)."""
+        for a in ("_prog", "_rs_prog"):
+            if getattr(self, a) is not None:
+                getattr(self, a).close()
+                setattr(self, a, None)
 
 
 def _capture_segment(eng: PerDeviceEngine, nsteps: int):
@@ -564,6 +604,26 @@ def _capture_segment(eng: PerDeviceEngine, nsteps: int):
                                "extras")
     prog.inputs, prog.halos, prog.nbrs = inputs, halos, nbrs
     prog.new_blocks = [b for b, _ in prog.results]
+    return prog
+
+
+def _capture_resettle(eng: PerDeviceEngine):
+    """The resettle's Program: the rows of the engine's blocks cloned into
+    its input buffers (`inputs`, extras left out: the resettle passes them
+    through), one eager run on them (kernels built, the rebuild's
+    constants made), then the capture."""
+    inputs = []
+    for d, blk in enumerate(eng.blocks):
+        with eng.group.on(d):
+            inputs.append(blk.replace(extras={}, **{
+                a: getattr(blk, a).clone() for a in _ROWS}))
+
+    def body(d, comm):
+        return eng._resettle_shard(d, comm, inputs[d], into_program=False)
+
+    eng.lockstep.run(body)                     # warm-up, results dropped
+    prog = eng.lockstep.capture(body)
+    prog.inputs = inputs
     return prog
 
 

@@ -21,11 +21,14 @@ compare_outputs() adds x_ulp: the largest |x_program - x_reference| over
 atoms and components after a check's steps, each over the float32
 spacing at the reference's coordinate as the program stores it (wrapped
 by the program's own image counts), a coordinate nearer zero than
-ULP_FLOOR taken at ULP_FLOOR.  Far from the origin both a sound run and a
-wrong one read a few spacings of position rounding; near it the
-positions that forces in bfloat16 reach are many spacings off.  The
-reference's end positions come from the harness's own follow of each
-check (kept as it runs), so no check is followed twice.
+ULP_FLOOR taken at ULP_FLOOR.  The program's positions are unwrapped as
+the reference's start was (images times the float64 box), except that a
+period crossed during the check's steps is the program's own float32 box
+length, which is how far the program moved the row.  Far from the origin
+both a sound run and a wrong one read a few spacings of position
+rounding; near it the positions that forces in bfloat16 reach are many
+spacings off.  The reference's end positions come from the harness's own
+follow of each check (kept as it runs), so no check is followed twice.
 """
 
 from __future__ import annotations
@@ -97,12 +100,7 @@ class Driver:
             devices=shard_devices(lay, device), dt=cfg["dt"],
             skin=cfg["skin"], check_every=cfg["check_every"],
             grid=tuple(lay["grid"]), placement="per_device")
-        missing = [a for a in ("captures", "timers.counts")
-                   if not hasattr(self.eng if a == "captures"
-                                  else self.eng.timers, a.split(".")[-1])]
-        if missing:
-            raise RuntimeError(f"the program keeps no {missing}: it cannot "
-                               "report this cell's counters")
+        self.counters()     # a program that keeps none fails before warm-up
         self.natoms = n
         self.sync = self.eng.group.synchronize
         self.out = {}
@@ -210,13 +208,18 @@ def compare_outputs(c: dict, inp: dict, pot, outs: dict, states: dict,
         return x
 
     h = inp["h"].double()
+    h_prog = inp["h"].to(inp["dtype"]).double()
     nums = {"x_ulp": -math.inf}
     for tag in ("start", "end"):
         got = outs[tag]
         ref = end_x(states[tag], torch.float64)
+        dev = ref.device
+        image = got["image"].to(dev).double()
+        im0 = states[tag].get("image")       # none: the inputs, image 0
+        crossed = image - (0.0 if im0 is None else im0.to(dev).double())
         x = (end_x(states[tag], torch.bfloat16) if control
-             else got["x"]).to(ref.device)
-        stored = ref - got["image"].to(ref.device).double() @ h.to(ref.device)
+             else got["x"].to(dev) - crossed @ (h - h_prog).to(dev))
+        stored = ref - image @ h.to(dev)
         ulps = (x - ref).abs() / f32_spacing(stored)
         v = float(ulps.max())
         if v > nums["x_ulp"]:

@@ -69,6 +69,32 @@ def test_x_ulp_passes_a_sound_run_and_fails_the_others(f64):
     assert _x_ulp(f64, unchanged) > limit
 
 
+def test_x_ulp_reads_a_crossed_period_as_the_programs_box(f64):
+    """A row that crossed the x face during the check's steps: the
+    program moved it by its own float32 box length, and its snapshot
+    unwraps the new image with the float64 box; x_ulp reads the row where
+    the program has it, as if it had not crossed."""
+    inp = dict(f64["inp"], dtype=torch.float32)
+    got = f64["got"]
+    h = inp["h"].double()
+    gap = float(h[0, 0] - h[0, 0].float().double())
+    assert gap != 0.0
+    a = int(got["x"][:, 0].abs().argmin())
+    image, x = got["image"].clone(), got["x"].clone()
+    image[a, 0] += 1
+    x[a, 0] += gap
+    crossed = dict(got, image=image, x=x)
+    drv = H.find("drivers", "per_device")
+    states = dict(start=f64["start"], end=f64["start"])
+
+    def x_ulp(g):
+        return drv.compare_outputs(f64["c"], inp, f64["pot"],
+                                   dict(start=g, end=g), states,
+                                   False)["x_ulp"]
+
+    assert x_ulp(crossed) == pytest.approx(x_ulp(got), rel=1e-6, abs=1e-3)
+
+
 def test_f32_spacing_is_the_float32_ulp_above_the_floor():
     sp = H.find("drivers", "per_device").f32_spacing
     c = torch.tensor([0.0, -0.3, 1.0, 1.5, -3.0, 4153.9, 4096.0],

@@ -1845,9 +1845,9 @@ def test_sharded_graph_loop_matches_eager_loop(cuda, grid):
 @pytest.mark.parametrize("grid", [(4, 1), (2, 2)], ids=["slabs", "2x2"])
 def test_per_device_graph_matches_eager_and_stacked(cuda, grid):
     """The per-device placement on the card (a stream a shard): 60 steps
-    through resettles as captured pieces, equal bit for bit to its eager
-    run and to the stacked layout's; A, B, C and D' launched by every
-    shard."""
+    through resettles, its segments and its resettles as captured pieces,
+    equal bit for bit to its eager run and to the stacked layout's; A, B,
+    C and D' launched by every shard."""
     stacked = _sharded(cuda, None, grid=grid)
     graph, eager = (_sharded(cuda, f, grid=grid, placement="per_device")
                     for f in (None, False))
@@ -1855,6 +1855,8 @@ def test_per_device_graph_matches_eager_and_stacked(cuda, grid):
     for e in (stacked, graph, eager):
         e.run(60)
     assert graph._prog is not None and eager._prog is None
+    assert graph._rs_prog is not None and eager._rs_prog is None
+    assert graph.captures >= 2 and eager.captures == 0
     assert graph.resettles >= 3
     assert graph.resettles == eager.resettles == stacked.resettles
     for other in (eager, stacked):
